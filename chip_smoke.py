@@ -4,22 +4,35 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   — compile every CUDA kernel of the path from csrc/ (one nvcc
+  1. build   — compile every CUDA kernel of the paths from csrc/ (one nvcc
                per source, all started together) and print the build time.
   2. parity  — hold each kernel against its plain PyTorch twin on the card,
-               at the main path's shapes, at a ragged size and at size 0.
+               at the main paths' shapes, at a ragged size and at size 0
+               (the cache kernels with negative and duplicate slots, keys at
+               and above 2^63 and the all-ones key).
   3. pass    — write synthetic slot files at the full width of the repo's
                benchmark CTR-DNN (16 sparse slots, 13 dense, batch 2048,
                embedding_dim 8 -> device row width 10, tower 512-256-128, vocab
                100 000 per slot) and run begin_pass -> train_from_dataset ->
-               end_pass for PASSES passes on device="cuda", with every
-               kernel launch counter reset just before and read just after.
+               end_pass for PASSES passes on device="cuda" with the HBM
+               cache off, every kernel launch counter reset just before and
+               read just after.
      check   — the same small pass on the card and on the CPU (plain twins)
                from identical initial weights must agree.
      stages  — one more pass, synchronized after each host stage and step,
                for the per-step breakdown (--profile adds a profiler window).
-  4. times   — median time of each kernel, its twin and the equivalent
-               PyTorch library call at the main path's shapes with the L2
+  4. cached  — the same model with the reference's default HBM cache (65 536
+               rows) over CACHED_PASSES passes, each over its own Zipf(1.3)
+               file set, counters reset just before and read just after;
+               per pass the census, hits, misses, evicted and written-back
+               rows, begin_pass / end_pass seconds and samples/s, beside the
+               same passes without the cache.  With deterministic algorithms
+               on, cached and uncached trained passes from the same initial
+               weights must be bit-equal.
+     lifecycle — the three censuses through a cached and an uncached table
+               with a deterministic in-pass update: bit-equal state_dicts.
+  5. times   — median time of each kernel, its twin and the equivalent
+               PyTorch library call at the main paths' shapes with the L2
                cache cold, beside the least time the card's memory rate
                allows.
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
@@ -53,11 +66,22 @@ KEY_CAPACITY = BATCH * N_SLOTS * 4
 # batches and one partial per pass), 3 passes.
 N_FILES, INS_PER_FILE, PASSES = 8, 25_000, 3
 
-# H100 SXM device memory rate (NVIDIA data sheet), the bytes bound.
+# The cached path: the reference's default cache, and per pass its own
+# file set of 64 000 instances drawn with Zipf(1.3), the skew of the
+# reference's cache ablation (bench.py:1129-1165), at the model's vocab.
+CACHE_ROWS = 1 << 16
+CACHED_PASSES, CACHED_FILES, CACHED_INS_PER_FILE, ZIPF_A = 3, 4, 16_000, 1.3
+
+# H100 SXM device memory rate and float32 rate outside the tensor cores
+# (NVIDIA data sheet): the bytes and operations bounds.
 HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 TPU_KERNELS = {
     "pull_rows": "paddlebox_tpu/ops/pallas_sparse.py:129",
     "scatter_add_rows": "paddlebox_tpu/ops/pallas_sparse.py:215",
+    "gather_slots": "paddlebox_tpu/ops/pallas_sparse.py:274",
+    "scatter_rows": "paddlebox_tpu/ops/pallas_sparse.py:335",
+    "sorted_search": "paddlebox_tpu/ops/pallas_sparse.py:464",
 }
 # Real duplicates reach scatter_add_rows' atomics in an order that changes
 # from run to run.  For a row hit n times the result differs from a
@@ -81,24 +105,33 @@ def card_line() -> str:
 
 
 def _write_part(args) -> str:
-    out_dir, ins, seed = args
+    out_dir, ins, seed, zipf_a = args
     from paddlebox_tpu_torch.data.synth import write_synth_files
 
     return write_synth_files(
         out_dir, n_files=1, ins_per_file=ins, n_sparse_slots=N_SLOTS,
-        vocab_per_slot=VOCAB, dense_dim=DENSE, seed=seed,
+        vocab_per_slot=VOCAB, dense_dim=DENSE, seed=seed, zipf_a=zipf_a,
     )[0]
 
 
-def write_data(n_files: int, ins_per_file: int) -> list:
+def write_data() -> tuple:
     """Synthetic files, one writer process per file (spawned, so no child
-    inherits a CUDA context)."""
+    inherits a CUDA context): the uncached path's N_FILES, and the cached
+    path's CACHED_FILES per pass.  Returns (files, [files of each pass])."""
+    jobs = [(os.path.join(WORK_DIR, f"w{i}"), INS_PER_FILE, 7 + i, 0.0)
+            for i in range(N_FILES)]
+    for p in range(CACHED_PASSES):
+        jobs += [(os.path.join(WORK_DIR, f"z{p}-{i}"), CACHED_INS_PER_FILE,
+                  100 + CACHED_FILES * p + i, ZIPF_A)
+                 for i in range(CACHED_FILES)]
     ctx = multiprocessing.get_context("spawn")
-    jobs = [(os.path.join(WORK_DIR, f"w{i}"), ins_per_file, 7 + i)
-            for i in range(n_files)]
-    workers = min(n_files, os.cpu_count() or 1)
+    workers = min(len(jobs), os.cpu_count() or 1)
     with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as ex:
-        return list(ex.map(_write_part, jobs))
+        paths = list(ex.map(_write_part, jobs))
+    per_pass = [paths[N_FILES + CACHED_FILES * p:
+                      N_FILES + CACHED_FILES * (p + 1)]
+                for p in range(CACHED_PASSES)]
+    return paths[:N_FILES], per_pass
 
 
 def pass_capacity(n_census: int) -> int:
@@ -175,10 +208,85 @@ def check_parity(P: int, device) -> dict:
     return errs
 
 
+def check_cache_parity(census, device) -> dict:
+    """The cache kernels against their twins at the cached path's shapes
+    (the cache's [CACHE_ROWS, W+1] rows, a census of real keys), at a
+    ragged size and at size 0; all bit-exact."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    W1 = EMB + 3
+    C = CACHE_ROWS
+    gen = torch.Generator(device=device).manual_seed(2)
+    rows = torch.randn((C, W1), device=device, generator=gen)
+    errs = {}
+    for k in (C, 12_345, 0):
+        slots = torch.randint(-1, C, (k,), device=device, generator=gen,
+                              dtype=torch.int32)
+        got = sk.gather_slots(rows, slots)
+        want = sk.gather_slots_plain(rows, slots)
+        if got.shape != (k, W1) or not torch.equal(got, want):
+            raise AssertionError(f"gather_slots differs from its twin at K={k}")
+        if k == C:
+            errs["gather_slots"] = float((got - want).abs().max())
+    log(f"parity gather_slots: bit-exact at K={C}, 12345, 0 (negative slots)")
+
+    for k in (C, min(12_345, C // 2 + 1), 0):
+        # unique slots (the main path's hits + admits), then duplicates
+        # (about 1.6 occurrences a slot) mixed with negative slots
+        cases = (("unique", torch.randperm(C, device=device,
+                                           generator=gen)[:k].to(torch.int32)),
+                 ("duplicates", torch.randint(-1, C, (k,), device=device,
+                                              generator=gen,
+                                              dtype=torch.int32)))
+        for what, slots in cases:
+            new = torch.randn((k, W1), device=device, generator=gen)
+            got = sk.scatter_rows(rows.clone(), slots, new)
+            want = sk.scatter_rows_plain(rows.clone(), slots, new)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"scatter_rows differs from its twin at K={k} ({what})")
+            if k == C and what == "duplicates":
+                errs["scatter_rows"] = float((got - want).abs().max())
+    log(f"parity scatter_rows: bit-exact at K={C}, 12345, 0 (unique slots; "
+        "duplicates with negatives, last occurrence wins)")
+
+    rng = np.random.default_rng(3)
+    hay_keys = np.unique(np.concatenate([
+        rng.integers(0, 2**64 - 1, size=C - 2, dtype=np.uint64),
+        census[: C // 4], np.array([2**63], np.uint64),
+    ]))[: C - 1]
+    hay = np.append(hay_keys, np.uint64(2**64 - 1))  # a real all-ones key
+    q_all = np.concatenate([census, hay[::2], hay[-1:]])
+    hay_t = torch.from_numpy(np.ascontiguousarray(hay).view(np.int64)).to(device)
+    for nq in (q_all.shape[0], 12_345, 0):
+        q = torch.from_numpy(q_all[:nq].view(np.int64)).to(device)
+        # n_real = C: the all-ones key is real; C - 1: it is padding
+        for n_real in (C, C - 1):
+            got = sk.sorted_search(hay_t, n_real, q)
+            want = sk.sorted_search_plain(hay_t, n_real, q)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"sorted_search differs from its twin at Q={nq}, "
+                    f"n_real={n_real}")
+            if nq == q_all.shape[0] and n_real == C:
+                errs["sorted_search"] = float((got - want).abs().max())
+                found = int((got >= 0).sum())
+    log(f"parity sorted_search: bit-exact at Q={q_all.shape[0]}, 12345, 0 over "
+        f"{C} keys ({int((hay >= np.uint64(2**63)).sum())} at or above 2^63, "
+        f"the all-ones key real and as padding); {found} found")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return errs
+
+
 # --------------------------------------------------------------------------- #
 # phase 3: the slice pass
 # --------------------------------------------------------------------------- #
-def make_world(n_slots, dense, batch, emb, hidden, device, key_capacity=None):
+def make_world(n_slots, dense, batch, emb, hidden, device, key_capacity=None,
+               cache_rows=0):
     from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
     from paddlebox_tpu_torch.data.synth import make_synth_config
     from paddlebox_tpu_torch.models import CtrDnn
@@ -189,7 +297,7 @@ def make_world(n_slots, dense, batch, emb, hidden, device, key_capacity=None):
         n_sparse_slots=n_slots, dense_dim=dense, batch_size=batch,
         max_feasigns_per_ins=64, batch_key_capacity=key_capacity,
     )
-    tconf = SparseTableConfig(embedding_dim=emb)
+    tconf = SparseTableConfig(embedding_dim=emb, hbm_cache_rows=cache_rows)
     table = SparseTable(tconf, seed=0, device=device)
     model = CtrDnn(n_slots, tconf.row_width, dense_dim=dense, hidden=hidden,
                    seed=0, device=device)
@@ -236,8 +344,8 @@ def slice_pass(ds, device="cuda") -> dict:
         raise AssertionError("non-finite loss")
     if not 0.0 < last["auc"] < 1.0 or last["count"] != ds.get_memory_data_size():
         raise AssertionError(f"bad pass metrics {last}")
-    for name, n in launches.items():
-        if n <= 0 and device == "cuda":
+    for name in ("pull_rows", "scatter_add_rows"):  # the uncached path's
+        if launches[name] <= 0 and device == "cuda":
             raise AssertionError(f"kernel {name} never launched on the main path")
     if table.missing_key_count or table.n_features != n_census:
         raise AssertionError(
@@ -289,6 +397,164 @@ def small_agreement() -> None:
         raise AssertionError(f"card/CPU table rows differ by {err}")
     log(f"small pass card vs CPU: losses {[m['loss'] for m in mg]} vs "
         f"{[m['loss'] for m in mc]}, table max abs diff {err!r}")
+
+
+def load(files, read_threads: int):
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config
+
+    ds = PadBoxSlotDataset(make_synth_config(
+        n_sparse_slots=N_SLOTS, dense_dim=DENSE, batch_size=BATCH,
+        max_feasigns_per_ins=64, batch_key_capacity=KEY_CAPACITY,
+    ), read_threads=read_threads)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    return ds
+
+
+def drive_passes(datasets, table, trainer) -> list:
+    """One pass over each dataset, timing begin_pass and end_pass to a
+    synchronize; per pass the census, the cache's hits and misses (the
+    promotion patch), the evicted and written-back rows and the metrics."""
+    import torch
+
+    out = []
+    for ds in datasets:
+        census = ds.unique_keys()
+        t0 = time.perf_counter()
+        table.begin_pass(census)
+        torch.cuda.synchronize()
+        begin_s = time.perf_counter() - t0
+        hits, misses = table.last_cache_hits, table.last_cache_misses
+        m = trainer.train_from_dataset(ds, table)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table.end_pass()
+        torch.cuda.synchronize()
+        out.append(dict(
+            census=int(census.shape[0]), hits=hits,
+            promotion_rows=misses if table._caches() else int(census.shape[0]),
+            evicted=table.last_evicted_rows,
+            written_back=table.last_write_back_rows, begin_s=begin_s,
+            end_s=time.perf_counter() - t0,
+            samples_per_s=m["samples"] / m["duration_s"], metrics=m,
+        ))
+    return out
+
+
+def cached_path(datasets) -> dict:
+    """The full-width model with the reference's default HBM cache over
+    CACHED_PASSES passes, each over its own Zipf file set, launch counters
+    reset just before and read just after; then the same passes without
+    the cache, for the boundary numbers beside it.
+
+    Two trained runs differ on the card in the last bits even without the
+    cache: the step's index_add_ segment sums add duplicates with atomics in
+    an order that changes from run to run, and the difference grows over
+    the steps.  So the cached and uncached trained passes are compared once
+    more with torch.use_deterministic_algorithms on (index_add_ then sums in
+    a fixed order), from the same initial weights, and must be bit-equal:
+    losses, keys and every row."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    runs = {}
+    for label, rows, det in (("cached", CACHE_ROWS, False),
+                             ("uncached", 0, False),
+                             ("cached deterministic", CACHE_ROWS, True),
+                             ("uncached deterministic", 0, True)):
+        torch.use_deterministic_algorithms(det)
+        try:
+            _, table, trainer = make_world(N_SLOTS, DENSE, BATCH, EMB, HIDDEN,
+                                           "cuda", KEY_CAPACITY,
+                                           cache_rows=rows)
+            if label == "cached":
+                sk.reset_launches()
+            per_pass = drive_passes(datasets, table, trainer)
+            if label == "cached":
+                launches = dict(sk.launches)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        runs[label] = (per_pass, table)
+        for p, r in enumerate(per_pass):
+            m = r["metrics"]
+            log(f"{label} pass {p}: census {r['census']}, hits {r['hits']}, "
+                f"promotion rows {r['promotion_rows']}, evicted "
+                f"{r['evicted']}, written back {r['written_back']}; "
+                f"begin_pass {r['begin_s']!r} s, end_pass {r['end_s']!r} s; "
+                f"{r['samples_per_s']!r} samples/s; loss {m['loss']!r} "
+                f"auc {m['auc']!r} steps {m['steps']}")
+    log(f"cached path launches {launches}")
+    cached, table = runs["cached"]
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the cached path")
+    if not any(r["hits"] and r["evicted"] for r in cached):
+        raise AssertionError("no cached pass had both hits and evictions")
+    if not all(math.isfinite(r["metrics"]["loss"]) for r in cached):
+        raise AssertionError("non-finite loss on the cached path")
+    union = np.unique(np.concatenate([ds.unique_keys() for ds in datasets]))
+    if table.n_features != union.shape[0]:  # n_features drains the cache
+        raise AssertionError(f"cached table holds {table.n_features} features "
+                             f"of the censuses' {union.shape[0]}")
+    if not np.isfinite(table.state_dict()["values"]).all():
+        raise AssertionError("non-finite rows in the cached table")
+    (det_c, det_ct), (det_u, det_ut) = (runs["cached deterministic"],
+                                        runs["uncached deterministic"])
+    sc, su = det_ct.state_dict(), det_ut.state_dict()
+    losses_c = [r["metrics"]["loss"] for r in det_c]
+    losses_u = [r["metrics"]["loss"] for r in det_u]
+    if (losses_c != losses_u or not np.array_equal(sc["keys"], su["keys"])
+            or not np.array_equal(sc["values"], su["values"])):
+        raise AssertionError(
+            f"deterministic cached and uncached trained passes differ: losses "
+            f"{losses_c} vs {losses_u}")
+    noise = float(np.abs(table.state_dict()["values"]
+                         - runs["uncached"][1].state_dict()["values"]).max())
+    log(f"cached vs uncached trained passes, deterministic: bit-equal (losses "
+        f"{losses_c}, {sc['keys'].shape[0]} rows); without determinism the "
+        f"rows differ by up to {noise!r}")
+    return {"launches": launches, "table": table}
+
+
+def lifecycle_check(censuses) -> None:
+    """The censuses through a cached and an uncached table on the card with
+    a deterministic in-pass update: the state_dicts must be bit-equal."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.config import SparseTableConfig
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+
+    states = {}
+    for rows in (CACHE_ROWS, 0):
+        table = SparseTable(SparseTableConfig(embedding_dim=EMB,
+                                              hbm_cache_rows=rows), seed=0)
+        times = []
+        for pk in censuses:
+            t0 = time.perf_counter()
+            table.begin_pass(pk)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n = pk.shape[0]
+            table.values[:n] += 1.0
+            table.g2sum[:n] += 0.5
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            table.end_pass()
+            torch.cuda.synchronize()
+            times.append((t1 - t0, time.perf_counter() - t2))
+        states[rows] = table.state_dict()
+        log(f"lifecycle {'cached' if rows else 'uncached'}: begin_pass / "
+            f"end_pass s per pass {times}")
+    a, b = states[CACHE_ROWS], states[0]
+    if not (np.array_equal(a["keys"], b["keys"])
+            and np.array_equal(a["values"], b["values"])):
+        raise AssertionError("cached and uncached lifecycles differ on the card")
+    log(f"lifecycle: cached and uncached state_dicts bit-equal "
+        f"({a['keys'].shape[0]} rows)")
 
 
 def stage_breakdown(ds, table, trainer, profile: bool) -> None:
@@ -438,12 +704,12 @@ def cold_ms(fn, flush, reps: int = 50) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
-def kernel_times(table, ds, launches: dict, errs: dict) -> list:
-    """Time each kernel at a real batch's plan of the trained table."""
+def slice_specs(table, ds) -> dict:
+    """Timing inputs of the step's two kernels: a real batch's plan of the
+    trained uncached table (a pass is left open; the caller ends it)."""
     import torch
 
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
-    from paddlebox_tpu_torch.ops.cuda_build import source_path
 
     table.begin_pass(ds.unique_keys())
     plan = table.plan_batch(next(ds.batches()))
@@ -459,22 +725,91 @@ def kernel_times(table, ds, launches: dict, errs: dict) -> list:
     k, u = idx.shape[0], uidx.shape[0]
     pull_rows_read = int(torch.unique(idx).shape[0])
     push_rows = int(torch.unique(uidx).shape[0])
-    specs = {
+    return {
         "pull_rows": dict(
             fn=lambda: sk.pull_rows(values, idx),
             plain=lambda: sk.pull_rows_plain(values, idx),
             library=lambda: torch.index_select(values, 0, idx),
-            bytes=k * 4 + pull_rows_read * W * f4 + k * W * f4,
+            bytes=k * 4 + pull_rows_read * W * f4 + k * W * f4, ops=0,
         ),
         "scatter_add_rows": dict(
             fn=lambda: sk.scatter_add_rows(work, uidx, delta),
             plain=lambda: sk.scatter_add_rows_plain(work, uidx, delta),
             library=lambda: work.index_add_(0, uidx, delta),
-            bytes=u * 4 + u * W * f4 + 2 * push_rows * W * f4,
+            bytes=u * 4 + u * W * f4 + 2 * push_rows * W * f4, ops=u * W,
         ),
     }
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+
+def cache_specs(table, census) -> dict:
+    """Timing inputs of the cache kernels at the cached path's shapes: the
+    trained cache resolved against the last pass's census, the hit slots it
+    gathers, the hit + admit slots end_pass would write, the device key
+    mirror the census is searched in."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    cache = table._caches()[0]
+    plan = cache.lookup(census)  # also builds the device key mirror
+    upd = cache.plan_update(census, plan)  # a decision only: not committed
+    rows = cache.rows
+    W1 = rows.shape[1]
+    hits = torch.from_numpy(plan.hit_slots).cuda()
+    upd_slots = np.concatenate([plan.hit_slots, upd.admit_slots])
+    slots = torch.from_numpy(upd_slots).cuda()
+    slots_long = slots.long()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    new = torch.randn((slots.shape[0], W1), device="cuda", generator=gen)
+    work = rows.clone()
+    hay, n_real = cache._dev_index
+    q = torch.from_numpy(np.ascontiguousarray(census).view(np.int64)).cuda()
+    hay_f, q_f = hay ^ sk._SIGN, q ^ sk._SIGN
+    h, k, nq, c = hits.shape[0], slots.shape[0], q.shape[0], hay.shape[0]
+    log(f"cache kernel shapes: {h} hit slots, {k} hit + admit slots "
+        f"({upd.victim_slots.shape[0]} victims), {nq} census keys searched in "
+        f"{c} ({n_real} real)")
+    return {
+        # hits are unique slots: each distinct row is read once
+        "gather_slots": dict(
+            fn=lambda: sk.gather_slots(rows, hits),
+            plain=lambda: sk.gather_slots_plain(rows, hits),
+            library=lambda: torch.index_select(rows, 0, hits),
+            bytes=h * 4 + 2 * h * W1 * 4, ops=0,
+        ),
+        "scatter_rows": dict(
+            fn=lambda: sk.scatter_rows(work, slots, new),
+            plain=lambda: sk.scatter_rows_plain(work, slots, new),
+            library=lambda: work.index_copy_(0, slots_long, new),
+            bytes=k * 4 + 2 * k * W1 * 4, ops=0,
+        ),
+        # one 64-bit compare per step of the descent
+        "sorted_search": dict(
+            fn=lambda: sk.sorted_search(hay, n_real, q),
+            plain=lambda: sk.sorted_search_plain(hay, n_real, q),
+            library=lambda: torch.searchsorted(hay_f, q_f),
+            bytes=c * 8 + nq * 8 + nq * 4,
+            ops=nq * max(1, (c - 1).bit_length()),
+        ),
+    }
+
+
+def kernel_times(res: dict, ds, cached: dict, census, errs: dict) -> list:
+    """Time each kernel at its main path's shapes; the launches are those of
+    the main-path run that launched it."""
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.ops.cuda_build import source_path
+
     saved = dict(sk.launches)
+    specs = slice_specs(res["table"], ds)
+    specs.update(cache_specs(cached["table"], census))
+    launches = dict(res["launches"])
+    for name in ("gather_slots", "scatter_rows", "sorted_search"):
+        launches[name] = cached["launches"][name]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     rows = []
     for name, s in specs.items():
         # turns, L2 cold: twin, kernel, kernel, twin, library
@@ -484,7 +819,8 @@ def kernel_times(table, ds, launches: dict, errs: dict) -> list:
         plain_b = cold_ms(s["plain"], flush)
         lib = cold_ms(s["library"], flush)
         warm = device_ms(s["fn"])
-        bound = s["bytes"] / HBM_BYTES_PER_S * 1e3
+        bytes_ms = s["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = s["ops"] / OPS_PER_S * 1e3
         rows.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(source_path(name), REPO),
@@ -492,14 +828,16 @@ def kernel_times(table, ds, launches: dict, errs: dict) -> list:
             "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib,
         })
         log(f"time {name} (L2 cold): kernel {ms_a!r} / {ms_b!r} ms, twin "
             f"{plain_a!r} / {plain_b!r} ms, library {lib!r} ms, bound "
-            f"{bound!r} ms ({s['bytes']} bytes); kernel with L2 warm "
-            f"{warm!r} ms")
+            f"{max(bytes_ms, ops_ms)!r} ms ({s['bytes']} bytes, {s['ops']} "
+            f"operations); kernel with L2 warm {warm!r} ms")
     sk.launches.update(saved)  # timing launches are not main-path launches
-    table.end_pass()
+    res["table"].end_pass()
     torch.cuda.synchronize()
     return rows
 
@@ -519,13 +857,14 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, REPO)
     # a copy of this script alone, without the package beside it, fails here
-    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
-    from paddlebox_tpu_torch.data.synth import make_synth_config
     from paddlebox_tpu_torch.ops import cuda_build
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS reads this when it is first used: the deterministic phase of
+    # cached_path needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -540,25 +879,28 @@ def main(argv=None) -> int:
             log(f"  {name}: " + " | ".join(ptxas))
 
         t0 = time.perf_counter()
-        files = write_data(N_FILES, INS_PER_FILE)
-        conf = make_synth_config(
-            n_sparse_slots=N_SLOTS, dense_dim=DENSE, batch_size=BATCH,
-            max_feasigns_per_ins=64, batch_key_capacity=KEY_CAPACITY,
-        )
-        ds = PadBoxSlotDataset(conf, read_threads=N_FILES)
-        ds.set_filelist(files)
-        ds.load_into_memory()
+        files, cached_files = write_data()
+        ds = load(files, N_FILES)
         n_census = ds.unique_keys().shape[0]
+        cached_ds = [load(fs, CACHED_FILES) for fs in cached_files]
+        censuses = [d.unique_keys() for d in cached_ds]
         log(f"data: {ds.get_memory_data_size()} instances, {n_census} census "
-            f"keys in {time.perf_counter() - t0!r} s")
+            f"keys; cached path {[d.get_memory_data_size() for d in cached_ds]} "
+            f"instances, censuses {[c.shape[0] for c in censuses]}; in "
+            f"{time.perf_counter() - t0!r} s")
 
         P = pass_capacity(n_census)
         errs = check_parity(P, torch.device("cuda"))
+        errs.update(check_cache_parity(censuses[0], torch.device("cuda")))
         res = slice_pass(ds)
         stage_breakdown(ds, res["table"], res["trainer"], profile)
         small_agreement()
-        rows = kernel_times(res["table"], ds, res["launches"], errs)
+        cached = cached_path(cached_ds)
+        lifecycle_check(censuses)
+        rows = kernel_times(res, ds, cached, censuses[-1], errs)
         ds.close()
+        for d in cached_ds:
+            d.close()
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(json.dumps({"kernels": rows}))

@@ -39,6 +39,9 @@ class _Flags:
         # the native C++ parser and batch planner are later slices
         "use_native_parser": False,
         "use_native_planner": False,
+        # kill switch of the HBM hot-row cache, process-wide, whatever
+        # SparseTableConfig.hbm_cache_rows says (reference: flags.hbm_cache)
+        "hbm_cache": True,
     }
 
     def __getattr__(self, name: str):
@@ -178,10 +181,21 @@ class SparseTableConfig:
     plan_scratch_rows: int = 1 << 15
     store_spill_dir: str = ""
     store_log_dir: str = ""
-    # The reference defaults both to on; its tests pin each bit-exact
-    # against off, and this slice runs the serial, uncached lifecycle.
+    # shrink(): per-day show/clk decay, and rows whose show falls below
+    # delete_threshold are evicted
+    delete_threshold: float = 0.0
+    show_decay_rate: float = 0.98
+    # The reference defaults it to on and pins it bit-exact against off;
+    # the port runs the serial lifecycle until item 8 brings the overlap.
     overlap_pass_boundary: bool = False
-    hbm_cache_rows: int = 0
+    # Persistent HBM hot-row cache (sparse/engine/hbm_cache.py): slots kept
+    # on the device across passes, so begin_pass fetches only the census
+    # misses from the host store.  0 disables it, as does
+    # PADDLEBOX_TORCH_HBM_CACHE=0 process-wide.  The cached lifecycle is
+    # bit-exact with the uncached one.
+    hbm_cache_rows: int = 1 << 16
+    # per-pass frequency decay of the cache's LFU-with-aging policy
+    hbm_cache_aging: float = 0.8
 
     @property
     def row_width(self) -> int:
@@ -193,8 +207,6 @@ class SparseTableConfig:
             raise not_ported("expand_dim", "model zoo, item 10")
         if self.slot_learning_rates:
             raise not_ported("slot_learning_rates", "model zoo, item 10")
-        if self.hbm_cache_rows > 0:
-            raise not_ported("hbm_cache_rows > 0", "slice 2, HBM cache, item 7")
         if self.overlap_pass_boundary:
             raise not_ported(
                 "overlap_pass_boundary=True", "pass-boundary overlap, item 8"

@@ -5,8 +5,10 @@ Keys are partitioned into ``n_buckets`` (a power of two) by the top bits of
 a splitmix64 mix of the key, so any key distribution balances.  Each bucket
 holds a sorted key array and a row matrix.  A pass-boundary merge updates
 rows of known keys in place and rebuilds only buckets that received new
-keys.  This slice runs the store serially and in RAM; the reference's
-thread pool, spill files and durable log are later slices.
+keys.  ``decay_evict`` is the shrink's decay and eviction; ``load_bulk``
+replaces the content at a restore.  This port runs the store serially and
+in RAM; the reference's thread pool, spill files and durable log are later
+slices.
 """
 
 from __future__ import annotations
@@ -100,6 +102,47 @@ class BucketStore:
             if miss.any():
                 self._keys[b] = np.insert(bk, pos[miss], sub[miss])
                 self._vals[b] = np.insert(bv, pos[miss], subv[miss], axis=0)
+
+    def decay_evict(self, decay_cols: int, decay: float, threshold: float) -> int:
+        """Decay the first ``decay_cols`` columns of every row and evict rows
+        whose column 0 falls below ``threshold``.  Returns the evicted
+        count (ShrinkTable semantics)."""
+        evicted = 0
+        for b in range(self.n_buckets):
+            bk, bv = self._keys[b], self._vals[b]
+            if bk.shape[0] == 0:
+                continue
+            bv[:, :decay_cols] *= decay
+            if threshold <= 0.0:
+                continue
+            keep = bv[:, 0] >= threshold
+            ne = int((~keep).sum())
+            if ne:
+                self._keys[b] = bk[keep]
+                self._vals[b] = bv[keep]
+                evicted += ne
+        return evicted
+
+    def clear(self) -> None:
+        self._keys = [_EMPTY_KEYS] * self.n_buckets
+        self._vals = [np.empty((0, self.n_cols), np.float32)] * self.n_buckets
+
+    def load_bulk(self, keys: np.ndarray, vals: np.ndarray) -> None:
+        """Replace the store content (checkpoint restore).  ``keys`` need not
+        be sorted; duplicates keep the LAST occurrence."""
+        self.clear()
+        keys = np.asarray(keys, dtype=np.uint64)
+        vals = np.asarray(vals, dtype=np.float32)
+        if keys.shape[0]:
+            order = np.argsort(keys, kind="stable")
+            keys, vals = keys[order], vals[order]
+            uniq, last_idx = np.unique(keys[::-1], return_index=True)
+            if uniq.shape[0] != keys.shape[0]:
+                take = keys.shape[0] - 1 - last_idx  # last occurrence wins
+                keys, vals = uniq, vals[take]
+        for b, idx in self._split(keys):
+            self._keys[b] = keys[idx]
+            self._vals[b] = vals[idx]
 
     def materialize(self) -> Tuple[np.ndarray, np.ndarray]:
         """Whole store as (keys, vals), globally key-sorted."""

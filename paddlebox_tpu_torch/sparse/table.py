@@ -1,8 +1,16 @@
 """Single-chip pass-scoped sparse embedding table (reference:
-paddlebox_tpu/sparse/table.py, its serial uncached lifecycle).
+paddlebox_tpu/sparse/table.py, its serial lifecycle).
 
   * host store: every feature ever seen, rows ``[show, clk, embed..., g2sum]``
     (float32) in a BucketStore.
+  * HBM cache (sparse/engine/hbm_cache.py, on by default): hot rows that
+    persist on the device across passes.  begin_pass fetches only the
+    census misses from the host store and fills the hits from the cache;
+    end_pass updates resident rows in place, admits new hot keys and writes
+    back only cold and evicted rows.  Dirty cache rows drain into the store
+    at every barrier (``flush``: n_features, state_dict, delta_state_dict,
+    shrink), and membership is dropped whenever the store changes
+    underneath (load_state_dict, apply_delta, shrink).
   * begin_pass(keys): promote the pass working set to the device as one
     ``values [P, W]`` tensor plus ``g2sum [P]``.  Layout: ``[0, n)`` live
     rows (sorted pass keys) | ``[n, P-1)`` plan scratch rows | ``P-1`` the
@@ -12,7 +20,7 @@ paddlebox_tpu/sparse/table.py, its serial uncached lifecycle).
     outputs of static shape.
   * pull_rows / push_and_update: device functions on tensors — the gather,
     and the segment-sum merge + sparse adagrad + counter scatter-add.
-  * end_pass(): write the working set back into the host store.
+  * end_pass(): write the working set back (to the cache and the store).
 
 The dead row serves padding and keys missing from the pass census: pulls
 read zeros, and it is re-zeroed after every push.
@@ -29,6 +37,7 @@ import torch
 from paddlebox_tpu_torch.config import SparseTableConfig, flags, not_ported
 from paddlebox_tpu_torch.data.feed import HostBatch
 from paddlebox_tpu_torch.ops import sparse_kernels
+from paddlebox_tpu_torch.sparse.engine import CachePlan, HbmCache
 from paddlebox_tpu_torch.sparse.optimizer import sparse_adagrad_update
 from paddlebox_tpu_torch.sparse.store import (
     _MIX_1,
@@ -78,6 +87,17 @@ def _key_uniform(keys: np.ndarray, seed: int, n_cols: int, rng_range: float) -> 
     return ((u * 2.0 - 1.0) * rng_range).astype(np.float32)
 
 
+def _rows_at(table: torch.Tensor, pos: np.ndarray) -> torch.Tensor:
+    """Rows ``table[pos]`` of a device tensor through the gather_slots
+    kernel (its twin on the CPU); ``pos`` are host indices, all >= 0."""
+    idx = torch.from_numpy(np.ascontiguousarray(pos, dtype=np.int32))
+    return sparse_kernels.gather_slots(table, idx.to(table.device))
+
+
+def _empty_rows(n_cols: int) -> np.ndarray:
+    return np.empty((0, n_cols), dtype=np.float32)
+
+
 class SparseTable:
     def __init__(self, conf: SparseTableConfig, seed: int = 0, device="cuda"):
         if flags.use_native_planner:
@@ -91,14 +111,28 @@ class SparseTable:
         self.g2sum: Optional[torch.Tensor] = None  # [P]
         self._pass_keys: Optional[np.ndarray] = None  # sorted
         self._in_pass = False
+        # census of every begin_pass since the last pop, for delta_state_dict
+        self._delta_keys: list = []
         # largest key buffer planned so far: sizes the next pass's scratch
         # region (pass 1 uses conf.plan_scratch_rows)
         self._last_plan_k = 0
+        # the persistent HBM cache, built at the first begin_pass (None when
+        # conf.hbm_cache_rows == 0 or PADDLEBOX_TORCH_HBM_CACHE=0)
+        self._cache: Optional[HbmCache] = None
+        self._cache_tried = False
+        self._cache_plan: Optional[CachePlan] = None
+        self.last_cache_hits = 0
+        self.last_cache_misses = 0  # == the begin-pass promotion patch rows
+        # rows the last end_pass evicted from the cache and wrote to the
+        # host store (the reference counts both in its telemetry)
+        self.last_evicted_rows = 0
+        self.last_write_back_rows = 0
         self.missing_key_count = 0
 
     # -- introspection --------------------------------------------------- #
     @property
     def n_features(self) -> int:
+        self.flush()  # hot rows may live only in the cache until a drain
         return self._store.n
 
     @property
@@ -113,6 +147,53 @@ class SparseTable:
         """Device rows begin_pass allocates for a census of n_keys keys."""
         scratch = self._last_plan_k or self.conf.plan_scratch_rows
         return _next_pow2(n_keys + 1 + scratch)
+
+    # -- the HBM cache ----------------------------------------------------- #
+    def _get_cache(self) -> Optional[HbmCache]:
+        """The persistent HBM hot-row cache, built on first use (None when
+        disabled)."""
+        if not self._cache_tried:
+            if self.conf.hbm_cache_rows > 0 and flags.hbm_cache:
+                self._cache = HbmCache(
+                    self.conf.hbm_cache_rows, self.conf.row_width + 1,
+                    aging=self.conf.hbm_cache_aging, device=self.device,
+                )
+            self._cache_tried = True
+        return self._cache
+
+    def _caches(self) -> list:
+        """Every cache this table owns (one on a single chip)."""
+        c = self._get_cache()
+        return [c] if c is not None else []
+
+    def _cache_fetch_rows(self, miss: np.ndarray) -> np.ndarray:
+        """Host-tier fetch of the cache-MISS rows: the begin-pass promotion
+        patch, O(cold keys)."""
+        return self._resolve_or_init(miss)
+
+    def _drain_cache(self) -> None:
+        """Write every dirty cache row back to the host store, so the store
+        is truth again for every resident key."""
+        for c in self._caches():
+            keys, rows = c.drain()
+            self._write_back(keys, rows)
+
+    def _invalidate_caches(self) -> None:
+        """Drop cache membership (no row moves): required whenever the host
+        store changes underneath."""
+        for c in self._caches():
+            c.invalidate()
+
+    def _write_back(self, keys: np.ndarray, vals: np.ndarray) -> None:
+        """Merge rows for sorted unique ``keys`` into the host store."""
+        if keys.shape[0]:
+            self._store.update(keys, vals)
+
+    def flush(self) -> None:
+        """The barrier before anything reads the host store as truth: drain
+        the dirty cache rows into it.  (The serial table has no background
+        merges to wait for.)"""
+        self._drain_cache()
 
     # -- pass lifecycle --------------------------------------------------- #
     def _resolve_or_init(self, pk: np.ndarray) -> np.ndarray:
@@ -132,41 +213,193 @@ class SparseTable:
             vals[~found] = init
         return vals
 
+    def _cache_plan_and_fill(self, cache: HbmCache, plan: CachePlan,
+                             buf: torch.Tensor, n: int) -> None:
+        """Fill every hit position of the pass buffer ``buf`` [cap, W+1]
+        straight from the cache (hits never touch the host): a gather_slots
+        of the hit slots, a scatter_rows into the hit positions.  Then
+        credit the census and record the pass's hit counts."""
+        if plan.n_hits:
+            pos = torch.from_numpy(plan.hit_pos).to(self.device)
+            sparse_kernels.scatter_rows(buf, pos,
+                                        cache.gather_rows(plan.hit_slots))
+        cache.touch(plan)
+        self.last_cache_hits = plan.n_hits
+        self.last_cache_misses = n - plan.n_hits
+
     def begin_pass(self, pass_keys: np.ndarray) -> None:
-        """Promote the pass working set to the device."""
+        """Promote the pass working set to the device.  With the HBM cache,
+        the host supplies only the census misses (the promotion patch) and
+        the hits are filled on the device."""
         if self._in_pass:
             raise RuntimeError("end_pass the previous pass first")
         pk = np.unique(np.asarray(pass_keys, dtype=np.uint64))
         w = self.conf.row_width
         n = pk.shape[0]
         vals = np.zeros((self._stage_cap(n), w + 1), dtype=np.float32)
-        vals[:n] = self._resolve_or_init(pk)
-        self.values = torch.from_numpy(np.ascontiguousarray(vals[:, :w])).to(
-            self.device)
-        self.g2sum = torch.from_numpy(np.ascontiguousarray(vals[:, w])).to(
-            self.device)
+        cache = self._get_cache()
+        plan = None
+        if cache is None:
+            vals[:n] = self._resolve_or_init(pk)
+        else:
+            # the reference resolves the census twice (once to pick the
+            # misses, once to fill the hits); nothing changes the directory
+            # in between, so one plan serves both
+            plan = cache.lookup(pk)
+            miss_pos = np.nonzero(~plan.hit_mask)[0]
+            if miss_pos.shape[0]:
+                vals[miss_pos] = self._cache_fetch_rows(pk[miss_pos])
+        buf = torch.from_numpy(vals).to(self.device)
+        if plan is not None:
+            self._cache_plan_and_fill(cache, plan, buf, n)
+        self._cache_plan = plan
+        # two contiguous tensors: the kernels take no strided views
+        self.values = buf[:, :w].contiguous()
+        self.g2sum = buf[:, w].contiguous()
         self._pass_keys = pk
         self._in_pass = True
+        self._delta_keys.append(pk)
+
+    def _end_pass_cached(self, cache: HbmCache, plan: CachePlan,
+                         pk: np.ndarray, n: int) -> None:
+        """Cached end of pass: hits update their cache slots in place, the
+        hottest misses are admitted (evicting aged-out residents), and ONLY
+        cold and evicted rows travel to the host.  Evicted rows are written
+        back even when clean (see hbm_cache.py)."""
+        full = torch.cat([self.values, self.g2sum[:, None]], dim=1)
+        upd = cache.plan_update(pk, plan)
+        upd_pos = np.concatenate([plan.hit_pos, upd.admit_pos])
+        upd_slots = np.concatenate([plan.hit_slots, upd.admit_slots])
+        # victims are read before set_rows overwrites their slots
+        victim_rows = (
+            cache.gather_rows(upd.victim_slots).cpu().numpy()
+            if upd.victim_slots.shape[0] else _empty_rows(cache.n_cols)
+        )
+        cold_rows = (
+            _rows_at(full, upd.cold_pos).cpu().numpy()
+            if upd.cold_pos.shape[0] else _empty_rows(cache.n_cols)
+        )
+        if upd_slots.shape[0]:
+            cache.set_rows(upd_slots, _rows_at(full, upd_pos))
+        wb_keys = np.concatenate([pk[upd.cold_pos], upd.victim_keys])
+        order = np.argsort(wb_keys, kind="stable")
+        cache.commit_update(plan, upd)
+        self._write_back(wb_keys[order],
+                         np.concatenate([cold_rows, victim_rows])[order])
+        self.last_evicted_rows = int(upd.victim_slots.shape[0])
+        self.last_write_back_rows = int(wb_keys.shape[0])
 
     def end_pass(self) -> None:
-        """Write the working set back to the host store."""
+        """Write the working set back: to the cache for its resident and
+        admitted rows, to the host store for the rest."""
         if not self._in_pass:
             raise RuntimeError("no pass in flight")
-        n = self._pass_keys.shape[0]
-        vals = torch.cat([self.values[:n], self.g2sum[:n, None]], dim=1)
-        if n:
-            self._store.update(self._pass_keys, vals.cpu().numpy())
+        pk = self._pass_keys
+        n = pk.shape[0]
+        cache = self._get_cache()
+        plan, self._cache_plan = self._cache_plan, None
+        self.last_evicted_rows = self.last_write_back_rows = 0
+        if cache is not None and plan is not None and n:
+            self._end_pass_cached(cache, plan, pk, n)
+        elif n:
+            vals = torch.cat([self.values[:n], self.g2sum[:n, None]], dim=1)
+            self._write_back(pk, vals.cpu().numpy())
+            self.last_write_back_rows = n
         self.values = None
         self.g2sum = None
         self._pass_keys = None
         self._in_pass = False
 
+    def abort_pass(self) -> None:
+        """Discard the in-flight working set without writing it back.  The
+        store and the cache keep the last completed pass's state (cache rows
+        change only at end_pass); the aborted census leaves the delta
+        tracker.  No-op when no pass is open."""
+        if not self._in_pass:
+            return
+        self.values = None
+        self.g2sum = None
+        self._pass_keys = None
+        self._in_pass = False
+        self._cache_plan = None
+        if self._delta_keys:
+            self._delta_keys.pop()
+
+    # -- maintenance ------------------------------------------------------- #
+    def shrink(self) -> int:
+        """Decay show/clk and evict cold features (the reference's per-day
+        ShrinkTable).  Returns the number of evicted rows."""
+        if self._in_pass:
+            raise RuntimeError("shrink between passes, not inside one")
+        if self.n_features == 0:  # n_features drains the cache
+            return 0
+        evicted = self._store.decay_evict(
+            decay_cols=2,  # show + clk
+            decay=self.conf.show_decay_rate,
+            threshold=self.conf.delete_threshold,
+        )
+        # cached rows predate the decay: the next pass re-reads the store
+        self._invalidate_caches()
+        return evicted
+
+    # -- persistence ------------------------------------------------------- #
     def state_dict(self) -> dict:
         """Key-sorted copy of the host store: {"keys", "values" [n, W+1]}."""
         if self._in_pass:
             raise RuntimeError("end_pass before checkpointing")
+        self.flush()
         keys, vals = self._store.materialize()
         return {"keys": keys, "values": vals}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.flush()
+        self._store.load_bulk(
+            np.asarray(state["keys"], dtype=np.uint64),
+            np.asarray(state["values"], dtype=np.float32),
+        )
+        # every cached row is now stale relative to the restored store
+        self._invalidate_caches()
+
+    def pass_state_dict(self) -> dict:
+        """Snapshot usable mid-pass: the live working set when a pass is
+        open, the host store otherwise."""
+        if not self._in_pass:
+            return self.state_dict()
+        n = self._pass_keys.shape[0]
+        vals = torch.cat([self.values[:n], self.g2sum[:n, None]], dim=1)
+        return {"keys": self._pass_keys, "values": vals.cpu().numpy()}
+
+    def delta_state_dict(self) -> dict:
+        """Rows touched since the last pop (the reference's SaveDelta)."""
+        if self._in_pass:
+            raise RuntimeError("end_pass before checkpointing")
+        self.flush()
+        if not self._delta_keys:
+            return {
+                "keys": np.empty(0, np.uint64),
+                "values": _empty_rows(self.conf.row_width + 1),
+            }
+        dk = np.unique(np.concatenate(self._delta_keys))
+        vals, found = self._store.lookup(dk)
+        # keys evicted since drop out of the delta
+        return {"keys": dk[found], "values": vals[found]}
+
+    def pop_delta(self) -> dict:
+        state = self.delta_state_dict()
+        self._delta_keys = []
+        return state
+
+    def clear_delta(self) -> None:
+        """Reset the delta tracker (call only after a successful save)."""
+        self._delta_keys = []
+
+    def apply_delta(self, state: dict) -> None:
+        keys = np.asarray(state["keys"], dtype=np.uint64)
+        if keys.shape[0]:
+            self.flush()
+            self._write_back(keys, np.asarray(state["values"], np.float32))
+            # delta rows may overwrite keys the cache holds
+            self._invalidate_caches()
 
     # -- batch planning (host) ------------------------------------------- #
     def plan_batch(self, batch: HostBatch) -> BatchPlan:

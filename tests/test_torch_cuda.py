@@ -74,7 +74,7 @@ def test_wrappers_refuse_mixed_devices(cuda):
         sk.pull_rows(values, torch.zeros(2, dtype=torch.int32))
 
 
-def test_small_pass_on_the_card_launches_both_kernels(cuda, tmp_path):
+def test_small_pass_on_the_card_launches_the_kernels(cuda, tmp_path):
     from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
     from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
     from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
@@ -92,25 +92,36 @@ def test_small_pass_on_the_card_launches_both_kernels(cuda, tmp_path):
     trainer = Trainer(CtrDnn(4, tconf.row_width, dense_dim=3, hidden=(16, 8)),
                       tconf, TrainerConfig())
     sk.reset_launches()
-    table.begin_pass(ds.unique_keys())
-    assert table.values.is_cuda
-    m = trainer.train_from_dataset(ds, table)
-    torch.cuda.synchronize()
-    table.end_pass()
-    assert sk.launches == {"pull_rows": 4, "scatter_add_rows": 4}
+    for _ in range(2):  # the second pass hits what the first admitted
+        table.begin_pass(ds.unique_keys())
+        assert table.values.is_cuda
+        m = trainer.train_from_dataset(ds, table)
+        torch.cuda.synchronize()
+        table.end_pass()
+    assert table.last_cache_hits == ds.unique_keys().shape[0]
+    assert sk.launches["pull_rows"] == sk.launches["scatter_add_rows"] == 8
+    for name in ("gather_slots", "scatter_rows", "sorted_search"):
+        assert sk.launches[name] > 0, name
     assert np.isfinite(m["loss"]) and m["count"] == 256
     ds.close()
 
 
-@pytest.mark.parametrize("kernel", ["pull_rows", "scatter_add_rows"])
+@pytest.mark.parametrize("kernel", ["pull_rows", "scatter_add_rows",
+                                    "gather_slots", "scatter_rows"])
 def test_out_of_range_index_fails_the_launch(cuda, kernel):
     """An index outside the table traps the kernel.  The trap poisons the
     CUDA context, so it runs in a child process."""
     import subprocess
     import sys
 
-    call = ("sk.pull_rows(v, i)" if kernel == "pull_rows"
-            else "sk.scatter_add_rows(v, i, torch.ones(1, 3, device='cuda'))")
+    call = {
+        "pull_rows": "sk.pull_rows(v, i)",
+        "scatter_add_rows":
+            "sk.scatter_add_rows(v, i, torch.ones(1, 3, device='cuda'))",
+        "gather_slots": "sk.gather_slots(v, i)",
+        "scatter_rows":
+            "sk.scatter_rows(v, i, torch.ones(1, 3, device='cuda'))",
+    }[kernel]
     code = (
         "import torch\n"
         "from paddlebox_tpu_torch.ops import sparse_kernels as sk\n"
@@ -123,3 +134,90 @@ def test_out_of_range_index_fails_the_launch(cuda, kernel):
                        text=True, timeout=300)
     assert r.returncode != 0
     assert "Error" in r.stderr
+
+
+# --------------------------------------------------------------------------- #
+# the cache-tier kernels
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("k", [0, 1, 1000, 65536])
+def test_gather_slots_kernel_bit_exact_with_negative_slots(cuda, k):
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    table = torch.randn((65536, 11), device=cuda, generator=gen)
+    slots = torch.randint(-1, 65536, (k,), device=cuda, generator=gen,
+                          dtype=torch.int32)
+    slots[::7] = -1
+    before = sk.launches["gather_slots"]
+    got = sk.gather_slots(table, slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sk.gather_slots_plain(table, slots))
+    assert sk.launches["gather_slots"] == before + (1 if k else 0)
+
+
+@pytest.mark.parametrize("k", [0, 7, 1000, 65536])
+def test_scatter_rows_kernel_last_wins_bit_exact(cuda, k):
+    """Duplicates (about 4 occurrences a slot) resolve to the last
+    occurrence, negatives store nothing: equal to the twin, every run."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    C = max(k // 4, 1)
+    table = torch.randn((C, 11), device=cuda, generator=gen)
+    slots = torch.randint(-1, C, (k,), device=cuda, generator=gen,
+                          dtype=torch.int32)
+    rows = torch.randn((k, 11), device=cuda, generator=gen)
+    want = sk.scatter_rows_plain(table.clone(), slots, rows)
+    for _ in range(3):
+        got = sk.scatter_rows(table.clone(), slots, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 1000, 65536])
+def test_sorted_search_kernel_bit_exact_with_high_and_all_ones_keys(cuda, n):
+    rng = np.random.default_rng(n)
+    keys = np.unique(rng.integers(0, 2**64 - 1, size=n, dtype=np.uint64,
+                                  endpoint=True))
+    if n:
+        keys[-1] = np.uint64(2**64 - 1)  # the all-ones key, a real one
+    m = keys.shape[0]
+    cpad = 1 << max(0, (m - 1).bit_length()) if m else 0
+    hay = np.full(cpad, 2**64 - 1, np.uint64)
+    hay[:m] = keys
+    q = np.concatenate([keys[::2], rng.integers(0, 2**64 - 1, size=500,
+                                                dtype=np.uint64),
+                        np.array([0, 2**63, 2**64 - 1], np.uint64)])
+    hay_t = torch.from_numpy(hay.view(np.int64)).to(cuda)
+    q_t = torch.from_numpy(q.view(np.int64)).to(cuda)
+    for n_real in {m, max(m - 1, 0)}:  # m - 1: the all-ones key is padding
+        got = sk.sorted_search(hay_t, n_real, q_t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sk.sorted_search_plain(hay_t, n_real, q_t))
+        live = keys[:n_real]
+        pos = np.searchsorted(live, q)
+        pos_c = np.minimum(pos, max(n_real - 1, 0))
+        hit = (live[pos_c] == q) if n_real else np.zeros(q.shape[0], bool)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      np.where(hit, pos_c, -1))
+
+
+def test_cached_lifecycle_on_the_card_is_bit_exact_with_uncached(cuda):
+    """Three overlapping censuses, a deterministic in-pass update, a tiny
+    cache (eviction every pass) and the default one: the state_dicts are
+    bit-equal to the uncached table's."""
+    from paddlebox_tpu_torch.config import SparseTableConfig
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+
+    rng = np.random.default_rng(0)
+    censuses = [np.unique(rng.zipf(1.3, size=5000).astype(np.uint64))
+                for _ in range(3)]
+    states = []
+    for rows in (0, 64, 1 << 16):
+        t = SparseTable(SparseTableConfig(embedding_dim=8, hbm_cache_rows=rows))
+        for pk in censuses:
+            t.begin_pass(pk)
+            n = pk.shape[0]
+            t.values[:n] += 1.0
+            t.g2sum[:n] += 0.5
+            t.end_pass()
+        states.append(t.state_dict())
+    for s in states[1:]:
+        np.testing.assert_array_equal(s["keys"], states[0]["keys"])
+        np.testing.assert_array_equal(s["values"], states[0]["values"])

@@ -257,9 +257,7 @@ def test_trainer_rejects_a_model_on_another_device():
 # --------------------------------------------------------------------------- #
 def _unsupported(case, monkeypatch):
     row = 2 + EMB
-    if case == "hbm_cache_rows":
-        SparseTableConfig(hbm_cache_rows=1 << 16)
-    elif case == "overlap_pass_boundary":
+    if case == "overlap_pass_boundary":
         SparseTableConfig(overlap_pass_boundary=True)
     elif case == "expand_dim":
         SparseTableConfig(expand_dim=4)
@@ -288,7 +286,7 @@ def _unsupported(case, monkeypatch):
 
 
 @pytest.mark.parametrize("case", [
-    "hbm_cache_rows", "overlap_pass_boundary", "expand_dim", "store_log_dir",
+    "overlap_pass_boundary", "expand_dim", "store_log_dir",
     "layout_conv", "rank_offset", "sequence_slot", "multi_task",
     "nan_policy", "sgd", "compute_dtype", "native_planner", "native_parser",
 ])
@@ -299,11 +297,16 @@ def test_unsupported_options_raise_not_implemented(case, monkeypatch):
 
 def test_reference_flags_do_not_steer_the_port(monkeypatch):
     """Reference tests leave PBOX_* flags set in the environment; the port's
-    flag shim reads only its own names."""
+    flag shim reads only its own names: PBOX_HBM_CACHE=0 leaves the port's
+    cache on, PADDLEBOX_TORCH_HBM_CACHE=0 turns it off."""
     monkeypatch.setenv("PBOX_USE_NATIVE_PLANNER", "1")
-    monkeypatch.setenv("PBOX_HBM_CACHE", "1")
+    monkeypatch.setenv("PBOX_HBM_CACHE", "0")
     table = SparseTable(SparseTableConfig(), device="cpu")
-    assert table.conf.hbm_cache_rows == 0
+    assert table.conf.hbm_cache_rows == 1 << 16
+    assert len(table._caches()) == 1
+    monkeypatch.setenv("PADDLEBOX_TORCH_HBM_CACHE", "0")
+    table = SparseTable(SparseTableConfig(), device="cpu")
+    assert table._caches() == []
 
 
 def test_check_nan_inf_raises_on_a_poisoned_batch(tmp_path):
