@@ -31,7 +31,20 @@ Phases, each fatal on failure:
                weights must be bit-equal.
      lifecycle — the three censuses through a cached and an uncached table
                with a deterministic in-pass update: bit-equal state_dicts.
-  5. times   — median time of each kernel, its twin and the equivalent
+  5. hybrid  — the multi-chip trainer on POSITIONS shard positions of the
+               card with the realized hybrid placement (the reference's
+               hybrid arm: placement "loopback", realized, update interval
+               1, hot capacity 4096, cache off), same model, HYBRID_PASSES
+               passes, each over its own Zipf(1.3) file set, counters reset
+               just before and read just after; per pass the census, the
+               hot set, the hot occurrences routed, the host row traffic,
+               begin_pass / end_pass seconds and samples/s.  The hot block
+               must realize and route; under deterministic algorithms two
+               runs are bit-equal, and the largest difference against the
+               hash placement is printed.
+     check   — a small hybrid run on the card and on the CPU (plain twins)
+               from identical initial weights must agree.
+  6. times   — median time of each kernel, its twin and the equivalent
                PyTorch library call at the main paths' shapes with the L2
                cache cold, beside the least time the card's memory rate
                allows.
@@ -72,6 +85,14 @@ N_FILES, INS_PER_FILE, PASSES = 8, 25_000, 3
 CACHE_ROWS = 1 << 16
 CACHED_PASSES, CACHED_FILES, CACHED_INS_PER_FILE, ZIPF_A = 3, 4, 16_000, 1.3
 
+# The hybrid path: the reference's hybrid arm (bench.py:1442-1536, 4
+# devices, placement_update_interval 1, cache off) on 4 shard positions of
+# one card, batch BATCH per position, 4 passes over the Zipf file sets (the
+# cached path's three and one more).  A key seen in every pass turns hot at
+# the third begin_pass, so passes 2 and 3 route hot occurrences.
+POSITIONS, HOT_CAPACITY, HYBRID_PASSES = 4, 4096, 4
+ZIPF_SETS = max(CACHED_PASSES, HYBRID_PASSES)
+
 # H100 SXM device memory rate and float32 rate outside the tensor cores
 # (NVIDIA data sheet): the bytes and operations bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -82,6 +103,7 @@ TPU_KERNELS = {
     "gather_slots": "paddlebox_tpu/ops/pallas_sparse.py:274",
     "scatter_rows": "paddlebox_tpu/ops/pallas_sparse.py:335",
     "sorted_search": "paddlebox_tpu/ops/pallas_sparse.py:464",
+    "hot_cold_select": "paddlebox_tpu/ops/pallas_sparse.py:393",
 }
 # Real duplicates reach scatter_add_rows' atomics in an order that changes
 # from run to run.  For a row hit n times the result differs from a
@@ -116,11 +138,11 @@ def _write_part(args) -> str:
 
 def write_data() -> tuple:
     """Synthetic files, one writer process per file (spawned, so no child
-    inherits a CUDA context): the uncached path's N_FILES, and the cached
-    path's CACHED_FILES per pass.  Returns (files, [files of each pass])."""
+    inherits a CUDA context): the uncached path's N_FILES, and CACHED_FILES
+    per Zipf file set.  Returns (files, [files of each set])."""
     jobs = [(os.path.join(WORK_DIR, f"w{i}"), INS_PER_FILE, 7 + i, 0.0)
             for i in range(N_FILES)]
-    for p in range(CACHED_PASSES):
+    for p in range(ZIPF_SETS):
         jobs += [(os.path.join(WORK_DIR, f"z{p}-{i}"), CACHED_INS_PER_FILE,
                   100 + CACHED_FILES * p + i, ZIPF_A)
                  for i in range(CACHED_FILES)]
@@ -130,7 +152,7 @@ def write_data() -> tuple:
         paths = list(ex.map(_write_part, jobs))
     per_pass = [paths[N_FILES + CACHED_FILES * p:
                       N_FILES + CACHED_FILES * (p + 1)]
-                for p in range(CACHED_PASSES)]
+                for p in range(ZIPF_SETS)]
     return paths[:N_FILES], per_pass
 
 
@@ -488,8 +510,9 @@ def cached_path(datasets) -> dict:
                 f"auc {m['auc']!r} steps {m['steps']}")
     log(f"cached path launches {launches}")
     cached, table = runs["cached"]
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("pull_rows", "scatter_add_rows", "gather_slots",
+                 "scatter_rows", "sorted_search"):  # the cached path's
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the cached path")
     if not any(r["hits"] and r["evicted"] for r in cached):
         raise AssertionError("no cached pass had both hits and evictions")
@@ -644,7 +667,324 @@ def report_profile(prof, window_s: float) -> None:
 
 
 # --------------------------------------------------------------------------- #
-# phase 4: kernel times
+# phase 5: the multi-chip hybrid path
+# --------------------------------------------------------------------------- #
+def check_hybrid_parity(device) -> dict:
+    """hot_cold_select against its twin on the card, bit-exact: at the main
+    path's shape (K = KEY_CAPACITY, H = HOT_CAPACITY, W = 10), a ragged K,
+    K = 0, all-sink, all-hot and a hot block of one row."""
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    W = EMB + 2
+    gen = torch.Generator(device=device).manual_seed(5)
+    cases = (("main", HOT_CAPACITY, KEY_CAPACITY, None),
+             ("ragged", HOT_CAPACITY, 12_345, None),
+             ("empty", HOT_CAPACITY, 0, None),
+             ("all-sink", HOT_CAPACITY, KEY_CAPACITY, "sink"),
+             ("all-hot", HOT_CAPACITY, KEY_CAPACITY, "hot"),
+             ("one-row", 1, KEY_CAPACITY, None))
+    errs = {}
+    for what, H, K, only in cases:
+        hot = torch.randn((H, W), device=device, generator=gen)
+        cold = torch.randn((K, W), device=device, generator=gen)
+        lo, hi = {"sink": (H, H + 1), "hot": (0, H)}.get(only, (0, H + 1))
+        occ = torch.randint(lo, hi, (K,), device=device, generator=gen,
+                            dtype=torch.int32)
+        got = sk.hot_cold_select(hot, occ, cold)
+        want = sk.hot_cold_select_plain(hot, occ, cold)
+        if got.shape != (K, W) or not torch.equal(got, want):
+            raise AssertionError(f"hot_cold_select differs from its twin "
+                                 f"({what}: K={K}, H={H})")
+        if what == "main":
+            errs["hot_cold_select"] = float((got - want).abs().max())
+    torch.cuda.synchronize()
+    log(f"parity hot_cold_select: bit-exact at K={KEY_CAPACITY} H={HOT_CAPACITY}, "
+        f"ragged K=12345, K=0, all-sink, all-hot, a one-row hot block")
+    return errs
+
+
+def make_hybrid_world(device, placement="loopback", n_slots=N_SLOTS,
+                      dense=DENSE, emb=EMB, hidden=HIDDEN,
+                      positions=POSITIONS, hot_capacity=HOT_CAPACITY):
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.parallel import (
+        MultiChipTrainer,
+        ShardedSparseTable,
+        make_mesh,
+    )
+
+    tconf = SparseTableConfig(
+        embedding_dim=emb, hbm_cache_rows=0, placement=placement,
+        placement_realize=True, placement_update_interval=1,
+        placement_hot_capacity=hot_capacity,
+    )
+    mesh = make_mesh(positions, device=device)
+    table = ShardedSparseTable(tconf, mesh, seed=0)
+    model = CtrDnn(n_slots, tconf.row_width, dense_dim=dense, hidden=hidden,
+                   seed=0, device=device)
+    return table, MultiChipTrainer(model, tconf, mesh, TrainerConfig())
+
+
+def drive_hybrid(datasets, table, trainer) -> list:
+    """One pass over each dataset, the AUC streams continued, begin_pass
+    and end_pass timed to a synchronize; per pass the census, the hot set,
+    the host row traffic and the metrics."""
+    import torch
+
+    out, auc = [], None
+    for ds in datasets:
+        census = ds.unique_keys()
+        t0 = time.perf_counter()
+        table.begin_pass(census)
+        torch.cuda.synchronize()
+        begin_s = time.perf_counter() - t0
+        promoted, moved = table.last_promotion_rows, table.last_hot_moved_rows
+        m = trainer.train_from_dataset(ds, table, auc_state=auc)
+        auc = trainer.last_metric_state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table.end_pass()
+        torch.cuda.synchronize()
+        plan = table.placement_plan()
+        out.append(dict(
+            census=int(census.shape[0]),
+            n_hot=0 if plan is None else plan.n_hot,
+            resident=int(table.hot_resident_keys().shape[0]),
+            hot_occ=m["hot_occurrences"], promotion_rows=promoted,
+            hot_moved_rows=moved, written_back=table.last_write_back_rows,
+            begin_s=begin_s, end_s=time.perf_counter() - t0,
+            samples_per_s=m["samples"] / m["duration_s"], metrics=m,
+        ))
+    return out
+
+
+def hybrid_path(datasets) -> dict:
+    """The full-width model on POSITIONS positions with the realized hybrid
+    placement, launch counters reset just before and read just after; the
+    hash placement and the hybrid one again, in turns, for the times; then
+    two hybrid runs under torch.use_deterministic_algorithms, which must be
+    bit-equal, and the hash placement under it for the difference."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    runs = {}
+    # in turns for the hybrid-against-hash times: hybrid, hash, hash, hybrid
+    for label, placement, det in (("hybrid", "loopback", False),
+                                  ("hash", "hash", False),
+                                  ("hash again", "hash", False),
+                                  ("hybrid again", "loopback", False),
+                                  ("hybrid deterministic", "loopback", True),
+                                  ("hybrid deterministic rerun", "loopback",
+                                   True),
+                                  ("hash deterministic", "hash", True)):
+        torch.use_deterministic_algorithms(det)
+        try:
+            table, trainer = make_hybrid_world("cuda", placement)
+            if label == "hybrid":
+                sk.reset_launches()
+            per_pass = drive_hybrid(datasets, table, trainer)
+            if label == "hybrid":
+                launches = dict(sk.launches)
+                runs_trainer = trainer
+        finally:
+            torch.use_deterministic_algorithms(False)
+        runs[label] = (per_pass, table)
+        for p, r in enumerate(per_pass):
+            m = r["metrics"]
+            log(f"{label} pass {p}: census {r['census']}, n_hot {r['n_hot']}, "
+                f"resident hot rows {r['resident']}, hot occurrences routed "
+                f"{r['hot_occ']}; host rows in {r['promotion_rows']}, out "
+                f"{r['written_back']}, hot rows moved {r['hot_moved_rows']}; "
+                f"begin_pass {r['begin_s']!r} s, end_pass {r['end_s']!r} s; "
+                f"{r['samples_per_s']!r} samples/s; loss {m['loss']!r} auc "
+                f"{m['auc']!r} steps {m['steps']}")
+    per_pass, table = runs["hybrid"]
+    steps = sum(r["metrics"]["steps"] for r in per_pass)
+    log(f"hybrid path launches {launches} over {steps} step groups of "
+        f"{POSITIONS} positions")
+    for name in ("pull_rows", "scatter_add_rows", "hot_cold_select"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the hybrid path")
+    if launches["hot_cold_select"] != POSITIONS * steps:
+        raise AssertionError(
+            f"hot_cold_select launched {launches['hot_cold_select']} times, "
+            f"not once per position and step ({POSITIONS * steps})")
+    if not table.hot_resident_keys().shape[0]:
+        raise AssertionError("the hot block never realized")
+    if not all(r["hot_occ"] > 0 for r in per_pass[-2:]):
+        raise AssertionError("hot occurrences were not routed in the last "
+                             "two passes")
+    if not all(math.isfinite(r["metrics"]["loss"]) for r in per_pass):
+        raise AssertionError("non-finite loss on the hybrid path")
+    union = np.unique(np.concatenate([ds.unique_keys() for ds in datasets]))
+    state = table.state_dict()  # the barrier lands the resident hot rows
+    if (not np.array_equal(state["keys"], union)
+            or not np.isfinite(state["values"]).all()):
+        raise AssertionError("the hybrid table lost keys or holds non-finite rows")
+    (da, ta), (db, tb) = (runs["hybrid deterministic"],
+                          runs["hybrid deterministic rerun"])
+    sa, sb = ta.state_dict(), tb.state_dict()
+    auc_a = [r["metrics"]["auc"] for r in da]
+    auc_b = [r["metrics"]["auc"] for r in db]
+    if (auc_a != auc_b or not np.array_equal(sa["keys"], sb["keys"])
+            or not np.array_equal(sa["values"], sb["values"])):
+        raise AssertionError(f"deterministic hybrid reruns differ: auc {auc_a} "
+                             f"vs {auc_b}")
+    sh = runs["hash deterministic"][1].state_dict()
+    if not np.array_equal(sh["keys"], sa["keys"]):
+        raise AssertionError("hash and hybrid tables hold different keys")
+    diff = float(np.abs(sh["values"] - sa["values"]).max())
+    noise = float(np.abs(state["values"] - sa["values"]).max())
+    log(f"hybrid deterministic reruns: bit-equal ({sa['keys'].shape[0]} rows, "
+        f"auc {auc_a}); largest difference against the hash placement "
+        f"{diff!r}; without determinism the rows differ by up to {noise!r}")
+    return {"launches": launches, "table": table, "trainer": runs_trainer,
+            "datasets": datasets}
+
+
+def hybrid_stages(hybrid: dict) -> None:
+    """One more pass of the trained hybrid table over the last data set,
+    driven stage by stage with a synchronize after each: ms per step group
+    of batch assembly (POSITIONS batches), plan_group, the feed copy and
+    the device step of all positions."""
+    import torch
+
+    from paddlebox_tpu_torch.metrics.auc import unstack_auc_state
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.parallel.trainer import _group_batches, _stack_group
+
+    saved = dict(sk.launches)
+    table, trainer = hybrid["table"], hybrid["trainer"]
+    ds = hybrid["datasets"][-1]
+    ds.local_shuffle(seed=HYBRID_PASSES)
+    table.begin_pass(ds.unique_keys())
+    stacked = trainer.init_auc()
+    aucs = [unstack_auc_state(stacked, d) for d in range(POSITIONS)]
+    acc = dict(batch=0.0, plan=0.0, feed=0.0, step=0.0)
+    groups = _group_batches(ds.batches(), POSITIONS)
+    n = 0
+    while True:
+        t0 = time.perf_counter()
+        group = next(groups, None)
+        t1 = time.perf_counter()
+        if group is None:
+            break
+        plan = table.plan_group(group)
+        t2 = time.perf_counter()
+        feed = trainer._to_device(_stack_group(group, plan))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        trainer._step(table, feed, aucs)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, v in (("batch", t1 - t0), ("plan", t2 - t1), ("feed", t3 - t2),
+                     ("step", t4 - t3)):
+            acc[k] += v
+        n += 1
+    table.end_pass()
+    sk.launches.update(saved)  # not main-path launches
+    log(f"hybrid stages over {n} step groups of {POSITIONS} positions, ms per "
+        "group: " + ", ".join(f"{k} {v / n * 1e3!r}" for k, v in acc.items()))
+
+
+def small_hybrid_agreement() -> None:
+    """The hybrid path at small size (4 positions, a narrow tower, 3 passes
+    over the same files, so the hot block realizes in the third) on the
+    card and on the CPU from the same initial weights must agree, at the
+    tolerances of small_agreement, for the same reasons."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+
+    files = write_synth_files(
+        os.path.join(WORK_DIR, "small-hybrid"), n_files=2, ins_per_file=256,
+        n_sparse_slots=4, vocab_per_slot=50, dense_dim=3, seed=5,
+        zipf_a=ZIPF_A,
+    )
+    results = {}
+    for device in ("cuda", "cpu"):
+        table, trainer = make_hybrid_world(device, n_slots=4, dense=3, emb=4,
+                                           hidden=(16, 8), hot_capacity=64)
+        ds = PadBoxSlotDataset(make_synth_config(4, 3, 16, 16), read_threads=2)
+        ds.set_filelist(files)
+        ds.load_into_memory()
+        metrics = []
+        for _ in range(3):
+            table.begin_pass(ds.unique_keys())
+            metrics.append(trainer.train_from_dataset(ds, table))
+            table.end_pass()
+        results[device] = (metrics, table.state_dict(),
+                           table.hot_resident_keys())
+        ds.close()
+    (mg, sg, hg), (mc, sc, hc) = results["cuda"], results["cpu"]
+    if not (hg.shape[0] and np.array_equal(hg, hc)
+            and mg[-1]["hot_occurrences"] == mc[-1]["hot_occurrences"] > 0):
+        raise AssertionError("card/CPU hybrid runs realized different hot sets")
+    for a, b in zip(mg, mc):
+        if not math.isclose(a["loss"], b["loss"], rel_tol=1e-4):
+            raise AssertionError(f"card/CPU hybrid loss differ: {a['loss']} "
+                                 f"{b['loss']}")
+        if abs(a["auc"] - b["auc"]) > 1e-3:
+            raise AssertionError(f"card/CPU hybrid auc differ: {a['auc']} "
+                                 f"{b['auc']}")
+    if not np.array_equal(sg["keys"], sc["keys"]):
+        raise AssertionError("card/CPU hybrid tables hold different keys")
+    err = float(np.abs(sg["values"] - sc["values"]).max())
+    if err > 1e-4:
+        raise AssertionError(f"card/CPU hybrid table rows differ by {err}")
+    log(f"small hybrid run card vs CPU: {hg.shape[0]} hot keys, losses "
+        f"{[m['loss'] for m in mg]} vs {[m['loss'] for m in mc]}, table max "
+        f"abs diff {err!r}")
+
+
+def hybrid_specs(hybrid: dict) -> dict:
+    """Timing inputs of hot_cold_select at the hybrid path's shapes: the
+    trained table's hot block and position 0's hot slots and cold rows of a
+    real group of the last pass's data (the pass is left open; the caller
+    ends it)."""
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.parallel.trainer import _group_batches, sharded_pull
+
+    table, ds = hybrid["table"], hybrid["datasets"][-1]
+    table.begin_pass(ds.unique_keys())
+    plan = table.plan_group(next(_group_batches(ds.batches(), POSITIONS)))
+    dev = lambda a: torch.from_numpy(a).cuda()
+    cold = sharded_pull(table.values, dev(plan.serve_rows), dev(plan.occ_flat),
+                        0.0, 2)[0]
+    hot = table.hot_values[0]
+    occ = dev(plan.hot_occ[0])
+    H, W = hot.shape
+    k = occ.shape[0]
+    hot_mask = occ < H
+    n_hot = int(hot_mask.sum())
+    hot_rows_read = int(torch.unique(occ[hot_mask]).shape[0])
+    hot_ext = torch.cat([hot, hot.new_zeros((1, W))])
+    mask = hot_mask[:, None]
+    log(f"hot_cold_select shapes: K={k}, H={H}: {n_hot} hot occurrences of "
+        f"{hot_rows_read} hot rows")
+    return {
+        # the cold rows of the cold occurrences, the named hot rows once
+        "hot_cold_select": dict(
+            fn=lambda: sk.hot_cold_select(hot, occ, cold),
+            plain=lambda: sk.hot_cold_select_plain(hot, occ, cold),
+            library=lambda: torch.where(mask, hot_ext.index_select(0, occ),
+                                        cold),
+            bytes=k * 4 + (k - n_hot) * W * 4 + hot_rows_read * W * 4
+            + k * W * 4, ops=0,
+        ),
+    }
+
+
+# --------------------------------------------------------------------------- #
+# phase 6: kernel times
 # --------------------------------------------------------------------------- #
 def device_ms(fn, inner: int = 20, reps: int = 25) -> float:
     """Median device time of one call with the L2 cache warm: ``inner``
@@ -795,7 +1135,8 @@ def cache_specs(table, census) -> dict:
     }
 
 
-def kernel_times(res: dict, ds, cached: dict, census, errs: dict) -> list:
+def kernel_times(res: dict, ds, cached: dict, census, hybrid: dict,
+                 errs: dict) -> list:
     """Time each kernel at its main path's shapes; the launches are those of
     the main-path run that launched it."""
     import torch
@@ -806,9 +1147,11 @@ def kernel_times(res: dict, ds, cached: dict, census, errs: dict) -> list:
     saved = dict(sk.launches)
     specs = slice_specs(res["table"], ds)
     specs.update(cache_specs(cached["table"], census))
+    specs.update(hybrid_specs(hybrid))
     launches = dict(res["launches"])
     for name in ("gather_slots", "scatter_rows", "sorted_search"):
         launches[name] = cached["launches"][name]
+    launches["hot_cold_select"] = hybrid["launches"]["hot_cold_select"]
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     rows = []
     for name, s in specs.items():
@@ -838,6 +1181,7 @@ def kernel_times(res: dict, ds, cached: dict, census, errs: dict) -> list:
             f"operations); kernel with L2 warm {warm!r} ms")
     sk.launches.update(saved)  # timing launches are not main-path launches
     res["table"].end_pass()
+    hybrid["table"].end_pass()
     torch.cuda.synchronize()
     return rows
 
@@ -885,19 +1229,24 @@ def main(argv=None) -> int:
         cached_ds = [load(fs, CACHED_FILES) for fs in cached_files]
         censuses = [d.unique_keys() for d in cached_ds]
         log(f"data: {ds.get_memory_data_size()} instances, {n_census} census "
-            f"keys; cached path {[d.get_memory_data_size() for d in cached_ds]} "
+            f"keys; Zipf sets {[d.get_memory_data_size() for d in cached_ds]} "
             f"instances, censuses {[c.shape[0] for c in censuses]}; in "
             f"{time.perf_counter() - t0!r} s")
 
         P = pass_capacity(n_census)
         errs = check_parity(P, torch.device("cuda"))
         errs.update(check_cache_parity(censuses[0], torch.device("cuda")))
+        errs.update(check_hybrid_parity(torch.device("cuda")))
         res = slice_pass(ds)
         stage_breakdown(ds, res["table"], res["trainer"], profile)
         small_agreement()
-        cached = cached_path(cached_ds)
-        lifecycle_check(censuses)
-        rows = kernel_times(res, ds, cached, censuses[-1], errs)
+        cached = cached_path(cached_ds[:CACHED_PASSES])
+        lifecycle_check(censuses[:CACHED_PASSES])
+        hybrid = hybrid_path(cached_ds[:HYBRID_PASSES])
+        hybrid_stages(hybrid)
+        small_hybrid_agreement()
+        rows = kernel_times(res, ds, cached, censuses[CACHED_PASSES - 1],
+                            hybrid, errs)
         ds.close()
         for d in cached_ds:
             d.close()

@@ -42,6 +42,18 @@ class _Flags:
         # kill switch of the HBM hot-row cache, process-wide, whatever
         # SparseTableConfig.hbm_cache_rows says (reference: flags.hbm_cache)
         "hbm_cache": True,
+        # sparsity-aware placement of the sharded table, used when
+        # SparseTableConfig.placement is "": "hybrid" (the planner picks a
+        # replicated-hot set from census skew), "hash" (flat key % n) or
+        # "loopback" (hybrid, and the census and hot-row payloads go through
+        # their encode -> decode wire round trip in one process)
+        "placement": "hybrid",
+        # process-wide kill switch of the realized hot block: 0 keeps the
+        # planner and the census wire but places every row by hash
+        "placement_realize": True,
+        # census wire codec: "varint" (sorted-delta LEB128), "raw" (8-byte
+        # keys) or "legacy" (the same as varint in one process)
+        "hostplane_codec": "varint",
     }
 
     def __getattr__(self, name: str):
@@ -196,6 +208,23 @@ class SparseTableConfig:
     hbm_cache_rows: int = 1 << 16
     # per-pass frequency decay of the cache's LFU-with-aging policy
     hbm_cache_aging: float = 0.8
+    # Sparsity-aware placement of the sharded table
+    # (parallel/sharded_table.py, sparse/placement.py): the planner ranks
+    # keys by aged census frequency; its hot set rides the census wire as
+    # membership bits and, with placement_realize, lives as a replicated
+    # [H, W+1] block on every shard position, so a hot lookup is a local
+    # gather.  "" resolves PADDLEBOX_TORCH_PLACEMENT ("hybrid"); "hash"
+    # turns the planner off.  The single-chip SparseTable ignores these.
+    placement: str = ""
+    # top-k bound of the hot set, and the padded capacity H of the block
+    placement_hot_capacity: int = 4096
+    # per-pass decay of the planner's aged frequencies
+    placement_aging: float = 0.8
+    # the hot set changes at most once per this many passes
+    placement_update_interval: int = 2
+    # materialize the hot set on the device (bit-exact against "hash");
+    # PADDLEBOX_TORCH_PLACEMENT_REALIZE=0 is the process-wide kill switch
+    placement_realize: bool = True
 
     @property
     def row_width(self) -> int:
@@ -219,6 +248,9 @@ class SparseTableConfig:
 
 @dataclasses.dataclass
 class TrainerConfig:
+    # dense sync of the multi-chip trainer: "step" sums the positions'
+    # gradients every step (the only mode ported)
+    sync_dense_mode: str = "step"
     dense_lr: float = 1e-3
     dense_optimizer: str = "adam"
     auc_buckets: int = 1 << 20
@@ -228,6 +260,13 @@ class TrainerConfig:
     nan_policy: str = "raise"
 
     def __post_init__(self):
+        if self.sync_dense_mode in ("kstep", "async"):
+            raise not_ported(f"sync_dense_mode={self.sync_dense_mode!r}",
+                             "multi-chip cut-outs, item 9")
+        if self.sync_dense_mode != "step":
+            raise ValueError(
+                f"unknown sync_dense_mode {self.sync_dense_mode!r}"
+            )
         if self.dense_optimizer == "sgd":
             raise not_ported("dense_optimizer='sgd'", "trainer cut-outs, item 6b")
         if self.dense_optimizer != "adam":

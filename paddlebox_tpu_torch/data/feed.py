@@ -34,6 +34,23 @@ class HostBatch:
     n_sparse_slots: int
 
 
+def empty_like(batch: HostBatch) -> HostBatch:
+    """An all-padding batch with the same static shapes (ins_mask zero, every
+    key slot pointing at the overflow segment), used to pad a ragged group
+    of per-position batches in multi-chip training."""
+    B, S = batch.batch_size, batch.n_sparse_slots
+    return HostBatch(
+        keys=np.zeros_like(batch.keys),
+        key_segments=np.full_like(batch.key_segments, B * S),
+        n_keys=0,
+        dense=np.zeros_like(batch.dense),
+        labels=np.zeros_like(batch.labels),
+        ins_mask=np.zeros_like(batch.ins_mask),
+        batch_size=B,
+        n_sparse_slots=S,
+    )
+
+
 class BatchBuilder:
     """Packs instance index ranges of a RecordBlock into HostBatches."""
 

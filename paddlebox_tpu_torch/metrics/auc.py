@@ -76,8 +76,33 @@ def update_auc_state(state: AucState, preds: torch.Tensor,
     )
 
 
+def stack_auc_states(base: AucState, n: int) -> AucState:
+    """n copies stacked along a new leading axis: one stream per shard
+    position of the multi-chip trainer."""
+    return AucState(*(torch.stack([t] * n) for t in base))
+
+
+def unstack_auc_state(state: AucState, i: int) -> AucState:
+    """Stream i of a stacked state (views, no copy)."""
+    return AucState(*(t[i] for t in state))
+
+
+def merge_auc_states(*states: AucState) -> AucState:
+    """Merge independently accumulated states by summing every field, in
+    argument order (the reference sums the device axis the same way; the
+    Kahan pairs add as pairs, so ``kahan_value`` of the merge is the sum of
+    the values)."""
+    return AucState(*(sum(xs[1:], start=xs[0]) for xs in zip(*states)))
+
+
 def compute_metrics(state: AucState) -> dict:
-    """Final reduction on the host.  Ties within a bucket count half."""
+    """Final reduction on the host.  Ties within a bucket count half.  A
+    stacked state (one stream per shard position) is merged over its
+    leading axis first."""
+    if state.pos.dim() == 2:
+        state = merge_auc_states(
+            *(unstack_auc_state(state, i) for i in range(state.pos.shape[0]))
+        )
     pos = state.pos.cpu().numpy().astype(np.float64)
     neg = state.neg.cpu().numpy().astype(np.float64)
     tot_pos, tot_neg = pos.sum(), neg.sum()

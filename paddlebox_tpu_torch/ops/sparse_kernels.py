@@ -15,8 +15,13 @@
     pow2-padded sorted haystack, -1 when absent (csrc/sorted_search.cu;
     replaces ``pallas_sorted_search``).  Keys travel as int64 tensors that
     hold the uint64 bits; they are compared unsigned.
+  * ``hot_cold_select(hot, hot_occ, cold_rows)`` -> the hot block's row where
+    ``hot_occ < H``, the cold row where ``hot_occ == H``
+    (csrc/hot_cold_select.cu; replaces ``pallas_hot_cold_select``).
 
-The last three carry the HBM cache tier (sparse/engine/hbm_cache.py).
+gather_slots, scatter_rows and sorted_search carry the HBM cache tier
+(sparse/engine/hbm_cache.py); hot_cold_select carries the hybrid-placement
+pull of the multi-chip trainer (parallel/trainer.py).
 
 A wrapper given CPU tensors computes its twin; given CUDA tensors it
 launches the hand-written kernel on the current stream or raises.  There is
@@ -33,7 +38,7 @@ import torch
 from paddlebox_tpu_torch.ops import cuda_build
 
 KERNELS = ("pull_rows", "scatter_add_rows", "gather_slots", "scatter_rows",
-           "sorted_search")
+           "sorted_search", "hot_cold_select")
 launches = {name: 0 for name in KERNELS}
 
 
@@ -53,6 +58,8 @@ _ARGTYPES = {
     "pbt_scatter_rows": (_P, _P, _P, _P, _LL, _I, _LL, _P),
     # (hay, hay length, n_real, queries, out, query count, stream)
     "pbt_sorted_search": (_P, _LL, _LL, _P, _P, _LL, _P),
+    # (hot, occ, cold, out, count, width, hot rows, stream)
+    "pbt_hot_cold_select": (_P, _P, _P, _P, _LL, _I, _LL, _P),
 }
 
 _fns: dict = {}
@@ -287,4 +294,48 @@ def sorted_search(hay: torch.Tensor, n_real: int,
     out = torch.empty(nq, dtype=torch.int32, device=q.device)
     _launch("sorted_search", "pbt_sorted_search", hay.data_ptr(), c, n_real,
             q.data_ptr(), out.data_ptr(), nq)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# hot_cold_select
+# --------------------------------------------------------------------------- #
+def hot_cold_select_plain(hot: torch.Tensor, hot_occ: torch.Tensor,
+                          cold_rows: torch.Tensor) -> torch.Tensor:
+    """Twin of the hot/cold select, the reference's own expression: append
+    a zero sink row to the hot block, gather every occurrence's slot from
+    it, keep the cold row where the slot is the sink."""
+    h, w = hot.shape
+    hot_ext = torch.cat([hot, hot.new_zeros((1, w))])
+    return torch.where((hot_occ < h)[:, None],
+                       hot_ext.index_select(0, hot_occ), cold_rows)
+
+
+def hot_cold_select(hot: torch.Tensor, hot_occ: torch.Tensor,
+                    cold_rows: torch.Tensor) -> torch.Tensor:
+    """hot: float32 [H, W], the replicated hot block; hot_occ: int32 [K] in
+    [0, H], H meaning "cold or padding" (an entry outside traps the
+    kernel); cold_rows: float32 [K, W].  Returns a new [K, W]:
+    ``hot[hot_occ[k]]`` where ``hot_occ[k] < H``, else ``cold_rows[k]``;
+    bit-identical to the twin."""
+    _check_table(hot, hot_occ)
+    k, w = hot_occ.shape[0], hot.shape[1]
+    if cold_rows.shape != (k, w) or cold_rows.dtype != hot.dtype:
+        raise ValueError(
+            f"cold_rows must be float32 [{k}, {w}], got "
+            f"{tuple(cold_rows.shape)} {cold_rows.dtype}"
+        )
+    if cold_rows.device != hot.device:
+        raise ValueError(
+            f"cold_rows on {cold_rows.device} but hot on {hot.device}"
+        )
+    if hot.device.type == "cpu":
+        return hot_cold_select_plain(hot, hot_occ, cold_rows)
+    if not cold_rows.is_contiguous():
+        raise ValueError("the CUDA kernels take contiguous tensors only")
+    out = torch.empty((k, w), dtype=hot.dtype, device=hot.device)
+    if k and w:
+        _launch("hot_cold_select", "pbt_hot_cold_select", hot.data_ptr(),
+                hot_occ.data_ptr(), cold_rows.data_ptr(), out.data_ptr(), k, w,
+                hot.shape[0])
     return out

@@ -1,0 +1,291 @@
+"""Shared-dictionary census exchange (reference: paddlebox_tpu/parallel/census.py,
+without its telemetry and the cache mirrors).
+
+Every rank derives the same **shared dictionary** from the global census
+stream: the placement planner's hot set (sparse/placement.py).  No
+collective builds it; determinism does.  A census message is then ``(a
+membership bitmap over the dictionary, the varint sorted-delta cold
+tail)``: a dictionary key costs one bit, a cold key about 1-2 bytes
+(utils/keycodec.py).  Every message carries the dictionary's size and a
+64-bit digest, and any divergence, or a peer speaking another wire format,
+raises :class:`CensusProtocolError` instead of mis-decoding.  The wire bytes
+are identical to the reference's.
+
+Transports: :class:`LoopbackTransport` (one process: the encode -> decode
+path still runs) and :class:`InProcessCensusGroup` (N simulated ranks on
+threads, for tests).  The reference's ``FleetCacheMirror`` (metadata twins
+of the per-shard HBM caches, joining the dictionary) and its multi-host
+``KvGatherTransport`` come with the cached and the multi-process slices.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from paddlebox_tpu_torch.sparse.store import splitmix64
+from paddlebox_tpu_torch.utils import keycodec
+
+_MAGIC = b"PBCX1"
+_CODEC_RAW = 0
+_CODEC_VARINT = 1
+
+_EMPTY_U64 = np.empty(0, dtype=np.uint64)
+
+
+class CensusProtocolError(RuntimeError):
+    """A census message failed negotiation: a peer speaks a different
+    wire format/codec, or its shared dictionary diverged from ours."""
+
+    def __init__(self, channel: str, sender: int, reason: str):
+        self.channel = channel
+        self.sender = sender
+        self.reason = reason
+        super().__init__(
+            f"census exchange on channel {channel!r}: message from rank "
+            f"{sender} {reason} (mixed-version peer or dictionary "
+            "divergence — set PADDLEBOX_TORCH_PLACEMENT=hash and "
+            "PADDLEBOX_TORCH_HOSTPLANE_CODEC=legacy on every rank, or "
+            "upgrade all ranks)"
+        )
+
+
+def _dict_digest(keys: np.ndarray) -> int:
+    """Order-free 64-bit digest of a key set (xor of splitmix64 hashes):
+    the cheap cross-rank dictionary-agreement check."""
+    if not keys.shape[0]:
+        return 0
+    return int(np.bitwise_xor.reduce(splitmix64(keys)))
+
+
+def _read_varint(buf: memoryview, off: int) -> tuple:
+    """One scalar LEB128 read -> (value, next offset); loud on damage."""
+    shift = 0
+    val = 0
+    for _ in range(10):
+        if off >= len(buf):
+            raise keycodec.KeyCodecError("truncated",
+                                         "header varint runs off the buffer")
+        b = buf[off]
+        off += 1
+        val |= (b & 0x7F) << shift
+        if not (b & 0x80):
+            if val >= 1 << 64:
+                raise keycodec.KeyCodecError("overlong",
+                                             "header varint exceeds 2^64")
+            return val, off
+        shift += 7
+    raise keycodec.KeyCodecError("overlong", "header varint spans > 10 bytes")
+
+
+# --------------------------------------------------------------------------- #
+# transports
+# --------------------------------------------------------------------------- #
+class LoopbackTransport:
+    """World of one: gather returns this process's own payload, so the
+    encode -> decode wire path still runs without a fleet."""
+
+    def gather(self, payload: bytes) -> List[bytes]:
+        return [payload]
+
+
+class InProcessCensusGroup:
+    """N simulated ranks (threads) exchanging census payloads through a
+    barrier-coordinated mailbox, for tests."""
+
+    def __init__(self, n_ranks: int):
+        if n_ranks < 1:
+            raise ValueError("n_ranks must be >= 1")
+        self.n_ranks = n_ranks
+        self._box: List[Optional[bytes]] = [None] * n_ranks
+        self._lock = threading.Lock()
+        self._barrier = threading.Barrier(n_ranks)
+
+    def transport(self, rank: int) -> "_GroupTransport":
+        if not 0 <= rank < self.n_ranks:
+            raise ValueError(f"bad rank {rank}")
+        return _GroupTransport(self, rank)
+
+    def _gather(self, rank: int, payload: bytes) -> List[bytes]:
+        with self._lock:
+            self._box[rank] = payload
+        self._barrier.wait()  # all deposits visible
+        msgs = list(self._box)
+        # second barrier: nobody starts the next round (overwriting the
+        # mailbox) until every rank has copied this round's messages
+        self._barrier.wait()
+        return msgs
+
+
+class _GroupTransport:
+    def __init__(self, group: InProcessCensusGroup, rank: int):
+        self.group = group
+        self.rank = rank
+
+    def gather(self, payload: bytes) -> List[bytes]:
+        return self.group._gather(self.rank, payload)
+
+
+# --------------------------------------------------------------------------- #
+# the exchange
+# --------------------------------------------------------------------------- #
+class CensusExchange:
+    """One rank's half of the census collective.
+
+    Every rank must construct this with the SAME planner configuration and
+    feed it the same call sequence: the dictionary is derived state, and
+    the digest in every message checks that the derivation stayed in
+    lockstep.  ``exchange(local_census)`` returns the global census,
+    identical on every rank and equal to :func:`legacy_union`.
+    """
+
+    def __init__(self, transport, planner=None, codec: str = "varint",
+                 channel: str = "census"):
+        if codec not in ("varint", "raw"):
+            raise ValueError(f"codec must be varint|raw, got {codec!r}")
+        self.transport = transport
+        self.planner = planner
+        self.codec = codec
+        self.channel = channel
+        self._known: np.ndarray = _EMPTY_U64.copy()
+        self.last_wire_bytes = 0  # this rank's encoded payload size
+
+    # -- wire format ------------------------------------------------------ #
+    def _encode(self, local_pk: np.ndarray, known: np.ndarray) -> bytes:
+        if known.shape[0] and local_pk.shape[0]:
+            pos = np.searchsorted(known, local_pk)
+            pos_c = np.minimum(pos, known.shape[0] - 1)
+            hit = known[pos_c] == local_pk
+            seen = np.zeros(known.shape[0], dtype=bool)
+            seen[pos_c[hit]] = True
+            cold = local_pk[~hit]
+        else:
+            seen = np.zeros(known.shape[0], dtype=bool)
+            cold = local_pk
+        bitmap = np.packbits(seen).tobytes() if known.shape[0] else b""
+        if self.codec == "varint":
+            cold_payload = keycodec.encode_sorted_u64(cold)
+            codec_byte = _CODEC_VARINT
+        else:
+            cold_payload = np.ascontiguousarray(cold, np.uint64).tobytes()
+            codec_byte = _CODEC_RAW
+        header = keycodec.encode_varints(
+            np.asarray(
+                [known.shape[0], _dict_digest(known), cold.shape[0]],
+                dtype=np.uint64,
+            )
+        )
+        return (
+            _MAGIC + bytes([codec_byte]) + header + bitmap + cold_payload
+        )
+
+    def _decode(self, msg: bytes, sender: int, known: np.ndarray):
+        """-> (seen bool [n_known], cold keys sorted)."""
+        if not msg.startswith(_MAGIC):
+            raise CensusProtocolError(
+                self.channel, sender,
+                "does not carry the PBCX1 census wire magic",
+            )
+        codec_byte = msg[len(_MAGIC)]
+        if codec_byte not in (_CODEC_RAW, _CODEC_VARINT):
+            raise CensusProtocolError(
+                self.channel, sender, f"declares unknown codec {codec_byte}"
+            )
+        view = memoryview(msg)
+        off = len(_MAGIC) + 1
+        try:
+            n_known, off = _read_varint(view, off)
+            digest, off = _read_varint(view, off)
+            n_cold, off = _read_varint(view, off)
+        except keycodec.KeyCodecError as e:
+            raise CensusProtocolError(
+                self.channel, sender, f"has a damaged header ({e})"
+            ) from e
+        if n_known != known.shape[0] or digest != _dict_digest(known):
+            raise CensusProtocolError(
+                self.channel, sender,
+                f"was encoded against a different dictionary "
+                f"({n_known} keys, digest {digest:#x}; ours "
+                f"{known.shape[0]} keys, digest {_dict_digest(known):#x})",
+            )
+        n_bitmap = (n_known + 7) // 8
+        if len(msg) < off + n_bitmap:
+            raise CensusProtocolError(
+                self.channel, sender, "is truncated inside the bitmap"
+            )
+        if n_known:
+            seen = np.unpackbits(
+                np.frombuffer(view[off:off + n_bitmap], dtype=np.uint8)
+            )[:n_known].astype(bool)
+        else:
+            seen = np.zeros(0, dtype=bool)
+        off += n_bitmap
+        body = view[off:]
+        try:
+            if codec_byte == _CODEC_VARINT:
+                cold = keycodec.decode_sorted_u64(body)
+                if cold.shape[0] != n_cold:
+                    raise keycodec.KeyCodecError(
+                        "count-mismatch",
+                        f"header says {n_cold} cold keys, "
+                        f"stream holds {cold.shape[0]}",
+                    )
+            else:
+                if len(body) != n_cold * 8:
+                    raise keycodec.KeyCodecError(
+                        "truncated",
+                        f"raw cold payload is {len(body)} bytes, "
+                        f"expected {n_cold * 8}",
+                    )
+                cold = np.frombuffer(body, dtype=np.uint64).copy()
+        except keycodec.KeyCodecError as e:
+            raise CensusProtocolError(
+                self.channel, sender, f"has a damaged cold payload ({e})"
+            ) from e
+        return seen, cold
+
+    # -- the collective --------------------------------------------------- #
+    def exchange(self, local_census: np.ndarray) -> np.ndarray:
+        """Gather every rank's census -> the global census (sorted unique),
+        advancing the planner's dictionary for the NEXT pass."""
+        local_pk = np.unique(np.asarray(local_census, dtype=np.uint64))
+        known = self._known
+        payload = self._encode(local_pk, known)
+        self.last_wire_bytes = len(payload)
+        msgs = self.transport.gather(payload)
+        seen_any = np.zeros(known.shape[0], dtype=bool)
+        colds = []
+        for sender, msg in enumerate(msgs):
+            seen, cold = self._decode(msg, sender, known)
+            seen_any |= seen
+            if cold.shape[0]:
+                colds.append(cold)
+        parts = [known[seen_any]] if known.shape[0] else []
+        parts += colds
+        if parts:
+            pk = np.unique(np.concatenate(parts))
+        else:
+            pk = _EMPTY_U64.copy()
+        self._advance(pk)
+        return pk
+
+    def _advance(self, pk: np.ndarray) -> None:
+        """Evolve the shared dictionary from the agreed global census: a
+        pure function of ``pk``, so every rank stays in lockstep."""
+        self._known = _EMPTY_U64.copy()
+        if self.planner is not None:
+            self.planner.observe(pk)
+            plan = self.planner.update_plan()
+            if plan.n_hot:
+                self._known = plan.hot_keys
+
+
+def legacy_union(censuses: Sequence[np.ndarray]) -> np.ndarray:
+    """The pre-codec semantics in one place: the union of raw local
+    censuses.  Tests pin ``CensusExchange`` output equal to this."""
+    parts = [np.asarray(c, dtype=np.uint64) for c in censuses]
+    if not parts:
+        return _EMPTY_U64.copy()
+    return np.unique(np.concatenate(parts))

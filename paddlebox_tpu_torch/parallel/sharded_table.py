@@ -1,0 +1,641 @@
+"""Multi-chip sparse table: the pass working set sharded by ``key % n``
+(reference: paddlebox_tpu/parallel/sharded_table.py, single-process,
+uncached and serial).
+
+Every shard position owns the rows whose key hashes to it.  The host half
+mirrors the single-chip ``SparseTable`` (same host store, same pass
+lifecycle) but holds the pass working set as one stacked ``values
+[n, cap, W]`` / ``g2sum [n, cap]`` pair, each shard laid out like the
+single-chip table (``[0, live)`` rows | plan scratch | the dead row
+``cap - 1``), and resolves a group of per-position batches into
+*per-owner bucketed* row indices, the static-shape plan the step's
+all_to_all needs (parallel/trainer.py).
+
+Plan layout over n shards, per-position key capacity K, bucket capacity C,
+US = n * C:
+
+    serve_rows [n, n, C] int32  rows shard o must serve: serve_rows[o, d, c]
+                                is requester d's c-th row owned by o
+                                (dead-row padded).
+    occ_flat   [n, K]    int32  o * C + c for each key occurrence of
+                                position d's batch (into its [n, C] pull
+                                response); padding and hot occurrences ->
+                                n * C, which reads an appended zero row.
+    serve_map  [n, n, C] int32  dedup: position of (requester, slot) in
+                                serve_uniq[o], so a row requested by several
+                                positions folds into one segment and the push
+                                updates each row once.
+    serve_uniq [n, US]   int32  deduped rows served by shard o (the padding
+                                tail points at distinct scratch rows,
+                                clamped to the dead row).
+    key_mask   [n, K]    f32    1.0 for real occurrences.
+
+Realized hybrid placement (``SparseTableConfig.placement_realize``): the
+placement planner's hot set (sparse/placement.py) lives as a replicated
+``[H, W]`` / ``[H]`` block, one identical copy per position
+(``hot_values [n, H, W]``, ``hot_g2sum [n, H]``), resident ACROSS passes
+(H = ``placement_hot_capacity``, padded).  A hot occurrence routes to
+``hot_occ`` (its slot in the sorted resident hot set; H = sink) instead of
+an all_to_all bucket; its ``occ_flat`` entry is the n*C sink, so each
+gradient reaches exactly one of the two updates.  Hot and cold rows trade
+places only inside begin_pass; ``flush`` writes the resident hot rows back
+to the host store, so every barrier sees truth.  The cold census
+(``_pass_keys``) excludes the resident hot keys.
+
+Not ported here (each raises ``NotImplementedError``): the per-shard HBM
+caches, ``prepare_pass`` staging, ``reshard``; and multi-process ownership.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import struct
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from paddlebox_tpu_torch.config import SparseTableConfig, flags, not_ported
+from paddlebox_tpu_torch.data.feed import HostBatch
+from paddlebox_tpu_torch.parallel.census import CensusExchange, LoopbackTransport
+from paddlebox_tpu_torch.parallel.mesh import Mesh
+from paddlebox_tpu_torch.sparse.placement import PlacementPlanner, hot_churn
+from paddlebox_tpu_torch.sparse.table import SparseTable, _next_pow2
+from paddlebox_tpu_torch.utils.keycodec import (
+    decode_u64_with_perm,
+    encode_u64_with_perm,
+)
+
+# migration payload framing (keycodec-framed, versioned): magic | n_rows |
+# row_width+1 | len(key_stream) | delta-compressed sorted keys | int32 rank
+# (the keys' order rides as the permutation beside the sorted copy) |
+# f32 rows
+_RESHARD_MAGIC = b"PBR1"
+_RESHARD_HEAD = "<4sIII"
+
+
+def _encode_migration(keys: np.ndarray, rows: np.ndarray) -> bytes:
+    """Frame one batch of migrating rows; ``keys`` keep their order."""
+    kb, rank = encode_u64_with_perm(keys)
+    head = struct.pack(
+        _RESHARD_HEAD, _RESHARD_MAGIC, keys.shape[0], rows.shape[1], len(kb)
+    )
+    return (head + kb + rank.astype("<i4").tobytes()
+            + np.ascontiguousarray(rows, dtype="<f4").tobytes())
+
+
+def _decode_migration(buf: bytes):
+    """Inverse of :func:`_encode_migration` -> (keys, rows), row order
+    preserved.  Raises on any framing mismatch: a payload that does not
+    round-trip must never half-apply."""
+    head = struct.calcsize(_RESHARD_HEAD)
+    magic, n, w1, klen = struct.unpack_from(_RESHARD_HEAD, buf, 0)
+    if magic != _RESHARD_MAGIC:
+        raise ValueError(f"bad reshard payload magic {magic!r}")
+    off = head
+    kb = bytes(buf[off:off + klen])
+    off += klen
+    rank = np.frombuffer(buf, dtype="<i4", count=n, offset=off)
+    off += 4 * n
+    keys = decode_u64_with_perm(kb, rank)
+    rows = np.frombuffer(
+        buf, dtype="<f4", count=n * w1, offset=off
+    ).reshape(n, w1)
+    if off + 4 * n * w1 != len(buf):
+        raise ValueError("reshard payload length mismatch")
+    return keys.copy(), rows.astype(np.float32)
+
+
+@dataclasses.dataclass
+class ShardedBatchPlan:
+    """Stacked host plans for one group of per-position batches (leading
+    axis = shard position)."""
+
+    serve_rows: np.ndarray  # int32 [n, n, C]
+    occ_flat: np.ndarray  # int32 [n, K]
+    serve_map: np.ndarray  # int32 [n, n, C]
+    serve_uniq: np.ndarray  # int32 [n, n*C]
+    key_mask: np.ndarray  # f32 [n, K]
+    n_missing: int = 0  # keys absent from the pass census
+    # int32 [n, K] hot routing (realized hybrid placement only): each
+    # occurrence's slot in the replicated hot block, H for cold/padding
+    # occurrences.  Hot occurrences carry the n*C sink in occ_flat and are
+    # left out of the want matrices.
+    hot_occ: Optional[np.ndarray] = None
+    # f32 [n, H] per-hot-slot learning rate, 0.0 where the position has no
+    # occurrence of the slot; the step folds it with pmax over positions
+    hot_lr: Optional[np.ndarray] = None
+
+
+class ShardedSparseTable(SparseTable):
+    """Same host store, persistence and shrink as SparseTable; the pass
+    working set lives stacked over the mesh's shard positions."""
+
+    def __init__(self, conf: SparseTableConfig, mesh: Mesh, seed: int = 0,
+                 bucket_slack: float = 2.0):
+        if conf.hbm_cache_rows > 0 and flags.hbm_cache:
+            raise not_ported(
+                "the per-shard HBM cache of ShardedSparseTable (pass "
+                "hbm_cache_rows=0 or set PADDLEBOX_TORCH_HBM_CACHE=0)",
+                "multi-chip cache, item 9",
+            )
+        super().__init__(conf, seed, device=mesh.device)
+        self.mesh = mesh
+        self.n_shards = mesh.n
+        # all_to_all bucket capacity over the uniform-hash expectation
+        # K / n.  It sizes the BASE bucket only: a group whose worst shard
+        # needs more grows the bucket in power-of-two steps
+        # (capacity_bumps); keys are never dropped.
+        self.bucket_slack = float(bucket_slack)
+        self._shard_keys: Optional[list] = None
+        self.capacity_bumps = 0
+        # largest serve buffer (n * C) planned so far: sizes the next
+        # pass's per-shard scratch region (pass 1 uses plan_scratch_rows)
+        self._last_serve_n = 0
+        self._placement_mode = conf.placement or flags.placement
+        if self._placement_mode not in ("hybrid", "hash", "loopback"):
+            raise ValueError(
+                "placement must be hybrid|hash|loopback, got "
+                f"{self._placement_mode!r}"
+            )
+        self._hot_realize = bool(
+            conf.placement_realize
+            and flags.placement_realize
+            and self._placement_mode in ("hybrid", "loopback")
+            and conf.placement_hot_capacity > 0
+        )
+        # the device-resident hot set (sorted unique; its position is the
+        # block slot) and the block itself, None until a plan realizes
+        self._hot_keys = np.empty(0, np.uint64)
+        self.hot_values: Optional[torch.Tensor] = None  # [n, H, W]
+        self.hot_g2sum: Optional[torch.Tensor] = None  # [n, H]
+        # resident hot rows updated by a pass and not yet written back
+        self._hot_dirty = False
+        self._census: Optional[CensusExchange] = None
+        # host row traffic of the last begin_pass / end_pass, for reports:
+        # cold rows host -> device, and hot rows moved by the migration
+        # (promoted rows fetched plus demoted rows written back)
+        self.last_promotion_rows = 0
+        self.last_hot_moved_rows = 0
+
+    def _get_cache(self):
+        """The sharded table runs uncached: its per-shard caches are not
+        ported (the constructor refuses a config that asks for them)."""
+        return None
+
+    # -- census wire (placement + compression) ----------------------------- #
+    def _census_exchange_obj(self) -> CensusExchange:
+        """The CensusExchange over a loopback transport, with the placement
+        planner unless placement is "hash"."""
+        if self._census is None:
+            planner = None
+            if self._placement_mode in ("hybrid", "loopback"):
+                planner = PlacementPlanner(
+                    hot_capacity=self.conf.placement_hot_capacity,
+                    aging=self.conf.placement_aging,
+                    update_interval=self.conf.placement_update_interval,
+                )
+            codec = "raw" if flags.hostplane_codec == "raw" else "varint"
+            self._census = CensusExchange(LoopbackTransport(),
+                                          planner=planner, codec=codec)
+        return self._census
+
+    def _exchange_census(self, pk: np.ndarray) -> np.ndarray:
+        """Local census -> the global census (in one process, the same
+        keys).  Realization needs the planner even under "hybrid";
+        "loopback" is the mode that exists to run the wire round trip."""
+        if self._placement_mode == "loopback" or self._hot_realize:
+            return self._census_exchange_obj().exchange(pk)
+        return pk
+
+    def placement_plan(self):
+        """The current PlacementPlan, or None when the planner is off."""
+        if self._census is None or self._census.planner is None:
+            return None
+        return self._census.planner.plan()
+
+    # -- realized hybrid placement (replicated hot block) ------------------- #
+    @property
+    def hot_block_capacity(self) -> int:
+        """Padded capacity H of the replicated hot block (0 = realization
+        off); fixed for the table's lifetime."""
+        return self.conf.placement_hot_capacity if self._hot_realize else 0
+
+    def hot_resident_keys(self) -> np.ndarray:
+        """The device-resident hot set (sorted; slot i holds key i)."""
+        return self._hot_keys
+
+    def _drop_hot_residency(self) -> None:
+        """Forget the hot block WITHOUT writing it back: callers that change
+        the store underneath flush() first, which writes it back."""
+        self._hot_keys = np.empty(0, np.uint64)
+        self.hot_values = None
+        self.hot_g2sum = None
+        self._hot_dirty = False
+
+    def _invalidate_caches(self) -> None:
+        """The store changed underneath: the hot block is stale too, so
+        residency goes (the next begin_pass realizes it from the store)."""
+        super()._invalidate_caches()
+        self._drop_hot_residency()
+
+    def flush(self) -> None:
+        """Hot rows first: the resident block is truth for its keys, so
+        every barrier that makes the store authoritative lands them."""
+        self._flush_hot()
+        super().flush()
+
+    def _hot_rows(self, slots=None) -> np.ndarray:
+        """Rows [m, W+1] of position 0's copy of the hot block (every copy
+        is identical), at ``slots`` or the resident prefix."""
+        m = self._hot_keys.shape[0]
+        lv = self.hot_values[0].cpu().numpy()
+        lg = self.hot_g2sum[0].cpu().numpy()
+        sel = np.arange(m) if slots is None else slots
+        return np.concatenate([lv[sel], lg[sel, None]], axis=1)
+
+    def _flush_hot(self) -> None:
+        if (
+            self._in_pass
+            or not self._hot_dirty
+            or self.hot_values is None
+            or not self._hot_keys.shape[0]
+        ):
+            return
+        self._write_back(self._hot_keys, self._hot_rows())
+        self._hot_dirty = False
+
+    def _sync_hot_block(self) -> None:
+        """Reconcile the resident hot block with the just-updated plan
+        (begin_pass, after the census exchange).  With no plan change it
+        touches nothing, so the hot tier's boundary traffic is O(churn)."""
+        plan = self.placement_plan()
+        target = (
+            plan.hot_keys if plan is not None else np.empty(0, np.uint64)
+        )
+        if target.shape[0] > self.conf.placement_hot_capacity:
+            raise RuntimeError(
+                f"plan hot set ({target.shape[0]}) exceeds the realized "
+                f"block capacity ({self.conf.placement_hot_capacity})"
+            )
+        promote, demote = hot_churn(self._hot_keys, target)
+        if (
+            promote.shape[0]
+            or demote.shape[0]
+            or (target.shape[0] and self.hot_values is None)
+        ):
+            self._migrate_hot(target, promote, demote)
+
+    def _migrate_hot(self, target, promote, demote) -> None:
+        """Commit one hot-set change: demoted rows go back to the host
+        store, promoted rows are fetched from it, and surviving rows move
+        to their new slots on the device (no host bytes for survivors)."""
+        w = self.conf.row_width
+        H = self.conf.placement_hot_capacity
+        n = self.n_shards
+        old = self._hot_keys
+        if demote.shape[0] and self.hot_values is not None:
+            self._write_back(demote,
+                             self._hot_rows(np.searchsorted(old, demote)))
+        promo_rows = self._fetch_hot_rows(promote)
+        self.last_hot_moved_rows += int(demote.shape[0] + promote.shape[0])
+        # the new block: promoted rows at their slot in the sorted target,
+        # survivors from their old slot, padding slots [live, H) zero
+        promo_v = np.zeros((H, w), np.float32)
+        promo_g = np.zeros(H, np.float32)
+        if promote.shape[0]:
+            ts = np.searchsorted(target, promote)
+            promo_v[ts] = promo_rows[:, :w]
+            promo_g[ts] = promo_rows[:, w]
+        pv = torch.from_numpy(promo_v).to(self.device)
+        pg = torch.from_numpy(promo_g).to(self.device)
+        if self.hot_values is None or not old.shape[0]:
+            self.hot_values = pv.expand(n, H, w).contiguous()
+            self.hot_g2sum = pg.expand(n, H).contiguous()
+        else:
+            src = np.zeros(H, np.int64)
+            surv = np.zeros(H, bool)
+            if target.shape[0]:
+                pos = np.searchsorted(old, target)
+                pos_c = np.minimum(pos, old.shape[0] - 1)
+                src[: target.shape[0]] = pos_c
+                surv[: target.shape[0]] = old[pos_c] == target
+            src_t = torch.from_numpy(src).to(self.device)
+            surv_t = torch.from_numpy(surv).to(self.device)
+            self.hot_values = torch.where(
+                surv_t[None, :, None],
+                self.hot_values.index_select(1, src_t), pv[None],
+            )
+            self.hot_g2sum = torch.where(
+                surv_t[None, :], self.hot_g2sum.index_select(1, src_t),
+                pg[None],
+            )
+        self._hot_keys = np.asarray(target, np.uint64).copy()
+
+    def _fetch_hot_rows(self, promote: np.ndarray) -> np.ndarray:
+        """[P, W+1] rows for the sorted promoted keys, read through the host
+        store (uncached, and in one process every shard is owned), with
+        the key-deterministic init for unseen keys.  Under "loopback" the
+        rows ride the migration frame's encode -> decode round trip and
+        must come back bit-exact."""
+        rows = self._resolve_or_init(promote)
+        if promote.shape[0] and self._placement_mode == "loopback":
+            dk, drows = _decode_migration(_encode_migration(promote, rows))
+            if not (np.array_equal(dk, promote)
+                    and np.array_equal(drows, rows)):
+                raise RuntimeError(
+                    "hot-promotion payload failed the loopback "
+                    "round-trip verify")
+            rows = drows
+        return rows
+
+    # -- cut-outs ----------------------------------------------------------- #
+    def prepare_pass(self, pass_keys) -> None:
+        raise not_ported("prepare_pass staging", "pass-boundary overlap, item 8")
+
+    def reshard(self, new_mesh: Mesh) -> int:
+        raise not_ported("ShardedSparseTable.reshard", "multi-chip reshard, item 9")
+
+    # -- pass lifecycle --------------------------------------------------- #
+    def _shard_split(self, pk: np.ndarray):
+        """(owner, shard_keys, row_within) for a sorted global census.
+        The owner is taken in uint64, so keys at or above 2^63 land on the
+        same shard as in the reference."""
+        n = self.n_shards
+        owner = (pk % np.uint64(n)).astype(np.int64)
+        shard_keys = [pk[owner == o] for o in range(n)]  # each stays sorted
+        # key -> row-within-shard, aligned with the sorted pass keys, so
+        # per-batch planning is one searchsorted
+        row_within = np.empty(pk.shape[0], dtype=np.int32)
+        for o in range(n):
+            m = owner == o
+            row_within[m] = np.arange(int(m.sum()), dtype=np.int32)
+        return owner, shard_keys, row_within
+
+    def _sharded_cap(self, shard_keys) -> int:
+        """Per-shard rows: the largest shard's live rows, the plan scratch
+        (the largest serve buffer so far, or plan_scratch_rows at first)
+        and the dead row, to a power of two."""
+        scratch = self._last_serve_n or self.conf.plan_scratch_rows
+        return _next_pow2(
+            max((sk.shape[0] for sk in shard_keys), default=0) + 1 + scratch
+        )
+
+    def begin_pass(self, pass_keys: np.ndarray) -> None:
+        """Exchange the census (advancing the planner), reconcile the hot
+        block with the plan, and promote the cold working set to the device
+        as the stacked ``values``/``g2sum``."""
+        if self._in_pass:
+            raise RuntimeError("end_pass the previous pass first")
+        pk = np.unique(np.asarray(pass_keys, dtype=np.uint64))
+        pk = self._exchange_census(pk)
+        w = self.conf.row_width
+        self.last_hot_moved_rows = 0
+        cold_pk = pk
+        if self._hot_realize:
+            self._sync_hot_block()
+            if self._hot_keys.shape[0]:
+                cold_pk = np.setdiff1d(pk, self._hot_keys, assume_unique=True)
+        owner, shard_keys, row_within = self._shard_split(cold_pk)
+        cap = self._sharded_cap(shard_keys)
+        lvals = np.zeros((self.n_shards, cap, w + 1), dtype=np.float32)
+        for o, sk in enumerate(shard_keys):
+            lvals[o, : sk.shape[0]] = self._resolve_or_init(sk)
+        buf = torch.from_numpy(lvals).to(self.device)
+        # two contiguous tensors: the kernels take no strided views
+        self.values = buf[:, :, :w].contiguous()
+        self.g2sum = buf[:, :, w].contiguous()
+        self.last_promotion_rows = int(cold_pk.shape[0])
+        self._shard_keys = shard_keys
+        self._shard_live = np.asarray(
+            [sk.shape[0] for sk in shard_keys], np.int32
+        )  # per-shard scratch base
+        self._pass_row = row_within
+        self._pass_keys = cold_pk
+        self._in_pass = True
+        self._delta_keys.append(pk)
+
+    def _sorted_write_back(self, ks: list, vs: list) -> None:
+        """One globally sorted write-back from per-shard key/row pieces
+        (shards partition the key space, so the concat is unique)."""
+        ks = [k for k in ks if k.shape[0]]
+        vs = [v for v in vs if v.shape[0]]
+        if ks:
+            k = np.concatenate(ks)
+            v = np.concatenate(vs)
+            order = np.argsort(k, kind="stable")
+            self._write_back(k[order], v[order])
+
+    def _live_rows(self) -> tuple:
+        """(keys, rows) of every shard's live working-set rows."""
+        ks, vs = [], []
+        for o, sk in enumerate(self._shard_keys):
+            m = sk.shape[0]
+            if m:
+                ks.append(sk)
+                vs.append(torch.cat(
+                    [self.values[o, :m], self.g2sum[o, :m, None]], dim=1
+                ).cpu().numpy())
+        return ks, vs
+
+    def end_pass(self) -> None:
+        """Write the cold working set back to the host store.  The hot block
+        stays on the device: its rows are now newer than the store until
+        the next flush or demotion."""
+        if not self._in_pass:
+            raise RuntimeError("no pass in flight")
+        ks, vs = self._live_rows()
+        self._sorted_write_back(ks, vs)
+        self.last_write_back_rows = int(sum(k.shape[0] for k in ks))
+        self.values = None
+        self.g2sum = None
+        if self._hot_keys.shape[0]:
+            self._hot_dirty = True
+        self._shard_keys = None
+        self._pass_keys = None
+        self._pass_row = None
+        self._in_pass = False
+
+    def pass_state_dict(self) -> dict:
+        """Snapshot usable mid-pass: the live cold rows and the resident hot
+        rows when a pass is open, the host store otherwise."""
+        if not self._in_pass:
+            return self.state_dict()
+        keys, rows = self._live_rows()
+        if self._hot_keys.shape[0] and self.hot_values is not None:
+            keys.append(self._hot_keys)
+            rows.append(self._hot_rows())
+        if not keys:
+            return {
+                "keys": np.empty(0, np.uint64),
+                "values": np.empty((0, self.conf.row_width + 1), np.float32),
+            }
+        k = np.concatenate(keys)
+        v = np.concatenate(rows)
+        order = np.argsort(k)
+        return {"keys": k[order], "values": v[order]}
+
+    # -- planning --------------------------------------------------------- #
+    @property
+    def shard_capacity(self) -> int:
+        return 0 if self.values is None else int(self.values.shape[1])
+
+    @property
+    def capacity(self) -> int:
+        """Working-set rows over all shards."""
+        return self.shard_capacity * self.n_shards
+
+    @property
+    def dead_row(self) -> int:
+        """In-shard dead-row index."""
+        return self.shard_capacity - 1
+
+    def plan_batch(self, batch):
+        raise TypeError(
+            "ShardedSparseTable plans whole position groups: use "
+            "plan_group([batch_per_position, ...]) with MultiChipTrainer"
+        )
+
+    def plan_keys(self, keys, n_real):
+        raise TypeError(
+            "ShardedSparseTable plans whole position groups: use plan_group()"
+        )
+
+    def bucket_capacity(self, key_capacity: int) -> int:
+        n = self.n_shards
+        c = int(np.ceil(key_capacity * self.bucket_slack / n / 8.0)) * 8
+        return min(key_capacity, max(c, 8))
+
+    def plan_group(self, batches: Sequence[HostBatch]) -> ShardedBatchPlan:
+        """Resolve one batch group (one batch per shard position) into the
+        stacked all_to_all plan.  The bucket capacity is exact-fit, never
+        lossy: the worst per-shard occupancy is found first, and the bucket
+        grows in power-of-two steps above the base when a group needs it."""
+        if not self._in_pass:
+            raise RuntimeError("begin_pass before planning batches")
+        default_lr = float(self.conf.learning_rate)
+        n = self.n_shards
+        if len(batches) != n:
+            raise ValueError(
+                f"need {n} batches (one per shard position), got {len(batches)}"
+            )
+        K = batches[0].keys.shape[0]
+        dead = self.shard_capacity - 1
+
+        # pass 1 (capacity-independent): each position's unique keys and
+        # the worst per-shard occupancy
+        per_dev: list = []
+        needed = 0
+        n_missing = 0
+        hot_res = self._hot_keys if self._hot_realize else None
+        H = self.hot_block_capacity
+        for b in batches:
+            if b.n_keys == 0:
+                per_dev.append(None)
+                continue
+            uk, inv = np.unique(b.keys[: b.n_keys], return_inverse=True)
+            rows, owner, miss = self._resolve_shard_rows(uk)
+            if hot_res is not None and hot_res.shape[0]:
+                hp = np.searchsorted(hot_res, uk)
+                hp_c = np.minimum(hp, hot_res.shape[0] - 1)
+                ishot = hot_res[hp_c] == uk
+                # resident hot keys are not in the cold census, so the
+                # resolve counted them missing: they are not
+                miss -= int(ishot.sum())
+                # hot keys go to a VIRTUAL group n, so they take no cold
+                # slot and do not inflate the bucket need
+                owner_v = np.where(ishot, np.int64(n), owner)
+                slot = _rank_within_group(owner_v, n + 1)
+            else:
+                ishot = np.zeros(uk.shape[0], dtype=bool)
+                hp_c = None
+                slot = _rank_within_group(owner, n)
+            n_missing += miss
+            per_dev.append((b.n_keys, inv, rows, owner, slot, ishot, hp_c))
+            cold_slot = slot[~ishot] if hp_c is not None else slot
+            if cold_slot.shape[0]:
+                needed = max(needed, int(cold_slot.max()) + 1)
+
+        # floor of 8: a K = 0 batch would give base 0, and 0 * 2 == 0
+        base = max(self.bucket_capacity(K), 8)
+        C = base
+        while C < needed:
+            C *= 2
+        if C > base:
+            self.capacity_bumps += 1
+
+        want = np.full((n, n, C), dead, dtype=np.int32)
+        occ = np.full((n, K), n * C, dtype=np.int32)
+        mask = np.zeros((n, K), dtype=np.float32)
+        # every occurrence also carries a hot slot (H = sink for cold and
+        # padding) and each referenced hot slot its lr (0.0 where this
+        # position has no occurrence: the step's pmax fold recovers it);
+        # shapes depend only on the padded capacity H
+        hot_occ = hot_lr = None
+        if self._hot_realize:
+            hot_occ = np.full((n, K), H, dtype=np.int32)
+            hot_lr = np.zeros((n, H), dtype=np.float32)
+        for d, resolved in enumerate(per_dev):
+            if resolved is None:
+                continue
+            n_keys, inv, rows, owner, slot, ishot, hp_c = resolved
+            cold = ~ishot
+            want[d, owner[cold], slot[cold]] = rows[cold]
+            occ[d, :n_keys] = np.where(
+                ishot, n * C, owner * C + slot
+            ).astype(np.int32)[inv]
+            mask[d, :n_keys] = 1.0
+            if hot_occ is not None and hp_c is not None:
+                hot_occ[d, :n_keys] = np.where(
+                    ishot, hp_c, H
+                ).astype(np.int32)[inv]
+                if ishot.any():
+                    hot_lr[d, hp_c[ishot]] = default_lr
+        # the serve side: shard o serves want[:, o, :]; dedup the rows so
+        # the push updates each row once (the dead row shares one segment;
+        # it is scrubbed after every push)
+        serve_rows = np.ascontiguousarray(want.transpose(1, 0, 2))
+        serve_map = np.empty((n, n, C), dtype=np.int32)
+        # padding tail: every slot its OWN scratch row (live + j), so
+        # serve_uniq is unique apart from np.unique's single dead entry and
+        # the slots past the scratch region clamped to the dead row, whose
+        # deltas sharded_push_and_update zeroes
+        self._last_serve_n = max(self._last_serve_n, n * C)
+        serve_uniq = np.minimum(
+            self._shard_live[:, None]
+            + np.arange(n * C, dtype=np.int32)[None, :],
+            dead,
+        )
+        for o in range(n):
+            uq, inv = np.unique(serve_rows[o].reshape(-1), return_inverse=True)
+            serve_uniq[o, : uq.shape[0]] = uq
+            serve_map[o] = inv.reshape(n, C).astype(np.int32)
+        self.missing_key_count += n_missing
+        return ShardedBatchPlan(serve_rows, occ, serve_map, serve_uniq, mask,
+                                n_missing, hot_occ, hot_lr)
+
+    def _resolve_shard_rows(self, uk: np.ndarray):
+        """Owner shard and row-within-shard for sorted unique keys (the dead
+        row when absent from the pass census); owners and the search stay
+        in uint64."""
+        dead = self.shard_capacity - 1
+        owner = (uk % np.uint64(self.n_shards)).astype(np.int64)
+        npk = self._pass_keys.shape[0]
+        if npk == 0:
+            return np.full(uk.shape[0], dead, np.int32), owner, uk.shape[0]
+        pos = np.searchsorted(self._pass_keys, uk)
+        pos_c = np.minimum(pos, npk - 1)
+        found = self._pass_keys[pos_c] == uk
+        rows = np.where(found, self._pass_row[pos_c], dead).astype(np.int32)
+        return rows, owner, int((~found).sum())
+
+
+def _rank_within_group(group: np.ndarray, n_groups: int) -> np.ndarray:
+    """rank_within_group([2,0,2,1]) -> [0,0,1,0]: occurrence index of each
+    element within its group, preserving order."""
+    order = np.argsort(group, kind="stable")
+    sorted_g = group[order]
+    starts = np.searchsorted(sorted_g, np.arange(n_groups))
+    ranks = np.empty_like(group)
+    ranks[order] = np.arange(group.shape[0]) - starts[sorted_g]
+    return ranks

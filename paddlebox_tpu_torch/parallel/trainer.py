@@ -1,0 +1,437 @@
+"""Multi-chip training: data parallel over the mesh's shard positions, the
+sparse pull and push through all_to_alls against the key-sharded table
+(reference: paddlebox_tpu/parallel/trainer.py).
+
+The reference runs one ``shard_map`` body per device.  Here every shard
+position lives in one process (parallel/mesh.py), and the step runs that
+body once per position, in ascending order, on the position's slices; only
+the collectives (parallel/collectives.py) span all positions:
+
+  * sparse pull: each shard gathers the rows the host plan told it to serve
+    (the pull_rows kernel) -> all_to_all -> occurrence gather; under the
+    realized hybrid placement the hot occurrences then take their rows from
+    the position's copy of the replicated hot block (the hot_cold_select
+    kernel).
+  * sparse push: the transpose: segment-sum the occurrence gradients into
+    per-owner buckets -> all_to_all -> fold requesters of the same row
+    (serve_map) -> sparse adagrad -> the scatter_add_rows kernel.  Hot
+    gradients fold over positions in a fixed ascending order and every
+    copy of the hot block applies the identical update.
+  * dense sync ("step"): the positions' gradients of ``per_ins.sum() /
+    psum(count)`` are summed (psum) and one ``torch.optim.Adam`` step
+    applies them to the one model.
+  * metrics: one AUC stream per position, merged at read time.
+
+Cut-outs (each raises ``NotImplementedError``): ``sync_dense_mode``
+kstep/async; the prefetch thread and host plane; the watchdog; telemetry;
+``evaluate``; dumps; multi-task models; metric groups; ``slot_mask``;
+``nan_policy`` other than the raise of ``check_nan_inf``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Iterable, Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig, not_ported
+from paddlebox_tpu_torch.data.feed import HostBatch, empty_like
+from paddlebox_tpu_torch.metrics.auc import (
+    AucState,
+    compute_metrics,
+    init_auc_state,
+    stack_auc_states,
+    unstack_auc_state,
+    update_auc_state,
+)
+from paddlebox_tpu_torch.models.layers import bce_with_logits, resolve_compute_dtype
+from paddlebox_tpu_torch.ops import sparse_kernels
+from paddlebox_tpu_torch.parallel import collectives
+from paddlebox_tpu_torch.parallel.mesh import Mesh
+from paddlebox_tpu_torch.parallel.sharded_table import (
+    ShardedBatchPlan,
+    ShardedSparseTable,
+)
+from paddlebox_tpu_torch.sparse.optimizer import sparse_adagrad_update
+from paddlebox_tpu_torch.sparse.table import _segment_sum, gather_rows, scatter_add_rows
+from paddlebox_tpu_torch.train.trainer import NonFiniteBatchError
+
+
+def _stack_group(batches: Sequence[HostBatch], plan: ShardedBatchPlan) -> dict:
+    """Stack per-position batches and the plan into [n, ...] numpy arrays."""
+    key_clicks = []
+    for b, m in zip(batches, plan.key_mask):
+        ins = np.minimum(b.key_segments // b.n_sparse_slots, b.batch_size - 1)
+        key_clicks.append(b.labels[ins] * m)
+    extra = {}
+    if plan.hot_occ is not None:
+        extra["hot_occ"] = plan.hot_occ
+        extra["hot_lr"] = plan.hot_lr
+    return {
+        **extra,
+        "serve_rows": plan.serve_rows,
+        "occ_flat": plan.occ_flat,
+        "serve_map": plan.serve_map,
+        "serve_uniq": plan.serve_uniq,
+        "key_mask": plan.key_mask,
+        "key_clicks": np.stack(key_clicks),
+        "key_segments": np.stack([b.key_segments for b in batches]),
+        "dense": np.stack([b.dense for b in batches]),
+        "labels": np.stack([b.labels for b in batches]),
+        "ins_mask": np.stack([b.ins_mask for b in batches]),
+    }
+
+
+def _apply_threshold(rows: torch.Tensor, create_threshold: float,
+                     cvm_offset: int) -> torch.Tensor:
+    """Embedding columns of rows whose show count is below the threshold
+    read as zero."""
+    if create_threshold <= 0.0:
+        return rows
+    visible = (rows[:, 0:1] >= create_threshold).to(rows.dtype)
+    return torch.cat([rows[:, :cvm_offset], rows[:, cvm_offset:] * visible],
+                     dim=1)
+
+
+def sharded_pull(values: torch.Tensor, serve_rows: torch.Tensor,
+                 occ_flat: torch.Tensor, create_threshold: float,
+                 cvm_offset: int) -> list:
+    """The cross-shard pull.  The host plan already told each shard which
+    rows to serve, so there is no key exchange: local gather -> one
+    all_to_all -> occurrence gather.
+
+    values: [n, cap, W]; serve_rows: [n, n, C], the rows shard o serves to
+    each requester; occ_flat: [n, K] into the received [n, C] response.
+    Returns one [K, W] tensor of pulled rows per position."""
+    n, _, C = serve_rows.shape
+    W = values.shape[2]
+    served = torch.stack([
+        gather_rows(values[o], serve_rows[o].reshape(-1)) for o in range(n)
+    ]).view(n, n, C, W)
+    got = collectives.all_to_all(served)  # got[d, s] = served[s, d]
+    sink = values.new_zeros((1, W))
+    return [
+        _apply_threshold(
+            torch.cat([got[d].view(n * C, W), sink]).index_select(
+                0, occ_flat[d]),
+            create_threshold, cvm_offset)
+        for d in range(n)
+    ]
+
+
+def hybrid_pull(values: torch.Tensor, hot_values: torch.Tensor,
+                serve_rows: torch.Tensor, occ_flat: torch.Tensor,
+                hot_occ: torch.Tensor, create_threshold: float,
+                cvm_offset: int) -> list:
+    """The hybrid-placement pull: cold occurrences take the all_to_all
+    path, hot occurrences read the position's copy of the replicated hot
+    block (hot_values [n, H, W]; hot_occ [n, K] in [0, H], H = cold or
+    padding, whose occ_flat entries carry real cold routes; hot
+    occurrences carry the n*C sink, so the two selects partition).
+    create_threshold applies after the select, so hot and cold rows see
+    the same visibility rule."""
+    rows = sharded_pull(values, serve_rows, occ_flat, 0.0, cvm_offset)
+    return [
+        _apply_threshold(
+            sparse_kernels.hot_cold_select(hot_values[d], hot_occ[d], r),
+            create_threshold, cvm_offset)
+        for d, r in enumerate(rows)
+    ]
+
+
+def _counter_contrib(row_grads: torch.Tensor, segments: torch.Tensor,
+                     key_mask: torch.Tensor, key_clicks: torch.Tensor,
+                     n_seg: int, co: int) -> torch.Tensor:
+    """[n_seg, W]: show, click (and zero extra counters) beside the merged
+    embedding gradient, segment-summed in occurrence order."""
+    merged = _segment_sum(row_grads, segments, n_seg)
+    counters = [_segment_sum(key_mask, segments, n_seg),
+                _segment_sum(key_clicks, segments, n_seg)]
+    counters = torch.stack(counters, dim=1)
+    if co > 2:
+        counters = torch.cat(
+            [counters, counters.new_zeros((n_seg, co - 2))], dim=1)
+    return torch.cat([counters, merged[:, co:]], dim=1)
+
+
+@torch.no_grad()
+def hybrid_hot_update(hot_values: torch.Tensor, hot_g2sum: torch.Tensor,
+                      row_grads: Sequence[torch.Tensor],
+                      hot_occ: torch.Tensor, hot_lr: torch.Tensor,
+                      key_mask: torch.Tensor, key_clicks: torch.Tensor,
+                      conf: SparseTableConfig) -> None:
+    """Replica-identical hot-block update, IN PLACE on hot_values [n, H, W]
+    and hot_g2sum [n, H].
+
+    Level 1 merges each position's occurrences in occurrence order, as the
+    cold path does; level 2 is an all_gather followed by an unrolled
+    ascending fold over positions, the requester order the cold path's
+    serve_map segment sum folds in, so a key served hot reduces in the
+    order it would have reduced cold.  The adagrad apply runs over all H
+    slots: an untouched slot's merged gradient is exactly zero, and so is
+    its delta, so padding and unreferenced residents stay bitwise
+    unchanged.  hot_lr is 0.0 on positions without an occurrence of the
+    slot; the pmax fold recovers the one real lr."""
+    n, H, _ = hot_values.shape
+    co = conf.cvm_offset
+    contrib = torch.stack([
+        _counter_contrib(row_grads[d], hot_occ[d], key_mask[d],
+                         key_clicks[d], H + 1, co)[:H]
+        for d in range(n)
+    ])  # [n, H, W]
+    gathered = collectives.all_gather(contrib)  # [n, n, H, W]
+    lr = collectives.pmax(hot_lr)
+    for d in range(n):
+        acc = gathered[d, 0]
+        for i in range(1, n):  # unrolled: fixed fold order
+            acc = acc + gathered[d, i]
+        w_delta, g2_delta = sparse_adagrad_update(
+            hot_g2sum[d], acc[:, co:], lr[d], conf.initial_g2sum,
+            conf.grad_clip,
+        )
+        hot_values[d] += torch.cat([acc[:, :co], w_delta], dim=1)
+        hot_g2sum[d] += g2_delta
+
+
+@torch.no_grad()
+def sharded_push_and_update(values: torch.Tensor, g2sum: torch.Tensor,
+                            row_grads: Sequence[torch.Tensor],
+                            occ_flat: torch.Tensor, serve_map: torch.Tensor,
+                            serve_uniq: torch.Tensor, key_mask: torch.Tensor,
+                            key_clicks: torch.Tensor,
+                            conf: SparseTableConfig) -> None:
+    """The cross-shard push, IN PLACE on values [n, cap, W] and g2sum
+    [n, cap]: merge occurrence gradients into per-owner buckets, exchange
+    them (the push all_to_all), fold requesters of the same row into one
+    segment (serve_map / serve_uniq), and apply the counters and sparse
+    adagrad to exactly the touched rows."""
+    n, _, C = serve_map.shape
+    co = conf.cvm_offset
+    cap, W = values.shape[1:]
+    US = serve_uniq.shape[1]
+    # last segment = the padding and hot-occurrence sink, dropped
+    send = torch.stack([
+        _counter_contrib(row_grads[d], occ_flat[d], key_mask[d],
+                         key_clicks[d], n * C + 1, co)[: n * C]
+        for d in range(n)
+    ]).view(n, n, C, W)
+    recv = collectives.all_to_all(send)  # [n, n, C, W]
+    for o in range(n):
+        acc = _segment_sum(recv[o].view(n * C, W), serve_map[o].view(-1), US)
+        uniq = serve_uniq[o]
+        w_delta, g2_delta = sparse_adagrad_update(
+            g2sum[o].index_select(0, uniq), acc[:, co:], conf.learning_rate,
+            conf.initial_g2sum, conf.grad_clip,
+        )
+        delta = torch.cat([acc[:, :co], w_delta], dim=1)
+        # serve_uniq targets are unique except repeated dead-row entries:
+        # zero every dead-targeted delta, so repeats only add zero and the
+        # scatter stays exact under any order
+        ok = (uniq != cap - 1).to(delta.dtype)
+        scatter_add_rows(values[o], uniq, (delta * ok[:, None]).contiguous())
+        g2sum[o].index_add_(0, uniq, g2_delta * ok)
+        values[o, cap - 1] = 0.0
+        g2sum[o, cap - 1] = 0.0
+
+
+class MultiChipTrainer:
+    """Drives a model and a ShardedSparseTable over the mesh's shard
+    positions (the reference's BoxPSTrainer analog: one worker per
+    position)."""
+
+    def __init__(self, model, table_conf: SparseTableConfig, mesh: Mesh,
+                 trainer_conf: Optional[TrainerConfig] = None,
+                 metric_group=None, slot_mask: Optional[Iterable[int]] = None):
+        if metric_group is not None:
+            raise not_ported("metric groups", "multi-chip cut-outs, item 9")
+        if slot_mask is not None:
+            raise not_ported("slot_mask", "multi-chip cut-outs, item 9")
+        if getattr(model, "n_tasks", 1) > 1:
+            raise not_ported("multi-task models", "model zoo, item 10")
+        self.model = model
+        self.table_conf = table_conf
+        self.mesh = mesh
+        self.device = mesh.device
+        self.n_dev = mesh.n
+        self.conf = trainer_conf or TrainerConfig()
+        resolve_compute_dtype(self.conf.compute_dtype)
+        for p in model.parameters():
+            if p.device.type != self.device.type:
+                raise ValueError(
+                    f"model parameters on {p.device}, mesh on {self.device}"
+                )
+        # torch.optim.Adam's defaults match optax.adam's (trainer.py)
+        self.optimizer = torch.optim.Adam(model.parameters(),
+                                          lr=self.conf.dense_lr)
+        self.global_step = 0
+        self.last_auc_state: Optional[AucState] = None
+        self.last_metric_state: Optional[dict] = None
+
+    # -- dense persistence -------------------------------------------------- #
+    def dense_state(self) -> tuple:
+        """(model state_dict, optimizer state_dict): in "step" mode every
+        position holds the same dense state, so there is one copy."""
+        return self.model.state_dict(), self.optimizer.state_dict()
+
+    def load_dense_state(self, params, opt_state=None) -> None:
+        if params is not None:
+            self.model.load_state_dict(params)
+        if opt_state is not None:
+            self.optimizer.load_state_dict(opt_state)
+
+    # -- state -------------------------------------------------------------- #
+    def init_auc(self) -> AucState:
+        """Fresh AUC streams, one per position, stacked [n, ...]."""
+        return stack_auc_states(
+            init_auc_state(self.conf.auc_buckets, self.device), self.n_dev)
+
+    def _ensure_hot_block(self, table: ShardedSparseTable, hot_cap: int) -> None:
+        """Give the table an all-zero hot block before the first plan
+        realizes: nothing routes hot then, the pull still runs the select
+        (all-sink), and a zero block receives exactly-zero updates."""
+        if table.hot_values is None:
+            w = self.table_conf.row_width
+            table.hot_values = torch.zeros((self.n_dev, hot_cap, w),
+                                           device=self.device)
+            table.hot_g2sum = torch.zeros((self.n_dev, hot_cap),
+                                          device=self.device)
+
+    def _to_device(self, host: dict) -> dict:
+        return {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+
+    # -- the step ----------------------------------------------------------- #
+    def _step(self, table: ShardedSparseTable, feed: dict,
+              aucs: list) -> tuple:
+        """One step over every position; updates the model, the table and
+        the hot block in place and ``aucs`` (one AucState per position).
+        Returns (psummed loss, instance count) as device scalars."""
+        tconf = self.table_conf
+        n = self.n_dev
+        hot = "hot_occ" in feed
+        if hot:
+            rows = hybrid_pull(table.values, table.hot_values,
+                               feed["serve_rows"], feed["occ_flat"],
+                               feed["hot_occ"], tconf.create_threshold,
+                               tconf.cvm_offset)
+        else:
+            rows = sharded_pull(table.values, feed["serve_rows"],
+                                feed["occ_flat"], tconf.create_threshold,
+                                tconf.cvm_offset)
+        params = list(self.model.parameters())
+        mask = feed["ins_mask"]
+        denom = torch.clamp(collectives.psum(mask.sum(1))[0], min=1.0)
+        losses, pgrads, row_grads, preds = [], [], [], []
+        for d in range(n):
+            r = rows[d].detach().requires_grad_(True)
+            logits = self.model(r, feed["key_segments"][d], feed["dense"][d],
+                                mask.shape[1])
+            per_ins = bce_with_logits(logits, feed["labels"][d]) * mask[d]
+            loss = per_ins.sum() / denom
+            grads = torch.autograd.grad(loss, params + [r])
+            losses.append(loss.detach())
+            pgrads.append(grads[:-1])
+            row_grads.append(grads[-1])
+            preds.append(torch.sigmoid(logits.detach()))
+        summed = [collectives.psum(torch.stack(g))[0] for g in zip(*pgrads)]
+        loss = collectives.psum(torch.stack(losses))[0]
+        if self.conf.check_nan_inf:
+            finite = torch.isfinite(loss)
+            for g in summed + row_grads:
+                finite &= torch.isfinite(g).all()
+            if not bool(finite):
+                raise NonFiniteBatchError(
+                    f"non-finite loss/grad at step {self.global_step}"
+                )
+        for p, g in zip(params, summed):
+            p.grad = g
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        sharded_push_and_update(
+            table.values, table.g2sum, row_grads, feed["occ_flat"],
+            feed["serve_map"], feed["serve_uniq"], feed["key_mask"],
+            feed["key_clicks"], tconf,
+        )
+        if hot:
+            # hot occurrences carried the cold sink above, so each gradient
+            # reaches exactly one of the two updates
+            hybrid_hot_update(
+                table.hot_values, table.hot_g2sum, row_grads,
+                feed["hot_occ"], feed["hot_lr"], feed["key_mask"],
+                feed["key_clicks"], tconf,
+            )
+        for d in range(n):
+            aucs[d] = update_auc_state(aucs[d], preds[d], feed["labels"][d],
+                                       mask[d])
+        return loss, mask.sum()
+
+    # -- public API --------------------------------------------------------- #
+    def train_from_dataset(self, dataset, table: ShardedSparseTable,
+                           auc_state=None, drop_last: bool = False) -> dict:
+        """One pass over the dataset, one batch per position at a time (the
+        caller owns begin_pass/end_pass, as with the single-chip Trainer).
+        ``auc_state`` (a stacked AucState or ``last_metric_state``)
+        continues an earlier pass's metric streams."""
+        return self.train_groups(
+            table, _group_batches(dataset.batches(drop_last=drop_last),
+                                  self.n_dev),
+            auc_state=auc_state,
+        )
+
+    def train_groups(self, table: ShardedSparseTable,
+                     groups: Iterator[Sequence[HostBatch]],
+                     auc_state=None) -> dict:
+        """Train over explicit groups of n batches, serially: plan, copy,
+        step."""
+        if not table._in_pass:
+            raise RuntimeError("begin_pass before training")
+        if table.mesh.n != self.n_dev or table.device != self.device:
+            raise ValueError("the table and the trainer use different meshes")
+        t0 = time.monotonic()
+        hot_cap = table.hot_block_capacity
+        if hot_cap:
+            self._ensure_hot_block(table, hot_cap)
+        if isinstance(auc_state, dict):
+            auc_state = auc_state["auc"]
+        stacked = auc_state if auc_state is not None else self.init_auc()
+        aucs = [AucState(*(t.clone() for t in unstack_auc_state(stacked, d)))
+                for d in range(self.n_dev)]
+        losses, counts = [], []
+        hot_occurrences = 0
+        for group in groups:
+            plan = table.plan_group(group)
+            if plan.hot_occ is not None:
+                hot_occurrences += int((plan.hot_occ < hot_cap).sum())
+            feed = self._to_device(_stack_group(group, plan))
+            loss, cnt = self._step(table, feed, aucs)
+            losses.append(loss)
+            counts.append(cnt)
+            self.global_step += 1
+        merged = AucState(*(torch.stack(ts) for ts in zip(*aucs)))
+        metrics = compute_metrics(merged)
+        metrics["loss"] = float(torch.stack(losses).mean()) if losses else 0.0
+        metrics["samples"] = float(torch.stack(counts).sum()) if counts else 0.0
+        metrics["steps"] = len(losses)
+        metrics["duration_s"] = time.monotonic() - t0
+        metrics["missing_keys"] = table.missing_key_count
+        metrics["capacity_bumps"] = table.capacity_bumps
+        metrics["hot_occurrences"] = hot_occurrences
+        self.last_auc_state = merged
+        self.last_metric_state = {"auc": merged}
+        return metrics
+
+
+def _group_batches(batches: Iterator[HostBatch],
+                   n: int) -> Iterator[list]:
+    """Yield n batches at a time; a ragged tail is padded with empty
+    batches (ins_mask all zero) so every position always gets a feed."""
+    group: list = []
+    for b in batches:
+        group.append(b)
+        if len(group) == n:
+            yield group
+            group = []
+    if group:
+        group += [empty_like(group[0])] * (n - len(group))
+        yield group

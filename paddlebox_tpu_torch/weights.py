@@ -32,3 +32,11 @@ def table_state_from_jax(values, g2sum) -> dict:
         "values": torch.from_numpy(np.array(values, np.float32, order="C")),
         "g2sum": torch.from_numpy(np.array(g2sum, np.float32, order="C")),
     }
+
+
+def hot_block_from_jax(values, g2sum) -> dict:
+    """The reference's replicated hot block (values [n, H, W], g2sum
+    [n, H], one identical copy per shard position) as contiguous float32
+    tensors {"hot_values", "hot_g2sum"} for ShardedSparseTable."""
+    state = table_state_from_jax(values, g2sum)
+    return {"hot_values": state["values"], "hot_g2sum": state["g2sum"]}

@@ -107,7 +107,8 @@ def test_small_pass_on_the_card_launches_the_kernels(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("kernel", ["pull_rows", "scatter_add_rows",
-                                    "gather_slots", "scatter_rows"])
+                                    "gather_slots", "scatter_rows",
+                                    "hot_cold_select"])
 def test_out_of_range_index_fails_the_launch(cuda, kernel):
     """An index outside the table traps the kernel.  The trap poisons the
     CUDA context, so it runs in a child process."""
@@ -121,6 +122,9 @@ def test_out_of_range_index_fails_the_launch(cuda, kernel):
         "gather_slots": "sk.gather_slots(v, i)",
         "scatter_rows":
             "sk.scatter_rows(v, i, torch.ones(1, 3, device='cuda'))",
+        # slot 9 is past the sink H = 8
+        "hot_cold_select":
+            "sk.hot_cold_select(v, i + 1, torch.ones(1, 3, device='cuda'))",
     }[kernel]
     code = (
         "import torch\n"
@@ -221,3 +225,75 @@ def test_cached_lifecycle_on_the_card_is_bit_exact_with_uncached(cuda):
     for s in states[1:]:
         np.testing.assert_array_equal(s["keys"], states[0]["keys"])
         np.testing.assert_array_equal(s["values"], states[0]["values"])
+
+
+# --------------------------------------------------------------------------- #
+# the hybrid-placement kernel and the multi-chip path
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("case", ["main", "ragged", "empty", "all_sink",
+                                  "all_hot", "one_row"])
+def test_hot_cold_select_kernel_bit_exact(cuda, case):
+    H, W, K = {"main": (4096, 10, 131072), "ragged": (4096, 10, 12345),
+               "empty": (4096, 10, 0), "all_sink": (4096, 10, 5000),
+               "all_hot": (4096, 10, 5000), "one_row": (1, 10, 5000)}[case]
+    gen = torch.Generator(device=cuda).manual_seed(K + H)
+    hot = torch.randn((H, W), device=cuda, generator=gen)
+    cold = torch.randn((K, W), device=cuda, generator=gen)
+    lo, hi = {"all_sink": (H, H + 1), "all_hot": (0, H)}.get(case, (0, H + 1))
+    occ = torch.randint(lo, hi, (K,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    before = sk.launches["hot_cold_select"]
+    got = sk.hot_cold_select(hot, occ, cold)
+    torch.cuda.synchronize()
+    assert got.shape == (K, W)
+    assert torch.equal(got, sk.hot_cold_select_plain(hot, occ, cold))
+    assert sk.launches["hot_cold_select"] == before + (1 if K else 0)
+
+
+def test_hybrid_path_on_the_card(cuda, tmp_path):
+    """Four positions on the card, three passes: the hot block realizes,
+    the pull routes hot occurrences through the kernel once per position
+    and step, and the card agrees with the CPU at the slice tolerances."""
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.parallel import (
+        MultiChipTrainer,
+        ShardedSparseTable,
+        make_mesh,
+    )
+
+    files = write_synth_files(str(tmp_path), n_files=1, ins_per_file=256,
+                              n_sparse_slots=3, vocab_per_slot=60,
+                              dense_dim=2, seed=1)
+    ds = PadBoxSlotDataset(make_synth_config(3, 2, 16, 16), read_threads=1)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    tconf = SparseTableConfig(embedding_dim=4, placement="loopback",
+                              placement_update_interval=1,
+                              placement_hot_capacity=64, hbm_cache_rows=0)
+    out = {}
+    for device in ("cuda", "cpu"):
+        mesh = make_mesh(4, device=device)
+        tr = MultiChipTrainer(CtrDnn(3, tconf.row_width, dense_dim=2,
+                                     hidden=(8,), device=device),
+                              tconf, mesh, TrainerConfig(auc_buckets=1 << 10))
+        table = ShardedSparseTable(tconf, mesh, seed=5, bucket_slack=8.0)
+        sk.reset_launches()
+        steps = hot = 0
+        for _ in range(3):
+            table.begin_pass(ds.unique_keys())
+            m = tr.train_from_dataset(ds, table)
+            table.end_pass()
+            steps += m["steps"]
+            hot += m["hot_occurrences"]
+        out[device] = (m, table.state_dict(), dict(sk.launches))
+        assert table.hot_resident_keys().shape[0] > 0 and hot > 0
+    (mg, sg, lg), (mc, sc, lc) = out["cuda"], out["cpu"]
+    assert lg["hot_cold_select"] == 4 * steps and lc["hot_cold_select"] == 0
+    assert lg["pull_rows"] == lg["scatter_add_rows"] == 4 * steps
+    assert abs(mg["loss"] - mc["loss"]) < 1e-4 * abs(mc["loss"])
+    np.testing.assert_array_equal(sg["keys"], sc["keys"])
+    np.testing.assert_allclose(sg["values"], sc["values"], atol=1e-4)
+    ds.close()
