@@ -5,11 +5,15 @@
 
 Phases, each fatal on failure:
   1. build   — compile every CUDA kernel of the paths from csrc/ (one nvcc
-               per source, all started together) and print the build time.
+               per source, all started together) and print the build time
+               and each kernel's registers and spills.
   2. parity  — hold each kernel against its plain PyTorch twin on the card,
                at the main paths' shapes, at a ragged size and at size 0
-               (the cache kernels with negative and duplicate slots, keys at
-               and above 2^63 and the all-ones key).
+               (scatter_add_rows on its float2 and its scalar path; the
+               cache kernels with negative and duplicate slots, scatter_rows
+               also with 65 536 occurrences on 8 slots, duplicates across
+               every tile boundary, calls in a row and a larger table; keys
+               at and above 2^63 and the all-ones key).
   3. pass    — write synthetic slot files at the full width of the repo's
                benchmark CTR-DNN (16 sparse slots, 13 dense, batch 2048,
                embedding_dim 8 -> device row width 10, tower 512-256-128, vocab
@@ -44,10 +48,15 @@ Phases, each fatal on failure:
                hash placement is printed.
      check   — a small hybrid run on the card and on the CPU (plain twins)
                from identical initial weights must agree.
-  6. times   — median time of each kernel, its twin and the equivalent
+  6. times   — the CUDA kernels one call of each wrapper launches (from
+               torch.profiler; one each, two for scatter_rows), and the
+               median time of each kernel, its twin and the equivalent
                PyTorch library call at the main paths' shapes with the L2
                cache cold, beside the least time the card's memory rate
-               allows.
+               allows (for the two row-scatter kernels also the floor of
+               the 32-byte sectors their rows touch, scatter_add_rows'
+               scalar path, and the zero fill a per-call scatter_rows
+               scratch would add).
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -105,6 +114,9 @@ TPU_KERNELS = {
     "sorted_search": "paddlebox_tpu/ops/pallas_sparse.py:464",
     "hot_cold_select": "paddlebox_tpu/ops/pallas_sparse.py:393",
 }
+# CUDA kernels one wrapper call launches: one each, but scatter_rows elects
+# winners and stores them in two (csrc/scatter_rows.cu says why)
+CUDA_LAUNCHES_PER_CALL = {"scatter_rows": 2}
 # Real duplicates reach scatter_add_rows' atomics in an order that changes
 # from run to run.  For a row hit n times the result differs from a
 # sequential sum by at most about 2 * n * 2^-24 * (|v| + sum |delta|); with
@@ -211,20 +223,42 @@ def check_parity(P: int, device) -> dict:
     log(f"parity scatter_add_rows: bit-exact at U={KEY_CAPACITY}, 12345, 0 "
         "(unique targets + zero-delta dead-row repeats)")
 
-    # real duplicates: ~4 hits per target row
-    idx = torch.randint(0, KEY_CAPACITY // 4, (KEY_CAPACITY,), device=device,
-                        generator=gen, dtype=torch.int32)
-    delta = torch.randn((KEY_CAPACITY, W), device=device, generator=gen)
-    got = sk.scatter_add_rows(values.clone(), idx, delta)
-    want = sk.scatter_add_rows_plain(values.clone(), idx, delta)
-    dup_err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=DUP_TOL, atol=DUP_TOL):
-        raise AssertionError(
-            f"scatter_add_rows with duplicates: max abs err {dup_err} "
-            f"over tolerance {DUP_TOL}"
-        )
-    log(f"parity scatter_add_rows with duplicates: max abs err {dup_err!r} "
-        f"(tolerance {DUP_TOL})")
+    # the kernel's two reduction paths at the full shape: float2 on the
+    # 8-byte aligned 10-float table above, scalar on an 11-float table and
+    # on a 10-float view that starts 4 bytes into its storage
+    u = KEY_CAPACITY
+    flat = torch.randn(P * W + 1, device=device, generator=gen)
+    tables = (("float2, W=10", values),
+              ("scalar, W=11", torch.randn((P, W + 1), device=device,
+                                           generator=gen)),
+              ("scalar, W=10 based 4 bytes in", flat[1:].view(P, W)))
+    dup_errs = []
+    for what, table in tables:
+        w = table.shape[1]
+        idx = torch.randperm(P - 1, device=device, generator=gen)[:u]
+        idx = idx.to(torch.int32)
+        idx[u - u // 8:] = dead
+        delta = torch.randn((u, w), device=device, generator=gen)
+        delta[u - u // 8:] = 0.0
+        got = sk.scatter_add_rows(table.clone(), idx, delta)
+        if not torch.equal(got, sk.scatter_add_rows_plain(table.clone(), idx,
+                                                          delta)):
+            raise AssertionError(f"scatter_add_rows ({what}) differs from its "
+                                 "twin on unique targets + dead repeats")
+        # real duplicates: ~4 hits per target row
+        idx = torch.randint(0, u // 4, (u,), device=device, generator=gen,
+                            dtype=torch.int32)
+        delta = torch.randn((u, w), device=device, generator=gen)
+        got = sk.scatter_add_rows(table.clone(), idx, delta)
+        want = sk.scatter_add_rows_plain(table.clone(), idx, delta)
+        dup_errs.append(float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=DUP_TOL, atol=DUP_TOL):
+            raise AssertionError(
+                f"scatter_add_rows ({what}) with duplicates: max abs err "
+                f"{dup_errs[-1]} over tolerance {DUP_TOL}")
+    log(f"parity scatter_add_rows paths ({'; '.join(t[0] for t in tables)}): "
+        f"bit-exact at U={u} on unique targets + dead repeats; with "
+        f"duplicates max abs err {dup_errs!r} (tolerance {DUP_TOL})")
     if device.type == "cuda":
         torch.cuda.synchronize()
     return errs
@@ -272,8 +306,49 @@ def check_cache_parity(census, device) -> dict:
                     f"scatter_rows differs from its twin at K={k} ({what})")
             if k == C and what == "duplicates":
                 errs["scatter_rows"] = float((got - want).abs().max())
+    # stress: 65 536 occurrences on 8 slots (every block competes for the
+    # same winners); pairs of occurrences sharing a slot across every tile
+    # boundary, the first and last occurrence too; K = 1
+    straddle = ((torch.arange(C, device=device) + 1) // 2).to(torch.int32)
+    straddle[-1] = straddle[0]
+    stress = (("65536 on 8 slots", torch.randint(0, 8, (C,), device=device,
+                                                 generator=gen,
+                                                 dtype=torch.int32)),
+              ("straddling pairs", straddle),
+              ("K=1", torch.randint(0, C, (1,), device=device, generator=gen,
+                                    dtype=torch.int32)))
+    for what, slots in stress:
+        new = torch.randn((slots.shape[0], W1), device=device, generator=gen)
+        got = sk.scatter_rows(rows.clone(), slots, new)
+        want = sk.scatter_rows_plain(rows.clone(), slots, new)
+        if not torch.equal(got, want):
+            raise AssertionError(f"scatter_rows differs from its twin ({what})")
+    # three calls in a row on one table, then one on a table twice as large:
+    # no winner of an earlier call may leak into a later one
+    table, want = rows.clone(), rows.clone()
+    for k in (C, 20_000, 12_345):
+        slots = torch.randint(-1, C, (k,), device=device, generator=gen,
+                              dtype=torch.int32)
+        new = torch.randn((k, W1), device=device, generator=gen)
+        sk.scatter_rows_plain(want, slots, new)
+        if not torch.equal(sk.scatter_rows(table, slots, new), want):
+            raise AssertionError(f"scatter_rows differs from its twin on the "
+                                 f"same table in a row (K={k})")
+    big = torch.randn((2 * C, W1), device=device, generator=gen)
+    slots = torch.randint(-1, 2 * C, (C,), device=device, generator=gen,
+                          dtype=torch.int32)
+    new = torch.randn((C, W1), device=device, generator=gen)
+    if not torch.equal(sk.scatter_rows(big.clone(), slots, new),
+                       sk.scatter_rows_plain(big.clone(), slots, new)):
+        raise AssertionError("scatter_rows differs from its twin on a larger "
+                             "table after calls on a smaller one")
+    if device.type == "cuda" and bool(
+            sk._scatter_rows_tags[torch.cuda.current_device()].any()):
+        raise AssertionError("scatter_rows left tags set in its scratch")
     log(f"parity scatter_rows: bit-exact at K={C}, 12345, 0 (unique slots; "
-        "duplicates with negatives, last occurrence wins)")
+        "duplicates with negatives, last occurrence wins), K=65536 on 8 "
+        "slots, pairs straddling every tile boundary, K=1, three calls in a "
+        f"row on one table, then a table of {2 * C} rows; tags all zero after")
 
     rng = np.random.default_rng(3)
     hay_keys = np.unique(np.concatenate([
@@ -1044,6 +1119,35 @@ def cold_ms(fn, flush, reps: int = 50) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
+def touched_sectors(table, rows) -> int:
+    """32-byte sectors of ``table`` that the rows ``rows`` (unique) span:
+    a 40-byte row always spans two, a 44-byte row two or three."""
+    row_bytes = table.shape[1] * table.element_size()
+    start = table.data_ptr() % 32 + rows.long() * row_bytes
+    return int(((start + row_bytes - 1) // 32 - start // 32 + 1).sum())
+
+
+def cuda_launches(fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` launches, one entry a
+    launch, from a torch.profiler window around the call.  The call is
+    kept 20 ms from each edge of the window, where the profiler has been
+    seen to lose the record of a kernel that ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    return [e.name for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
 def slice_specs(table, ds) -> dict:
     """Timing inputs of the step's two kernels: a real batch's plan of the
     trained uncached table (a pass is left open; the caller ends it)."""
@@ -1061,6 +1165,9 @@ def slice_specs(table, ds) -> dict:
     delta = torch.randn((uidx.shape[0], W), device="cuda", generator=gen) * 1e-3
     delta[uidx == P - 1] = 0.0
     work = values.clone()
+    # the same table as a view 4 bytes into its storage: the scalar path
+    work4 = torch.empty(P * W + 1, device="cuda")[1:].view(P, W)
+    work4.copy_(values)
     f4 = 4
     k, u = idx.shape[0], uidx.shape[0]
     pull_rows_read = int(torch.unique(idx).shape[0])
@@ -1077,6 +1184,11 @@ def slice_specs(table, ds) -> dict:
             plain=lambda: sk.scatter_add_rows_plain(work, uidx, delta),
             library=lambda: work.index_add_(0, uidx, delta),
             bytes=u * 4 + u * W * f4 + 2 * push_rows * W * f4, ops=u * W,
+            # each target sector read and written whole
+            floor_bytes=u * 4 + u * W * f4
+            + 2 * 32 * touched_sectors(work, torch.unique(uidx)),
+            variants={"scalar path (table based 4 bytes in)":
+                      lambda: sk.scatter_add_rows(work4, uidx, delta)},
         ),
     }
 
@@ -1123,6 +1235,12 @@ def cache_specs(table, census) -> dict:
             plain=lambda: sk.scatter_rows_plain(work, slots, new),
             library=lambda: work.index_copy_(0, slots_long, new),
             bytes=k * 4 + 2 * k * W1 * 4, ops=0,
+            # the slots are unique: each target sector written whole once
+            floor_bytes=k * 4 + k * W1 * 4 + 32 * touched_sectors(work, slots),
+            # what a scratch zeroed in every call would add to the kernel's
+            variants={"zero fill of a per-call tag scratch":
+                      lambda: torch.zeros(work.shape[0], dtype=torch.int32,
+                                          device="cuda")},
         ),
         # one 64-bit compare per step of the descent
         "sorted_search": dict(
@@ -1141,8 +1259,8 @@ def kernel_times(res: dict, ds, cached: dict, census, hybrid: dict,
     the main-path run that launched it."""
     import torch
 
+    from paddlebox_tpu_torch.ops import cuda_build
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
-    from paddlebox_tpu_torch.ops.cuda_build import source_path
 
     saved = dict(sk.launches)
     specs = slice_specs(res["table"], ds)
@@ -1155,6 +1273,13 @@ def kernel_times(res: dict, ds, cached: dict, census, hybrid: dict,
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     rows = []
     for name, s in specs.items():
+        per_call = cuda_launches(s["fn"])
+        log(f"launches {name}: {len(per_call)} CUDA kernel(s) a call "
+            f"{sorted(set(per_call))}")
+        want = CUDA_LAUNCHES_PER_CALL.get(name, 1)
+        if len(per_call) != want:
+            raise AssertionError(f"{name} launched {len(per_call)} CUDA "
+                                 f"kernels in one call, not {want}")
         # turns, L2 cold: twin, kernel, kernel, twin, library
         plain_a = cold_ms(s["plain"], flush)
         ms_a = cold_ms(s["fn"], flush)
@@ -1166,7 +1291,7 @@ def kernel_times(res: dict, ds, cached: dict, census, hybrid: dict,
         ops_ms = s["ops"] / OPS_PER_S * 1e3
         rows.append({
             "name": name, "route": "cuda",
-            "source": os.path.relpath(source_path(name), REPO),
+            "source": os.path.relpath(cuda_build.source_path(name), REPO),
             "replaces": TPU_KERNELS[name],
             "launches": launches[name],
             "max_abs_err": errs[name],
@@ -1175,10 +1300,18 @@ def kernel_times(res: dict, ds, cached: dict, census, hybrid: dict,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": lib,
         })
+        floor = ""
+        if "floor_bytes" in s:
+            floor_ms = s["floor_bytes"] / HBM_BYTES_PER_S * 1e3
+            floor = (f", sector floor {floor_ms!r} ms ({s['floor_bytes']} "
+                     "bytes)")
         log(f"time {name} (L2 cold): kernel {ms_a!r} / {ms_b!r} ms, twin "
             f"{plain_a!r} / {plain_b!r} ms, library {lib!r} ms, bound "
             f"{max(bytes_ms, ops_ms)!r} ms ({s['bytes']} bytes, {s['ops']} "
-            f"operations); kernel with L2 warm {warm!r} ms")
+            f"operations){floor}; kernel with L2 warm {warm!r} ms")
+        for what, fn in s.get("variants", {}).items():
+            log(f"time {name}, {what} (L2 cold): {cold_ms(fn, flush)!r} / "
+                f"{cold_ms(fn, flush)!r} ms")
     sk.launches.update(saved)  # timing launches are not main-path launches
     res["table"].end_pass()
     hybrid["table"].end_pass()

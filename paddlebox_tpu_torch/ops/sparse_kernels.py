@@ -54,7 +54,7 @@ _ARGTYPES = {
     "pbt_pull_rows": (_P, _P, _P, _LL, _I, _LL, _P),
     "pbt_scatter_add_rows": (_P, _P, _P, _LL, _I, _LL, _P),
     "pbt_gather_slots": (_P, _P, _P, _LL, _I, _LL, _P),
-    # (table, slots, rows, winner scratch, count, width, table rows, stream)
+    # (table, slots, rows, tag scratch, count, width, table rows, stream)
     "pbt_scatter_rows": (_P, _P, _P, _P, _LL, _I, _LL, _P),
     # (hay, hay length, n_real, queries, out, query count, stream)
     "pbt_sorted_search": (_P, _LL, _LL, _P, _P, _LL, _P),
@@ -214,13 +214,37 @@ def scatter_rows_plain(table: torch.Tensor, slots: torch.Tensor,
     return table
 
 
+# scatter_rows' tag scratch per device: int32, zero between calls (the
+# kernel's store launch clears every entry its elect launch set), grown
+# with the largest table seen.  Calls on one device share it, so they must
+# be ordered: one stream, or streams that wait on each other.  A failed
+# call drops it (its elect launch may have left tags set).
+_scatter_rows_tags: dict = {}
+
+
+def _scatter_rows_tag(table: torch.Tensor) -> torch.Tensor:
+    dev = table.device.index  # a CUDA tensor's device has its index
+    tag = _scatter_rows_tags.get(dev)
+    if tag is None or tag.shape[0] < table.shape[0]:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "scatter_rows zeroes its tag scratch outside CUDA graph "
+                "capture: call it once on a table this large before capturing"
+            )
+        tag = torch.zeros(table.shape[0], dtype=torch.int32,
+                          device=table.device)
+        _scatter_rows_tags[dev] = tag
+    return tag
+
+
 def scatter_rows(table: torch.Tensor, slots: torch.Tensor,
                  rows: torch.Tensor) -> torch.Tensor:
     """In-place ``table[slots] = rows``: negative slots store nothing, and a
     slot named more than once takes the row of its last occurrence,
     decided explicitly (csrc/scatter_rows.cu), never by racing stores.
     table: float32 [C, W]; slots: int32 [K] below C; rows: float32 [K, W].
-    Returns ``table``; bit-identical to the twin."""
+    Returns ``table``; bit-identical to the twin.  On the card, calls on
+    one device must be ordered (they share a scratch)."""
     _check_table(table, slots)
     k, w = slots.shape[0], table.shape[1]
     if rows.shape != (k, w) or rows.dtype != table.dtype:
@@ -235,11 +259,16 @@ def scatter_rows(table: torch.Tensor, slots: torch.Tensor,
     if not rows.is_contiguous():
         raise ValueError("the CUDA kernels take contiguous tensors only")
     if k and w:
-        winner = torch.empty(table.shape[0], dtype=torch.int32,
-                             device=table.device)
-        _launch("scatter_rows", "pbt_scatter_rows", table.data_ptr(),
-                slots.data_ptr(), rows.data_ptr(), winner.data_ptr(), k, w,
-                table.shape[0])
+        tag = _scatter_rows_tag(table)
+        try:
+            _launch("scatter_rows", "pbt_scatter_rows", table.data_ptr(),
+                    slots.data_ptr(), rows.data_ptr(), tag.data_ptr(), k, w,
+                    table.shape[0])
+        except RuntimeError:
+            # tags an elect launch left set would outbid every later call's
+            # winners: the next call starts from a zeroed scratch
+            _scatter_rows_tags.pop(table.device.index, None)
+            raise
     return table
 
 

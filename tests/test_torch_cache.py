@@ -101,14 +101,19 @@ def test_gather_slots_all_miss_and_empty():
     assert sk.gather_slots(_t(table), _t(np.zeros(0, np.int32))).shape == (0, 4)
 
 
-@pytest.mark.parametrize("k", [8, 16])
-def test_scatter_rows_matches_pallas_drops_negatives_last_wins(k):
+# W = 10 and 11: the widths of the step's rows and of the cache's
+@pytest.mark.parametrize("k, w", [
+    pytest.param(8, 8, id="8"), pytest.param(16, 8, id="16"),
+    pytest.param(8, 11, id="8-w11"), pytest.param(16, 10, id="16-w10"),
+    pytest.param(16, 11, id="16-w11"),
+])
+def test_scatter_rows_matches_pallas_drops_negatives_last_wins(k, w):
     rng = np.random.default_rng(5 + k)
-    table = rng.normal(size=(32, 8)).astype(np.float32)
+    table = rng.normal(size=(32, w)).astype(np.float32)
     slots = rng.integers(-1, 32, size=k).astype(np.int32)
     slots[k // 2] = slots[0] = 3  # a duplicate across the halves
     slots[1] = -1
-    rows = rng.normal(size=(k, 8)).astype(np.float32)
+    rows = rng.normal(size=(k, w)).astype(np.float32)
     want = pallas_scatter_rows(jnp.asarray(table), jnp.asarray(slots),
                                jnp.asarray(rows), interpret=True)
     port_table = _t(table)

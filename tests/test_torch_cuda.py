@@ -40,32 +40,60 @@ def test_pull_rows_kernel_bit_exact(cuda, k):
     assert sk.launches["pull_rows"] == before + (1 if k else 0)
 
 
+# real duplicates reach the atomics in an order that changes from run to
+# run: ~4 hits per row of unit-size terms differ from a sequential sum by
+# < 2 * 16 * 2^-24 * 20 ~ 4e-5 (csrc/scatter_add_rows.cu; chip_smoke.py)
+DUP_TOL = 1e-4
+
+
+def _scatter_add_table(cuda, case, rows, gen):
+    """The table of a scatter_add_rows path case: W = 10 with 8-byte aligned
+    bases takes the float2 reductions; W = 11, W = 3 and a W = 10 view that
+    starts 4 bytes into its storage take the scalar ones."""
+    w = {"w10": 10, "w11": 11, "w3": 3, "w10_base4": 10}[case]
+    if case == "w10_base4":
+        flat = torch.randn(rows * w + 1, device=cuda, generator=gen)
+        values = flat[1:].view(rows, w)
+        assert values.data_ptr() % 8 == 4 and values.is_contiguous()
+        return values
+    return torch.randn((rows, w), device=cuda, generator=gen)
+
+
+@pytest.mark.parametrize("case", ["w11", "w10", "w3", "w10_base4"])
 @pytest.mark.parametrize("u", [0, 7, 40000])
-def test_scatter_add_rows_kernel_unique_and_dead_repeats_bit_exact(cuda, u):
+def test_scatter_add_rows_kernel_unique_and_dead_repeats_bit_exact(cuda, u,
+                                                                   case):
+    """Both reduction paths: unique targets plus zero-delta repeats of the
+    dead row are bit-exact with the twin, in place."""
     gen = torch.Generator(device=cuda).manual_seed(u)
     P = 65536
-    values = torch.randn((P, 11), device=cuda, generator=gen)
+    values = _scatter_add_table(cuda, case, P, gen)
+    w = values.shape[1]
     idx = torch.randperm(P - 1, device=cuda, generator=gen)[:u].to(torch.int32)
-    delta = torch.randn((u, 11), device=cuda, generator=gen)
+    delta = torch.randn((u, w), device=cuda, generator=gen)
     idx[: u // 4] = P - 1  # dead-row repeats carry zero deltas
     delta[: u // 4] = 0.0
-    got = sk.scatter_add_rows(values.clone(), idx, delta)
     want = sk.scatter_add_rows_plain(values.clone(), idx, delta)
+    before = sk.launches["scatter_add_rows"]
+    got = sk.scatter_add_rows(values, idx, delta)
     torch.cuda.synchronize()
+    assert got is values
     assert torch.equal(got, want)
+    assert sk.launches["scatter_add_rows"] == before + (1 if u else 0)
 
 
-def test_scatter_add_rows_kernel_real_duplicates(cuda):
+@pytest.mark.parametrize("case", ["w11", "w10", "w3", "w10_base4"])
+def test_scatter_add_rows_kernel_real_duplicates(cuda, case):
     gen = torch.Generator(device=cuda).manual_seed(3)
-    values = torch.randn((1000, 11), device=cuda, generator=gen)
+    values = _scatter_add_table(cuda, case, 1000, gen)
+    w = values.shape[1]
     idx = torch.randint(0, 250, (1000,), device=cuda, generator=gen,
                         dtype=torch.int32)
-    delta = torch.randn((1000, 11), device=cuda, generator=gen)
-    got = sk.scatter_add_rows(values.clone(), idx, delta)
+    delta = torch.randn((1000, w), device=cuda, generator=gen)
     want = sk.scatter_add_rows_plain(values.clone(), idx, delta)
-    # atomics land in run-to-run order: ~4 hits per row of unit-size terms
-    # differ from a sequential sum by < 2 * 16 * 2^-24 * 20 ~ 4e-5
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    got = sk.scatter_add_rows(values, idx, delta)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=DUP_TOL, atol=DUP_TOL)
 
 
 def test_wrappers_refuse_mixed_devices(cuda):
@@ -172,6 +200,134 @@ def test_scatter_rows_kernel_last_wins_bit_exact(cuda, k):
         got = sk.scatter_rows(table.clone(), slots, rows)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+def _scatter_rows_slots(case, gen, cuda):
+    """(table rows, slots) of a scatter_rows stress case."""
+    if case == "65536_on_8_slots":  # every block competes for 8 winners
+        return 64, torch.randint(0, 8, (65536,), device=cuda, generator=gen,
+                                 dtype=torch.int32)
+    if case == "straddling_pairs":
+        # occurrences 2j - 1 and 2j share a slot, so a pair straddles every
+        # 256-occurrence tile (and block) boundary; the first and the last
+        # occurrence share one too
+        k = 4096
+        slots = (torch.arange(k, device=cuda) + 1) // 2
+        slots[-1] = slots[0]
+        return k, slots.to(torch.int32)
+    k = {"one": 1, "ragged": 12345}[case]
+    return 4096, torch.randint(-1, 4096, (k,), device=cuda, generator=gen,
+                               dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case", ["65536_on_8_slots", "straddling_pairs",
+                                  "one", "ragged"])
+def test_scatter_rows_kernel_stress_bit_exact(cuda, case):
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    C, slots = _scatter_rows_slots(case, gen, cuda)
+    table = torch.randn((C, 11), device=cuda, generator=gen)
+    rows = torch.randn((slots.shape[0], 11), device=cuda, generator=gen)
+    want = sk.scatter_rows_plain(table.clone(), slots, rows)
+    before = sk.launches["scatter_rows"]
+    got = sk.scatter_rows(table, slots, rows)
+    torch.cuda.synchronize()
+    assert got is table
+    assert torch.equal(got, want)
+    assert sk.launches["scatter_rows"] == before + 1
+
+
+def test_scatter_rows_kernel_calls_in_a_row_then_a_larger_table(cuda):
+    """Three calls on one table, each naming other slots with duplicates,
+    then one on a table four times larger: no winner of an earlier call
+    (or scratch sized for the smaller table) may leak into a later one."""
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    C = 8192
+    table = torch.randn((C, 11), device=cuda, generator=gen)
+    want = table.clone()
+    for k in (20000, 5000, 12345):
+        slots = torch.randint(-1, C, (k,), device=cuda, generator=gen,
+                              dtype=torch.int32)
+        rows = torch.randn((k, 11), device=cuda, generator=gen)
+        sk.scatter_rows_plain(want, slots, rows)
+        sk.scatter_rows(table, slots, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(table, want)
+    big = torch.randn((4 * C, 11), device=cuda, generator=gen)
+    slots = torch.randint(-1, 4 * C, (50000,), device=cuda, generator=gen,
+                          dtype=torch.int32)
+    rows = torch.randn((50000, 11), device=cuda, generator=gen)
+    want = sk.scatter_rows_plain(big.clone(), slots, rows)
+    sk.scatter_rows(big, slots, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(big, want)
+    # the store launch clears every tag the elect launch set
+    tag = sk._scatter_rows_tags[torch.cuda.current_device()]
+    assert tag.shape[0] >= 4 * C and not bool(tag.any())
+
+
+def test_scatter_rows_kernel_failed_store_launch_drops_its_tags(
+        cuda, monkeypatch):
+    """A call whose store launch fails after its elect launch ran raises,
+    and its tags outbid no later call: the next call on the same slots
+    stores its winners.  A stand-in for the C entry point leaves the
+    scratch as such a call does (atomicMax of occurrence + 1 for 65 536
+    occurrences on 8 slots) and returns the launch error."""
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    C, dev = 64, torch.cuda.current_device()
+    table = torch.randn((C, 11), device=cuda, generator=gen)
+    sk.scatter_rows(table.clone(), torch.zeros(1, device=cuda,
+                                               dtype=torch.int32),
+                    torch.randn((1, 11), device=cuda, generator=gen))
+    big = torch.randint(0, 8, (65536,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+
+    def elect_then_fail(table_p, slots_p, rows_p, tag_p, k, w, n, stream):
+        tag = sk._scatter_rows_tags[dev]
+        assert (tag_p, slots_p, k) == (tag.data_ptr(), big.data_ptr(), 65536)
+        occ = torch.arange(1, k + 1, device=cuda, dtype=torch.int32)
+        tag.scatter_reduce_(0, big.long(), occ, "amax")
+        return 719  # cudaErrorLaunchFailure
+
+    sk._c_function("scatter_rows", "pbt_scatter_rows")  # build it first
+    with monkeypatch.context() as m:
+        m.setitem(sk._fns, "pbt_scatter_rows", elect_then_fail)
+        with pytest.raises(RuntimeError, match="scatter_rows kernel launch"):
+            sk.scatter_rows(table.clone(), big,
+                            torch.randn((65536, 11), device=cuda,
+                                        generator=gen))
+    assert dev not in sk._scatter_rows_tags
+    slots = torch.tensor([3, 0, 7, 3, -1, 5], device=cuda, dtype=torch.int32)
+    rows = torch.randn((6, 11), device=cuda, generator=gen)
+    want = sk.scatter_rows_plain(table.clone(), slots, rows)
+    sk.scatter_rows(table, slots, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(table, want)
+
+
+def test_scatter_rows_kernel_graph_replay_on_new_slots(cuda):
+    """A call captured in a CUDA graph and replayed on other slots and rows
+    (duplicates included) is right at every replay: the tags are zero
+    again when a call ends, so no replay sees an earlier one's."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    C, k = 4096, 10000
+    table = torch.randn((C, 11), device=cuda, generator=gen)
+    slots = torch.randint(-1, C, (k,), device=cuda, generator=gen,
+                          dtype=torch.int32)
+    rows = torch.randn((k, 11), device=cuda, generator=gen)
+    sk.scatter_rows(table.clone(), slots, rows)  # sizes the scratch
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sk.scatter_rows(table, slots, rows)
+    for _ in range(3):
+        table.copy_(torch.randn((C, 11), device=cuda, generator=gen))
+        slots.copy_(torch.randint(-1, C, (k,), device=cuda, generator=gen,
+                                  dtype=torch.int32))
+        rows.copy_(torch.randn((k, 11), device=cuda, generator=gen))
+        want = sk.scatter_rows_plain(table.clone(), slots, rows)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(table, want)
 
 
 @pytest.mark.parametrize("n", [0, 1, 3, 1000, 65536])

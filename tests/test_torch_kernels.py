@@ -82,12 +82,19 @@ def test_pull_rows_odd_and_large_shapes(k):
     np.testing.assert_array_equal(got.numpy(), values[idx])
 
 
-@pytest.mark.parametrize("u", [3, 40, 256])
-def test_scatter_add_rows_odd_and_large_shapes(u):
+# W = 10 and 11 are the card paths' widths (the float2 reductions on the
+# step's 10-float rows, the scalar ones on the cache's 11)
+@pytest.mark.parametrize("u, w", [
+    pytest.param(3, 12, id="3"), pytest.param(40, 12, id="40"),
+    pytest.param(256, 12, id="256"), pytest.param(3, 10, id="3-w10"),
+    pytest.param(40, 10, id="40-w10"), pytest.param(3, 11, id="3-w11"),
+    pytest.param(40, 11, id="40-w11"),
+])
+def test_scatter_add_rows_odd_and_large_shapes(u, w):
     rng = np.random.default_rng(7 + u)
-    values = rng.normal(size=(128, 12)).astype(np.float32)
+    values = rng.normal(size=(128, w)).astype(np.float32)
     idx = rng.integers(0, 128, size=u).astype(np.int32)
-    delta = rng.normal(size=(u, 12)).astype(np.float32)
+    delta = rng.normal(size=(u, w)).astype(np.float32)
     want = pallas_scatter_add(
         jnp.asarray(values), jnp.asarray(idx), jnp.asarray(delta),
         interpret=True,
