@@ -9,11 +9,13 @@ Phases, each fatal on failure:
                and each kernel's registers and spills.
   2. parity  — hold each kernel against its plain PyTorch twin on the card,
                at the main paths' shapes, at a ragged size and at size 0
-               (scatter_add_rows on its float2 and its scalar path; the
-               cache kernels with negative and duplicate slots, scatter_rows
-               also with 65 536 occurrences on 8 slots, duplicates across
-               every tile boundary, calls in a row and a larger table; keys
-               at and above 2^63 and the all-ones key).
+               (pull_rows and scatter_add_rows on their float2 and their
+               scalar paths, hot_cold_select on its float4 and its scalar
+               path with ragged tails; the cache kernels with negative and
+               duplicate slots, scatter_rows also with 65 536 occurrences on
+               8 slots, duplicates across every tile boundary, calls in a
+               row and a larger table; keys at and above 2^63 and the
+               all-ones key).
   3. pass    — write synthetic slot files at the full width of the repo's
                benchmark CTR-DNN (16 sparse slots, 13 dense, batch 2048,
                embedding_dim 8 -> device row width 10, tower 512-256-128, vocab
@@ -53,10 +55,11 @@ Phases, each fatal on failure:
                median time of each kernel, its twin and the equivalent
                PyTorch library call at the main paths' shapes with the L2
                cache cold, beside the least time the card's memory rate
-               allows (for the two row-scatter kernels also the floor of
-               the 32-byte sectors their rows touch, scatter_add_rows'
-               scalar path, and the zero fill a per-call scatter_rows
-               scratch would add).
+               allows (for the row kernels also the floor of the distinct
+               32-byte sectors their rows touch; pull_rows' and
+               scatter_add_rows' scalar paths, and the zero fill a per-call
+               scatter_rows scratch would add), and the time the cold
+               method gives a launch that does almost nothing.
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -168,6 +171,17 @@ def write_data() -> tuple:
     return paths[:N_FILES], per_pass
 
 
+def based4(t):
+    """A copy of ``t`` as a view that starts 4 bytes into its storage, so
+    not 8-byte aligned: the kernels' scalar paths."""
+    import torch
+
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def pass_capacity(n_census: int) -> int:
     """Table rows of a pass over n_census keys once a batch has been
     planned (live rows + one scratch row per key slot + the dead row)."""
@@ -189,17 +203,28 @@ def check_parity(P: int, device) -> dict:
     W = EMB + 2
     gen = torch.Generator(device=device).manual_seed(0)
     values = torch.randn((P, W), device=device, generator=gen)
+    wide = torch.randn((P, W + 1), device=device, generator=gen)
     errs = {}
-    for k in (KEY_CAPACITY, 12_345, 0):
-        idx = torch.randint(0, P, (k,), device=device, generator=gen,
-                            dtype=torch.int32)
-        got = sk.pull_rows(values, idx)
-        want = sk.pull_rows_plain(values, idx)
-        if got.shape != (k, W) or not torch.equal(got, want):
-            raise AssertionError(f"pull_rows differs from its twin at K={k}")
-        if k == KEY_CAPACITY:
-            errs["pull_rows"] = float((got - want).abs().max())
-    log(f"parity pull_rows: bit-exact at K={KEY_CAPACITY}, 12345, 0")
+    # the float2 path on the 10-float table (204 rows a tile: K = 205 ends
+    # in a tile of one row), the scalar path on the same table based 4
+    # bytes in and on an 11-float table
+    pulls = (("float2, W=10", values, (KEY_CAPACITY, 12_345, 205, 1, 0)),
+             ("scalar, W=10 based 4 bytes in", based4(values),
+              (KEY_CAPACITY, 12_345, 1)),
+             ("scalar, W=11", wide, (KEY_CAPACITY, 1)))
+    for what, table, ks in pulls:
+        for k in ks:
+            idx = torch.randint(0, P, (k,), device=device, generator=gen,
+                                dtype=torch.int32)
+            got = sk.pull_rows(table, idx)
+            want = sk.pull_rows_plain(table, idx)
+            if got.shape != (k, table.shape[1]) or not torch.equal(got, want):
+                raise AssertionError(
+                    f"pull_rows ({what}) differs from its twin at K={k}")
+            if k == KEY_CAPACITY and table is values:
+                errs["pull_rows"] = float((got - want).abs().max())
+    log("parity pull_rows: bit-exact, " + "; ".join(
+        f"{what} at K={', '.join(map(str, ks))}" for what, _, ks in pulls))
 
     dead = P - 1
     for u in (KEY_CAPACITY, 12_345, 0):
@@ -227,20 +252,18 @@ def check_parity(P: int, device) -> dict:
     # 8-byte aligned 10-float table above, scalar on an 11-float table and
     # on a 10-float view that starts 4 bytes into its storage
     u = KEY_CAPACITY
-    flat = torch.randn(P * W + 1, device=device, generator=gen)
-    tables = (("float2, W=10", values),
-              ("scalar, W=11", torch.randn((P, W + 1), device=device,
-                                           generator=gen)),
-              ("scalar, W=10 based 4 bytes in", flat[1:].view(P, W)))
+    tables = (("float2, W=10", values, torch.clone),
+              ("scalar, W=11", wide, torch.clone),
+              ("scalar, W=10 based 4 bytes in", values, based4))
     dup_errs = []
-    for what, table in tables:
+    for what, table, copy in tables:
         w = table.shape[1]
         idx = torch.randperm(P - 1, device=device, generator=gen)[:u]
         idx = idx.to(torch.int32)
         idx[u - u // 8:] = dead
         delta = torch.randn((u, w), device=device, generator=gen)
         delta[u - u // 8:] = 0.0
-        got = sk.scatter_add_rows(table.clone(), idx, delta)
+        got = sk.scatter_add_rows(copy(table), idx, delta)
         if not torch.equal(got, sk.scatter_add_rows_plain(table.clone(), idx,
                                                           delta)):
             raise AssertionError(f"scatter_add_rows ({what}) differs from its "
@@ -249,7 +272,7 @@ def check_parity(P: int, device) -> dict:
         idx = torch.randint(0, u // 4, (u,), device=device, generator=gen,
                             dtype=torch.int32)
         delta = torch.randn((u, w), device=device, generator=gen)
-        got = sk.scatter_add_rows(table.clone(), idx, delta)
+        got = sk.scatter_add_rows(copy(table), idx, delta)
         want = sk.scatter_add_rows_plain(table.clone(), idx, delta)
         dup_errs.append(float((got - want).abs().max()))
         if not torch.allclose(got, want, rtol=DUP_TOL, atol=DUP_TOL):
@@ -746,8 +769,11 @@ def report_profile(prof, window_s: float) -> None:
 # --------------------------------------------------------------------------- #
 def check_hybrid_parity(device) -> dict:
     """hot_cold_select against its twin on the card, bit-exact: at the main
-    path's shape (K = KEY_CAPACITY, H = HOT_CAPACITY, W = 10), a ragged K,
-    K = 0, all-sink, all-hot and a hot block of one row."""
+    path's shape (K = KEY_CAPACITY, H = HOT_CAPACITY, W = 10) on the float4
+    path and, with the cold rows based 4 bytes in, the scalar path; a
+    ragged K (K * W mod 4 = 2) mixed, all-sink and all-hot; K = 1 (two
+    vectors and a tail of 2); K = 0; all-sink, all-hot and a hot block of
+    one row at the main K."""
     import torch
 
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
@@ -755,7 +781,12 @@ def check_hybrid_parity(device) -> dict:
     W = EMB + 2
     gen = torch.Generator(device=device).manual_seed(5)
     cases = (("main", HOT_CAPACITY, KEY_CAPACITY, None),
+             ("scalar: cold based 4 bytes in", HOT_CAPACITY, KEY_CAPACITY,
+              None),
              ("ragged", HOT_CAPACITY, 12_345, None),
+             ("ragged all-sink", HOT_CAPACITY, 12_345, "sink"),
+             ("ragged all-hot", HOT_CAPACITY, 12_345, "hot"),
+             ("K=1", HOT_CAPACITY, 1, None),
              ("empty", HOT_CAPACITY, 0, None),
              ("all-sink", HOT_CAPACITY, KEY_CAPACITY, "sink"),
              ("all-hot", HOT_CAPACITY, KEY_CAPACITY, "hot"),
@@ -764,6 +795,8 @@ def check_hybrid_parity(device) -> dict:
     for what, H, K, only in cases:
         hot = torch.randn((H, W), device=device, generator=gen)
         cold = torch.randn((K, W), device=device, generator=gen)
+        if what.startswith("scalar"):
+            cold = based4(cold)
         lo, hi = {"sink": (H, H + 1), "hot": (0, H)}.get(only, (0, H + 1))
         occ = torch.randint(lo, hi, (K,), device=device, generator=gen,
                             dtype=torch.int32)
@@ -775,8 +808,9 @@ def check_hybrid_parity(device) -> dict:
         if what == "main":
             errs["hot_cold_select"] = float((got - want).abs().max())
     torch.cuda.synchronize()
-    log(f"parity hot_cold_select: bit-exact at K={KEY_CAPACITY} H={HOT_CAPACITY}, "
-        f"ragged K=12345, K=0, all-sink, all-hot, a one-row hot block")
+    log(f"parity hot_cold_select: bit-exact at K={KEY_CAPACITY} "
+        f"H={HOT_CAPACITY} W={W}: " + ", ".join(c[0] for c in cases)
+        + " (ragged: K=12345)")
     return errs
 
 
@@ -1040,11 +1074,17 @@ def hybrid_specs(hybrid: dict) -> dict:
     k = occ.shape[0]
     hot_mask = occ < H
     n_hot = int(hot_mask.sum())
-    hot_rows_read = int(torch.unique(occ[hot_mask]).shape[0])
+    hot_rows = torch.unique(occ[hot_mask])
+    hot_rows_read = int(hot_rows.shape[0])
     hot_ext = torch.cat([hot, hot.new_zeros((1, W))])
     mask = hot_mask[:, None]
+    # float4 vectors of the output whose elements all lie in hot rows: the
+    # cold loads a kernel that loads only where needed would skip
+    e4 = 4 * torch.arange(k * W // 4, device="cuda")
+    skip = int((hot_mask[e4 // W] & hot_mask[(e4 + 3) // W]).sum())
     log(f"hot_cold_select shapes: K={k}, H={H}: {n_hot} hot occurrences of "
-        f"{hot_rows_read} hot rows")
+        f"{hot_rows_read} hot rows; {skip} of {k * W // 4} cold vectors lie "
+        f"wholly in hot rows ({skip * 16} bytes)")
     return {
         # the cold rows of the cold occurrences, the named hot rows once
         "hot_cold_select": dict(
@@ -1054,6 +1094,10 @@ def hybrid_specs(hybrid: dict) -> dict:
                                         cold),
             bytes=k * 4 + (k - n_hot) * W * 4 + hot_rows_read * W * 4
             + k * W * 4, ops=0,
+            # the sectors those rows span, each read whole once
+            floor_bytes=k * 4 + 32 * touched_sectors(
+                cold, torch.nonzero(~hot_mask).flatten())
+            + 32 * touched_sectors(hot, hot_rows) + k * W * 4,
         ),
     }
 
@@ -1120,11 +1164,19 @@ def cold_ms(fn, flush, reps: int = 50) -> float:
 
 
 def touched_sectors(table, rows) -> int:
-    """32-byte sectors of ``table`` that the rows ``rows`` (unique) span:
-    a 40-byte row always spans two, a 44-byte row two or three."""
+    """Distinct 32-byte sectors of ``table`` that the rows ``rows`` span:
+    a 40-byte row spans two, a 44-byte row two or three, and neighbouring
+    rows can share one."""
+    import torch
+
+    if rows.numel() == 0:
+        return 0
     row_bytes = table.shape[1] * table.element_size()
     start = table.data_ptr() % 32 + rows.long() * row_bytes
-    return int(((start + row_bytes - 1) // 32 - start // 32 + 1).sum())
+    first, last = start // 32, (start + row_bytes - 1) // 32
+    span = torch.arange(int((last - first).max()) + 1, device=rows.device)
+    sectors = first[:, None] + span
+    return int(torch.unique(sectors[sectors <= last[:, None]]).shape[0])
 
 
 def cuda_launches(fn) -> list:
@@ -1165,12 +1217,11 @@ def slice_specs(table, ds) -> dict:
     delta = torch.randn((uidx.shape[0], W), device="cuda", generator=gen) * 1e-3
     delta[uidx == P - 1] = 0.0
     work = values.clone()
-    # the same table as a view 4 bytes into its storage: the scalar path
-    work4 = torch.empty(P * W + 1, device="cuda")[1:].view(P, W)
-    work4.copy_(values)
+    work4 = based4(values)  # the scalar paths
     f4 = 4
     k, u = idx.shape[0], uidx.shape[0]
-    pull_rows_read = int(torch.unique(idx).shape[0])
+    pull_rows = torch.unique(idx)
+    pull_rows_read = int(pull_rows.shape[0])
     push_rows = int(torch.unique(uidx).shape[0])
     return {
         "pull_rows": dict(
@@ -1178,6 +1229,11 @@ def slice_specs(table, ds) -> dict:
             plain=lambda: sk.pull_rows_plain(values, idx),
             library=lambda: torch.index_select(values, 0, idx),
             bytes=k * 4 + pull_rows_read * W * f4 + k * W * f4, ops=0,
+            # each distinct sector of the named rows read whole once
+            floor_bytes=k * 4 + 32 * touched_sectors(values, pull_rows)
+            + k * W * f4,
+            variants={"scalar path (table based 4 bytes in)":
+                      lambda: sk.pull_rows(work4, idx)},
         ),
         "scatter_add_rows": dict(
             fn=lambda: sk.scatter_add_rows(work, uidx, delta),
@@ -1271,6 +1327,9 @@ def kernel_times(res: dict, ds, cached: dict, census, hybrid: dict,
         launches[name] = cached["launches"][name]
     launches["hot_cold_select"] = hybrid["launches"]["hot_cold_select"]
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    one = torch.empty(1, device="cuda")
+    log(f"time floor of the L2-cold method (a one-float fill after the "
+        f"flush): {cold_ms(lambda: one.fill_(1.0), flush)!r} ms")
     rows = []
     for name, s in specs.items():
         per_call = cuda_launches(s["fn"])

@@ -215,24 +215,46 @@ def scatter_rows_plain(table: torch.Tensor, slots: torch.Tensor,
 
 
 # scatter_rows' tag scratch per device: int32, zero between calls (the
-# kernel's store launch clears every entry its elect launch set), grown
-# with the largest table seen.  Calls on one device share it, so they must
-# be ordered: one stream, or streams that wait on each other.  A failed
-# call drops it (its elect launch may have left tags set).
+# kernel's store launch clears every entry its elect launch set).  Calls on
+# one device share it, so they must be ordered: one stream, or streams that
+# wait on each other.  It grows to the next power of two of the largest
+# table seen, and a failed call drops it: the next call starts from a
+# freshly zeroed one of at least the same size (the failed call's elect
+# launch may have left tags set).
+#
+# A CUDA graph captured around a call keeps the scratch's address, and its
+# store launch writes zeros there at every replay.  So a scratch never goes
+# back to the allocator while the process lives: a swapped or dropped one
+# is retired into _scatter_rows_retired, which keeps it referenced.  This
+# was chosen over refusing to swap a scratch a capture has used: the
+# wrapper cannot see which graphs still exist, so refusing would fail every
+# later call on a larger table, captured or not.  A swap at least doubles
+# the size, so the swapped-out scratches together stay below the live one;
+# each failed call adds one more of the live size.
 _scatter_rows_tags: dict = {}
+_scatter_rows_retired: dict = {}
+
+
+def _retire_scatter_rows_tag(dev) -> None:
+    tag = _scatter_rows_tags.pop(dev, None)
+    if tag is not None:
+        _scatter_rows_retired.setdefault(dev, []).append(tag)
 
 
 def _scatter_rows_tag(table: torch.Tensor) -> torch.Tensor:
     dev = table.device.index  # a CUDA tensor's device has its index
     tag = _scatter_rows_tags.get(dev)
     if tag is None or tag.shape[0] < table.shape[0]:
-        if torch.cuda.is_current_stream_capturing():
+        if table.is_cuda and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 "scatter_rows zeroes its tag scratch outside CUDA graph "
                 "capture: call it once on a table this large before capturing"
             )
-        tag = torch.zeros(table.shape[0], dtype=torch.int32,
-                          device=table.device)
+        _retire_scatter_rows_tag(dev)
+        retired = _scatter_rows_retired.get(dev)
+        size = max(1 << max(0, table.shape[0] - 1).bit_length(),
+                   retired[-1].shape[0] if retired else 0)
+        tag = torch.zeros(size, dtype=torch.int32, device=table.device)
         _scatter_rows_tags[dev] = tag
     return tag
 
@@ -267,7 +289,7 @@ def scatter_rows(table: torch.Tensor, slots: torch.Tensor,
         except RuntimeError:
             # tags an elect launch left set would outbid every later call's
             # winners: the next call starts from a zeroed scratch
-            _scatter_rows_tags.pop(table.device.index, None)
+            _retire_scatter_rows_tag(table.device.index)
             raise
     return table
 

@@ -40,18 +40,12 @@ def test_pull_rows_kernel_bit_exact(cuda, k):
     assert sk.launches["pull_rows"] == before + (1 if k else 0)
 
 
-# real duplicates reach the atomics in an order that changes from run to
-# run: ~4 hits per row of unit-size terms differ from a sequential sum by
-# < 2 * 16 * 2^-24 * 20 ~ 4e-5 (csrc/scatter_add_rows.cu; chip_smoke.py)
-DUP_TOL = 1e-4
-
-
-def _scatter_add_table(cuda, case, rows, gen):
-    """The table of a scatter_add_rows path case: W = 10 with 8-byte aligned
-    bases takes the float2 reductions; W = 11, W = 3 and a W = 10 view that
-    starts 4 bytes into its storage take the scalar ones."""
-    w = {"w10": 10, "w11": 11, "w3": 3, "w10_base4": 10}[case]
-    if case == "w10_base4":
+def _table(cuda, case, rows, gen):
+    """A float32 [rows, W] table of a kernel path case: "w<W>" allocated as
+    usual (16-byte aligned), "w<W>_base4" a view that starts 4 bytes into
+    its storage."""
+    w = int(case[1:].split("_")[0])
+    if case.endswith("_base4"):
         flat = torch.randn(rows * w + 1, device=cuda, generator=gen)
         values = flat[1:].view(rows, w)
         assert values.data_ptr() % 8 == 4 and values.is_contiguous()
@@ -59,6 +53,33 @@ def _scatter_add_table(cuda, case, rows, gen):
     return torch.randn((rows, w), device=cuda, generator=gen)
 
 
+# w10 and w2: the float2 path (tiles of 204 and 1024 rows); w10_base4, w3,
+# w11: the scalar path.  K = 205 leaves a last tile of one row (an odd
+# number of float2); 1 000 003 gives each block several tiles, so the
+# indices of the next tile load while a tile's rows do
+@pytest.mark.parametrize("case", ["w10", "w2", "w10_base4", "w3", "w11"])
+@pytest.mark.parametrize("k", [0, 1, 205, 131079, 1000003])
+def test_pull_rows_kernel_paths_bit_exact(cuda, case, k):
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    values = _table(cuda, case, 65536, gen)
+    idx = torch.randint(0, 65536, (k,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    before = sk.launches["pull_rows"]
+    got = sk.pull_rows(values, idx)
+    torch.cuda.synchronize()
+    assert got.shape == (k, values.shape[1])
+    assert torch.equal(got, sk.pull_rows_plain(values, idx))
+    assert sk.launches["pull_rows"] == before + (1 if k else 0)
+
+
+# real duplicates reach the atomics in an order that changes from run to
+# run: ~4 hits per row of unit-size terms differ from a sequential sum by
+# < 2 * 16 * 2^-24 * 20 ~ 4e-5 (csrc/scatter_add_rows.cu; chip_smoke.py)
+DUP_TOL = 1e-4
+
+
+# W = 10 with 8-byte aligned bases takes the float2 reductions; W = 11,
+# W = 3 and a W = 10 view that starts 4 bytes in take the scalar ones
 @pytest.mark.parametrize("case", ["w11", "w10", "w3", "w10_base4"])
 @pytest.mark.parametrize("u", [0, 7, 40000])
 def test_scatter_add_rows_kernel_unique_and_dead_repeats_bit_exact(cuda, u,
@@ -67,7 +88,7 @@ def test_scatter_add_rows_kernel_unique_and_dead_repeats_bit_exact(cuda, u,
     dead row are bit-exact with the twin, in place."""
     gen = torch.Generator(device=cuda).manual_seed(u)
     P = 65536
-    values = _scatter_add_table(cuda, case, P, gen)
+    values = _table(cuda, case, P, gen)
     w = values.shape[1]
     idx = torch.randperm(P - 1, device=cuda, generator=gen)[:u].to(torch.int32)
     delta = torch.randn((u, w), device=cuda, generator=gen)
@@ -85,7 +106,7 @@ def test_scatter_add_rows_kernel_unique_and_dead_repeats_bit_exact(cuda, u,
 @pytest.mark.parametrize("case", ["w11", "w10", "w3", "w10_base4"])
 def test_scatter_add_rows_kernel_real_duplicates(cuda, case):
     gen = torch.Generator(device=cuda).manual_seed(3)
-    values = _scatter_add_table(cuda, case, 1000, gen)
+    values = _table(cuda, case, 1000, gen)
     w = values.shape[1]
     idx = torch.randint(0, 250, (1000,), device=cuda, generator=gen,
                         dtype=torch.int32)
@@ -136,7 +157,8 @@ def test_small_pass_on_the_card_launches_the_kernels(cuda, tmp_path):
 
 @pytest.mark.parametrize("kernel", ["pull_rows", "scatter_add_rows",
                                     "gather_slots", "scatter_rows",
-                                    "hot_cold_select"])
+                                    "hot_cold_select", "pull_rows_float2",
+                                    "hot_cold_select_float4"])
 def test_out_of_range_index_fails_the_launch(cuda, kernel):
     """An index outside the table traps the kernel.  The trap poisons the
     CUDA context, so it runs in a child process."""
@@ -153,12 +175,18 @@ def test_out_of_range_index_fails_the_launch(cuda, kernel):
         # slot 9 is past the sink H = 8
         "hot_cold_select":
             "sk.hot_cold_select(v, i + 1, torch.ones(1, 3, device='cuda'))",
+        # the vector paths, the bad entry inside a full vector or tile
+        "pull_rows_float2": "sk.pull_rows(v4, i4)",
+        "hot_cold_select_float4":
+            "sk.hot_cold_select(v4, i4 + 1, torch.ones(4, 4, device='cuda'))",
     }[kernel]
     code = (
         "import torch\n"
         "from paddlebox_tpu_torch.ops import sparse_kernels as sk\n"
         "v = torch.zeros((8, 3), device='cuda')\n"
         "i = torch.tensor([8], dtype=torch.int32, device='cuda')\n"
+        "v4 = torch.zeros((8, 4), device='cuda')\n"
+        "i4 = torch.tensor([0, 1, 8, 2], dtype=torch.int32, device='cuda')\n"
         f"{call}\n"
         "torch.cuda.synchronize()\n"
     )
@@ -330,6 +358,54 @@ def test_scatter_rows_kernel_graph_replay_on_new_slots(cuda):
         assert torch.equal(table, want)
 
 
+def test_scatter_rows_kernel_graph_replay_after_a_scratch_swap(
+        cuda, monkeypatch):
+    """A call captured on a table of C rows keeps its scratch's address; a
+    later call on 2C rows swaps the scratch for a larger one.  The old one
+    stays referenced, so a tensor allocated the size of it afterwards gets
+    other memory, and a replay of the capture writes neither into that
+    tensor nor a wrong row."""
+    monkeypatch.setattr(sk, "_scatter_rows_tags", {})
+    monkeypatch.setattr(sk, "_scatter_rows_retired", {})
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    C, k, dev = 4096, 10000, torch.cuda.current_device()
+    table = torch.randn((C, 11), device=cuda, generator=gen)
+    slots = torch.randint(-1, C, (k,), device=cuda, generator=gen,
+                          dtype=torch.int32)
+    rows = torch.randn((k, 11), device=cuda, generator=gen)
+    sk.scatter_rows(table.clone(), slots, rows)  # sizes the scratch: C
+    torch.cuda.synchronize()
+    old_ptr = sk._scatter_rows_tags[dev].data_ptr()
+    old_n = sk._scatter_rows_tags[dev].shape[0]
+    assert old_n == C
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sk.scatter_rows(table, slots, rows)
+    big = torch.randn((2 * C, 11), device=cuda, generator=gen)
+    big_slots = torch.randint(-1, 2 * C, (k,), device=cuda, generator=gen,
+                              dtype=torch.int32)
+    big_rows = torch.randn((k, 11), device=cuda, generator=gen)
+    want = sk.scatter_rows_plain(big.clone(), big_slots, big_rows)
+    sk.scatter_rows(big, big_slots, big_rows)  # swaps the scratch
+    # first allocation after the swap: the freed block, had it been freed
+    filler = torch.full((old_n,), 7, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(big, want)
+    assert sk._scatter_rows_tags[dev].shape[0] == 2 * C
+    assert [t.data_ptr() for t in sk._scatter_rows_retired[dev]] == [old_ptr]
+    for _ in range(2):
+        table.copy_(torch.randn((C, 11), device=cuda, generator=gen))
+        slots.copy_(torch.randint(-1, C, (k,), device=cuda, generator=gen,
+                                  dtype=torch.int32))
+        rows.copy_(torch.randn((k, 11), device=cuda, generator=gen))
+        want = sk.scatter_rows_plain(table.clone(), slots, rows)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(table, want)
+        assert bool((filler == 7).all())
+    assert not bool(sk._scatter_rows_retired[dev][0].any())
+
+
 @pytest.mark.parametrize("n", [0, 1, 3, 1000, 65536])
 def test_sorted_search_kernel_bit_exact_with_high_and_all_ones_keys(cuda, n):
     rng = np.random.default_rng(n)
@@ -404,6 +480,38 @@ def test_hot_cold_select_kernel_bit_exact(cuda, case):
     assert got.shape == (K, W)
     assert torch.equal(got, sk.hot_cold_select_plain(hot, occ, cold))
     assert sk.launches["hot_cold_select"] == before + (1 if K else 0)
+
+
+# (W, K, occurrences): K * W mod 4 is 2 at (10, 12345), 3 at (11, 1001)
+# and (3, 5001); K = 1 at W = 10 leaves a tail of 2 after 2 vectors, at
+# W = 3 a tail alone; W = 1 and a cold block based 4 bytes in take the
+# scalar path; K = 1 000 001 gives each block several tiles
+@pytest.mark.parametrize("case", [
+    "w10_k12345", "w11_k1001", "w3_k5001", "w2_k4097", "w10_k1", "w3_k1",
+    "w10_k12345_all_hot", "w10_k12345_all_cold", "w1_k5001",
+    "w10_k12345_cold_base4", "w10_k1000001",
+])
+def test_hot_cold_select_kernel_paths_bit_exact(cuda, case):
+    parts = case.split("_")
+    W, K = int(parts[0][1:]), int(parts[1][1:])
+    H = 4096
+    gen = torch.Generator(device=cuda).manual_seed(K + W)
+    hot = torch.randn((H, W), device=cuda, generator=gen)
+    if case.endswith("cold_base4"):
+        flat = torch.randn(K * W + 1, device=cuda, generator=gen)
+        cold = flat[1:].view(K, W)
+        assert cold.data_ptr() % 16 == 4
+    else:
+        cold = torch.randn((K, W), device=cuda, generator=gen)
+    lo, hi = {"hot": (0, H), "cold": (H, H + 1)}.get(parts[-1], (0, H + 1))
+    occ = torch.randint(lo, hi, (K,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    before = sk.launches["hot_cold_select"]
+    got = sk.hot_cold_select(hot, occ, cold)
+    torch.cuda.synchronize()
+    assert got.shape == (K, W)
+    assert torch.equal(got, sk.hot_cold_select_plain(hot, occ, cold))
+    assert sk.launches["hot_cold_select"] == before + 1
 
 
 def test_hybrid_path_on_the_card(cuda, tmp_path):

@@ -82,6 +82,57 @@ def test_pull_rows_odd_and_large_shapes(k):
     np.testing.assert_array_equal(got.numpy(), values[idx])
 
 
+# the card kernel's paths: W = 10 and 2 take the float2 tiles (204 and
+# 1024 rows a tile, K = 205 a last tile of one row), W = 3 and 11 the
+# scalar path; K = 1 the smallest launch
+@pytest.mark.parametrize("w, k", [(10, 1), (10, 205), (2, 1025), (3, 7),
+                                  (11, 40), (11, 1)])
+def test_pull_rows_card_path_shapes_match_pallas(w, k):
+    rng = np.random.default_rng(5 + w + k)
+    values = rng.normal(size=(300, w)).astype(np.float32)
+    idx = rng.integers(0, 300, size=k).astype(np.int32)
+    want = pallas_pull_rows(jnp.asarray(values), jnp.asarray(idx), interpret=True)
+    got = sk.pull_rows(_t(values), _t(idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_scatter_rows_scratch_is_retired_not_freed(monkeypatch):
+    """The scatter_rows scratch bookkeeping (plain Python, so CPU tensors
+    stand in for the card's): sizes are the next power of two of the
+    table's rows, a larger table swaps the scratch, and a swapped or
+    dropped scratch stays referenced in the retired list, where a captured
+    CUDA graph may still write to it.  After a drop the next scratch is
+    fresh, zeroed and at least as large."""
+    monkeypatch.setattr(sk, "_scatter_rows_tags", {})
+    monkeypatch.setattr(sk, "_scatter_rows_retired", {})
+
+    def retired():
+        return [id(t) for t in sk._scatter_rows_retired.get(None, [])]
+
+    t1 = sk._scatter_rows_tag(torch.empty(3000, 11))
+    assert t1.shape == (4096,) and t1.dtype == torch.int32
+    assert not bool(t1.any())
+    assert sk._scatter_rows_tag(torch.empty(4096, 11)) is t1  # it fits
+    assert sk._scatter_rows_tag(torch.empty(10, 11)) is t1
+    assert retired() == []
+    t2 = sk._scatter_rows_tag(torch.empty(4097, 11))  # swap
+    assert t2.shape == (8192,) and retired() == [id(t1)]
+    t2.fill_(5)  # tags a failed elect launch left set
+    sk._retire_scatter_rows_tag(None)  # the failed call's drop
+    assert retired() == [id(t1), id(t2)]
+    assert None not in sk._scatter_rows_tags
+    t3 = sk._scatter_rows_tag(torch.empty(100, 11))
+    assert t3.shape == (8192,) and not bool(t3.any())
+    assert retired() == [id(t1), id(t2)]
+    t4 = sk._scatter_rows_tag(torch.empty(20000, 11))
+    assert t4.shape == (32768,) and retired() == [id(t1), id(t2), id(t3)]
+    sizes = [t.shape[0] for t in sk._scatter_rows_retired[None]]
+    assert sizes == [4096, 8192, 8192]
+    sk._retire_scatter_rows_tag(None)  # nothing live: a no-op after this
+    sk._retire_scatter_rows_tag(None)
+    assert len(retired()) == 4
+
+
 # W = 10 and 11 are the card paths' widths (the float2 reductions on the
 # step's 10-float rows, the scalar ones on the cache's 11)
 @pytest.mark.parametrize("u, w", [

@@ -80,13 +80,18 @@ def _t(a):
 # --------------------------------------------------------------------------- #
 # kernel B6: the twin against the Pallas kernel
 # --------------------------------------------------------------------------- #
+# w10_k13 .. w1_k9: the card kernel's paths (K * W mod 4 = 2 and 3, a
+# lone tail at K = 1, W = 1 on the scalar path)
 @pytest.mark.parametrize("case", ["ragged", "empty", "all_sink", "all_hot",
-                                  "one_row"])
+                                  "one_row", "w10_k13", "w11_k9", "w3_k1",
+                                  "w1_k9"])
 def test_hot_cold_select_twin_matches_pallas(case):
     rng = np.random.default_rng(len(case))
     H, W, K = {"ragged": (24, 6, 200), "empty": (24, 6, 0),
                "all_sink": (24, 6, 64), "all_hot": (24, 6, 64),
-               "one_row": (1, 10, 40)}[case]
+               "one_row": (1, 10, 40), "w10_k13": (24, 10, 13),
+               "w11_k9": (24, 11, 9), "w3_k1": (24, 3, 1),
+               "w1_k9": (24, 1, 9)}[case]
     hot = rng.standard_normal((H, W)).astype(np.float32)
     cold = rng.standard_normal((K, W)).astype(np.float32)
     occ = rng.integers(0, H + 1, K).astype(np.int32)
