@@ -12,10 +12,13 @@ Phases, each fatal on failure:
                (pull_rows and scatter_add_rows on their float2 and their
                scalar paths, hot_cold_select on its float4 and its scalar
                path with ragged tails; the cache kernels with negative and
-               duplicate slots, scatter_rows also with 65 536 occurrences on
-               8 slots, duplicates across every tile boundary, calls in a
-               row and a larger table; keys at and above 2^63 and the
-               all-ones key).
+               duplicate slots, gather_slots also at widths 1 to 12, block
+               edges, ragged tails, grid-stride sizes, a table based 4 bytes
+               in and all misses, scatter_rows also with 65 536 occurrences
+               on 8 slots, duplicates across every tile boundary, calls in a
+               row and a larger table; sorted_search with keys at and above
+               2^63 and the all-ones key, shuffled queries and a haystack of
+               2^20 keys).
   3. pass    — write synthetic slot files at the full width of the repo's
                benchmark CTR-DNN (16 sparse slots, 13 dense, batch 2048,
                embedding_dim 8 -> device row width 10, tower 512-256-128, vocab
@@ -57,9 +60,12 @@ Phases, each fatal on failure:
                cache cold, beside the least time the card's memory rate
                allows (for the row kernels also the floor of the distinct
                32-byte sectors their rows touch; pull_rows' and
-               scatter_add_rows' scalar paths, and the zero fill a per-call
-               scatter_rows scratch would add), and the time the cold
-               method gives a launch that does almost nothing.
+               scatter_add_rows' scalar paths, the zero fill a per-call
+               scatter_rows scratch would add, gather_slots at end_pass's
+               shape, sorted_search on shuffled queries and on 2^20 keys,
+               and for those two the same bytes moved without the gather or
+               the search), and the time the cold and the warm method give
+               a launch that does almost nothing.
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -180,6 +186,22 @@ def based4(t):
     view = flat[1:].view(t.shape)
     view.copy_(t)
     return view
+
+
+def big_haystack(keys, rng, device):
+    """A sorted search haystack of 2^20 keys: ``keys`` (uint64) and random
+    ones, the last 1000 entries all-ones padding.  Returns the int64
+    tensor of its bits on ``device`` and the real keys."""
+    import numpy as np
+    import torch
+
+    big = 1 << 20
+    real = np.unique(np.concatenate([
+        keys, rng.integers(0, 2**64 - 1, size=big, dtype=np.uint64)
+    ]))[: big - 1000]
+    hay = np.full(big, 2**64 - 1, np.uint64)
+    hay[: real.shape[0]] = real
+    return torch.from_numpy(hay.view(np.int64)).to(device), real
 
 
 def pass_capacity(n_census: int) -> int:
@@ -310,7 +332,30 @@ def check_cache_parity(census, device) -> dict:
             raise AssertionError(f"gather_slots differs from its twin at K={k}")
         if k == C:
             errs["gather_slots"] = float((got - want).abs().max())
-    log(f"parity gather_slots: bit-exact at K={C}, 12345, 0 (negative slots)")
+    # the kernel's edges: a block gathers 512 output floats (K = 46 and 47
+    # at W = 11 end inside and past the first block), K * W mod 4 of 1, 2
+    # and 3 leaves a ragged tail, K = 100 003 makes blocks walk grid-stride;
+    # widths 1, 3, 10 and 12, a table based 4 bytes in, the last slot, and
+    # all slots negative
+    tables = {f"W={w}": torch.randn((C, w), device=device, generator=gen)
+              for w in (1, 3, 10, 12)}
+    tables.update({"W=11": rows, "W=11 based 4 bytes in": based4(rows)})
+    ks = (1, 2, 3, 46, 47, 129, 100_003)
+    for what, table in tables.items():
+        for k in ks:
+            slots = torch.randint(-1, C, (k,), device=device, generator=gen,
+                                  dtype=torch.int32)
+            slots[-1] = C - 1
+            if not torch.equal(sk.gather_slots(table, slots),
+                               sk.gather_slots_plain(table, slots)):
+                raise AssertionError(
+                    f"gather_slots differs from its twin ({what}, K={k})")
+    miss = torch.full((4097,), -1, device=device, dtype=torch.int32)
+    if bool(sk.gather_slots(rows, miss).any()):
+        raise AssertionError("gather_slots: an all-miss gather is not all zero")
+    log(f"parity gather_slots: bit-exact at K={C}, 12345, 0 (negative slots); "
+        f"{', '.join(tables)} at K={', '.join(map(str, ks))} with the last "
+        "slot; all-miss K=4097 zero")
 
     for k in (C, min(12_345, C // 2 + 1), 0):
         # unique slots (the main path's hits + admits), then duplicates
@@ -394,9 +439,28 @@ def check_cache_parity(census, device) -> dict:
             if nq == q_all.shape[0] and n_real == C:
                 errs["sorted_search"] = float((got - want).abs().max())
                 found = int((got >= 0).sum())
+    # the queries shuffled (the contract does not need them sorted), and a
+    # haystack of 2^20 keys, the last 1000 of them padding, searched for
+    # the census, every 7th key and the all-ones key, sorted and shuffled
+    big_t, big_keys = big_haystack(census[: C // 4], rng, device)
+    q_big = np.concatenate([census, big_keys[::7],
+                            np.array([2**64 - 1], np.uint64)])
+    cases = (("shuffled", hay_t, (C, C - 1), rng.permutation(q_all)),
+             ("2^20 keys, sorted", big_t, (big_keys.shape[0], 0), q_big),
+             ("2^20 keys, shuffled", big_t, (big_keys.shape[0],),
+              rng.permutation(q_big)))
+    for what, h, n_reals, qs in cases:
+        q = torch.from_numpy(np.ascontiguousarray(qs).view(np.int64)).to(device)
+        for n_real in n_reals:
+            if not torch.equal(sk.sorted_search(h, n_real, q),
+                               sk.sorted_search_plain(h, n_real, q)):
+                raise AssertionError(f"sorted_search differs from its twin "
+                                     f"({what}, n_real={n_real})")
     log(f"parity sorted_search: bit-exact at Q={q_all.shape[0]}, 12345, 0 over "
         f"{C} keys ({int((hay >= np.uint64(2**63)).sum())} at or above 2^63, "
-        f"the all-ones key real and as padding); {found} found")
+        f"the all-ones key real and as padding); {found} found; the queries "
+        f"shuffled; {q_big.shape[0]} queries over {big_t.shape[0]} keys "
+        f"({big_keys.shape[0]} real, and none), sorted and shuffled")
     if device.type == "cuda":
         torch.cuda.synchronize()
     return errs
@@ -1271,13 +1335,24 @@ def cache_specs(table, census) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     new = torch.randn((slots.shape[0], W1), device="cuda", generator=gen)
     work = rows.clone()
+    # end_pass reads the hit and admitted rows of the pass's working set
+    # (_rows_at(full, upd_pos)), a [stage rows, W+1] tensor
+    full = torch.randn((table._stage_cap(census.shape[0]), W1), device="cuda",
+                       generator=gen)
+    upd_pos = torch.from_numpy(
+        np.concatenate([plan.hit_pos, upd.admit_pos])).cuda()
+    dense = rows[: hits.shape[0]]
     hay, n_real = cache._dev_index
     q = torch.from_numpy(np.ascontiguousarray(census).view(np.int64)).cuda()
     hay_f, q_f = hay ^ sk._SIGN, q ^ sk._SIGN
+    q_shuf = q[torch.randperm(q.shape[0], device="cuda", generator=gen)]
+    big_t, big_keys = big_haystack(hay[:n_real].cpu().numpy().view(np.uint64),
+                                   np.random.default_rng(5), "cuda")
     h, k, nq, c = hits.shape[0], slots.shape[0], q.shape[0], hay.shape[0]
     log(f"cache kernel shapes: {h} hit slots, {k} hit + admit slots "
         f"({upd.victim_slots.shape[0]} victims), {nq} census keys searched in "
-        f"{c} ({n_real} real)")
+        f"{c} ({n_real} real); end_pass reads {upd_pos.shape[0]} of "
+        f"{full.shape[0]} working-set rows")
     return {
         # hits are unique slots: each distinct row is read once
         "gather_slots": dict(
@@ -1285,6 +1360,14 @@ def cache_specs(table, census) -> dict:
             plain=lambda: sk.gather_slots_plain(rows, hits),
             library=lambda: torch.index_select(rows, 0, hits),
             bytes=h * 4 + 2 * h * W1 * 4, ops=0,
+            # each distinct sector of the named rows read whole once
+            floor_bytes=h * 4 + 32 * touched_sectors(rows, hits) + h * W1 * 4,
+            variants={
+                "end_pass shape (_rows_at(full, upd_pos))":
+                    lambda: sk.gather_slots(full, upd_pos),
+                "the same rows' bytes without the slots (a copy of "
+                f"{h} contiguous rows)": lambda: dense.clone(),
+            },
         ),
         "scatter_rows": dict(
             fn=lambda: sk.scatter_rows(work, slots, new),
@@ -1305,6 +1388,15 @@ def cache_specs(table, census) -> dict:
             library=lambda: torch.searchsorted(hay_f, q_f),
             bytes=c * 8 + nq * 8 + nq * 4,
             ops=nq * max(1, (c - 1).bit_length()),
+            variants={
+                "the census shuffled": lambda: sk.sorted_search(hay, n_real,
+                                                                q_shuf),
+                f"a haystack of {big_t.shape[0]} keys "
+                f"({big_keys.shape[0]} real)":
+                    lambda: sk.sorted_search(big_t, big_keys.shape[0], q),
+                "the queries' and positions' bytes without the search (the "
+                "queries cast to int32)": lambda: q.to(torch.int32),
+            },
         ),
     }
 
@@ -1329,7 +1421,8 @@ def kernel_times(res: dict, ds, cached: dict, census, hybrid: dict,
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     one = torch.empty(1, device="cuda")
     log(f"time floor of the L2-cold method (a one-float fill after the "
-        f"flush): {cold_ms(lambda: one.fill_(1.0), flush)!r} ms")
+        f"flush): {cold_ms(lambda: one.fill_(1.0), flush)!r} ms; of the "
+        f"L2-warm method: {device_ms(lambda: one.fill_(1.0))!r} ms")
     rows = []
     for name, s in specs.items():
         per_call = cuda_launches(s["fn"])
@@ -1370,7 +1463,7 @@ def kernel_times(res: dict, ds, cached: dict, census, hybrid: dict,
             f"operations){floor}; kernel with L2 warm {warm!r} ms")
         for what, fn in s.get("variants", {}).items():
             log(f"time {name}, {what} (L2 cold): {cold_ms(fn, flush)!r} / "
-                f"{cold_ms(fn, flush)!r} ms")
+                f"{cold_ms(fn, flush)!r} ms; L2 warm {device_ms(fn)!r} ms")
     sk.launches.update(saved)  # timing launches are not main-path launches
     res["table"].end_pass()
     hybrid["table"].end_pass()

@@ -158,7 +158,8 @@ def test_small_pass_on_the_card_launches_the_kernels(cuda, tmp_path):
 @pytest.mark.parametrize("kernel", ["pull_rows", "scatter_add_rows",
                                     "gather_slots", "scatter_rows",
                                     "hot_cold_select", "pull_rows_float2",
-                                    "hot_cold_select_float4"])
+                                    "hot_cold_select_float4",
+                                    "gather_slots_tile"])
 def test_out_of_range_index_fails_the_launch(cuda, kernel):
     """An index outside the table traps the kernel.  The trap poisons the
     CUDA context, so it runs in a child process."""
@@ -179,6 +180,9 @@ def test_out_of_range_index_fails_the_launch(cuda, kernel):
         "pull_rows_float2": "sk.pull_rows(v4, i4)",
         "hot_cold_select_float4":
             "sk.hot_cold_select(v4, i4 + 1, torch.ones(4, 4, device='cuda'))",
+        # 200 rows of 4 floats: slot 8 at row 100, inside the first block's
+        # 512 floats and inside a whole 16-byte vector
+        "gather_slots_tile": "sk.gather_slots(v4, g)",
     }[kernel]
     code = (
         "import torch\n"
@@ -187,6 +191,8 @@ def test_out_of_range_index_fails_the_launch(cuda, kernel):
         "i = torch.tensor([8], dtype=torch.int32, device='cuda')\n"
         "v4 = torch.zeros((8, 4), device='cuda')\n"
         "i4 = torch.tensor([0, 1, 8, 2], dtype=torch.int32, device='cuda')\n"
+        "g = (torch.arange(200, device='cuda') % 8).to(torch.int32)\n"
+        "g[100] = 8\n"
         f"{call}\n"
         "torch.cuda.synchronize()\n"
     )
@@ -209,6 +215,37 @@ def test_gather_slots_kernel_bit_exact_with_negative_slots(cuda, k):
     before = sk.launches["gather_slots"]
     got = sk.gather_slots(table, slots)
     torch.cuda.synchronize()
+    assert torch.equal(got, sk.gather_slots_plain(table, slots))
+    assert sk.launches["gather_slots"] == before + (1 if k else 0)
+
+
+# a block gathers 512 output floats: K = 512 // W - 1, 512 // W and
+# 512 // W + 1 rows end before, at or just past the first block's end
+# (K * W mod 4 nonzero leaves a ragged tail); K = 100 003 makes blocks walk
+# grid-stride; every slot negative.  W 1, 3, 10, 11, 12 and a table based
+# 4 bytes in.
+@pytest.mark.parametrize("case", ["w1", "w3", "w10", "w11", "w12",
+                                  "w11_base4"])
+@pytest.mark.parametrize("edge", ["zero", "below", "at", "past", "one",
+                                  "grid_stride", "all_miss"])
+def test_gather_slots_kernel_edges_bit_exact(cuda, case, edge):
+    gen = torch.Generator(device=cuda).manual_seed(len(case) * 7 + len(edge))
+    C = 5000
+    table = _table(cuda, case, C, gen)
+    w = table.shape[1]
+    k = {"zero": 0, "below": 512 // w - 1, "at": 512 // w,
+         "past": 512 // w + 1, "one": 1, "grid_stride": 100003,
+         "all_miss": 4097}[edge]
+    slots = torch.randint(-1, C, (k,), device=cuda, generator=gen,
+                          dtype=torch.int32)
+    if edge == "all_miss":
+        slots.fill_(-1)
+    elif k:
+        slots[-1] = C - 1  # the last slot
+    before = sk.launches["gather_slots"]
+    got = sk.gather_slots(table, slots)
+    torch.cuda.synchronize()
+    assert got.shape == (k, w)
     assert torch.equal(got, sk.gather_slots_plain(table, slots))
     assert sk.launches["gather_slots"] == before + (1 if k else 0)
 
@@ -432,6 +469,42 @@ def test_sorted_search_kernel_bit_exact_with_high_and_all_ones_keys(cuda, n):
         hit = (live[pos_c] == q) if n_real else np.zeros(q.shape[0], bool)
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       np.where(hit, pos_c, -1))
+
+
+# C = 1 and 2 sit wholly in the kernel's shared sample (256 keys), C = 256
+# is the sample exactly, 512 leaves one step below it, 4096 to 2^20 up to
+# 12 steps in device memory.  "full": C real keys, the last the all-ones
+# key; "padded": a quarter of the haystack all-ones padding.  n_real runs
+# over 0, 1, m - 1 (the last real key then counts as padding) and m.
+@pytest.mark.parametrize("c", [1, 2, 256, 512, 4096, 8192, 65536, 1 << 20])
+@pytest.mark.parametrize("fill", ["full", "padded"])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+def test_sorted_search_kernel_sample_edges_bit_exact(cuda, c, fill, order):
+    rng = np.random.default_rng(c + len(fill) + len(order))
+    m = c if fill == "full" else c - c // 4 - 1 if c > 1 else 0
+    keys = np.unique(rng.integers(0, 2**64 - 1, size=m + 100,
+                                  dtype=np.uint64))
+    keys = np.sort(rng.choice(keys, m, replace=False))
+    if fill == "full":
+        keys[-1] = np.uint64(2**64 - 1)
+    hay = np.full(c, 2**64 - 1, np.uint64)
+    hay[:m] = keys
+    # every key, duplicates of every third, misses, and the extremes
+    q = np.concatenate([keys, keys[::3],
+                        rng.integers(0, 2**64 - 1, size=3000, dtype=np.uint64),
+                        np.array([0, 2**63 - 1, 2**63, 2**64 - 1], np.uint64)])
+    q = np.sort(q) if order == "sorted" else rng.permutation(q)
+    hay_t = torch.from_numpy(hay.view(np.int64)).to(cuda)
+    q_t = torch.from_numpy(q.view(np.int64)).to(cuda)
+    assert int((q >= np.uint64(2**63)).sum()) > 0
+    for n_real in sorted({0, min(1, m), max(m - 1, 0), m}):
+        before = sk.launches["sorted_search"]
+        got = sk.sorted_search(hay_t, n_real, q_t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sk.sorted_search_plain(hay_t, n_real, q_t))
+        assert sk.launches["sorted_search"] == before + 1
+        if n_real == m and m:
+            assert int((got >= 0).sum()) == int(np.isin(q, keys).sum())
 
 
 def test_cached_lifecycle_on_the_card_is_bit_exact_with_uncached(cuda):
