@@ -3,10 +3,20 @@
 
     python3 chip_smoke.py
 
+Every path runs at the port's defaults, which are the reference's: the
+native C++ slot parser and batch planner, and the feed prefetch thread two
+batches ahead.  A phase fails unless it saw them run: both host libraries
+built, every dataset loaded through a native parser, every table planned
+through a live native census index, and the producer thread fed every step.
+
 Phases, each fatal on failure:
   1. build   — compile every CUDA kernel of the paths from csrc/ (one nvcc
-               per source, all started together) and print the build time
-               and each kernel's registers and spills.
+               per source, all started together) and, beside them, the two
+               host libraries from _native/ with g++; print the g++ version,
+               the build times and each kernel's registers and spills.
+     load    — load the data sets through the native parser (seconds
+               printed), and the uncached set once more with the Python
+               parser: both times, and the blocks must be bit-equal.
   2. parity  — hold each kernel against its plain PyTorch twin on the card,
                at the main paths' shapes, at a ragged size and at size 0
                (pull_rows and scatter_add_rows on their float2 and their
@@ -28,8 +38,17 @@ Phases, each fatal on failure:
                read just after.
      check   — the same small pass on the card and on the CPU (plain twins)
                from identical initial weights must agree.
-     stages  — one more pass, synchronized after each host stage and step,
-               for the per-step breakdown (--profile adds a profiler window).
+     stages  — one more pass, serial (as the reference profiles) and
+               synchronized after each host stage and step, for the per-step
+               breakdown (--profile adds a profiler window); then the same
+               batches planned alone with the native and the numpy planner,
+               ms per step of each, and every native plan must agree with
+               the numpy one under the reference's order-free equivalence.
+     feed    — four more passes of the trained table, fed serially and
+               prefetched in turns: samples/s of each.
+     prefetch — at a small size under deterministic algorithms, a cached
+               single-chip run and a 4-position hybrid run with the prefetch
+               thread must be bit-equal to the same runs fed serially.
   4. cached  — the same model with the reference's default HBM cache (65 536
                rows) over CACHED_PASSES passes, each over its own Zipf(1.3)
                file set, counters reset just before and read just after;
@@ -51,6 +70,9 @@ Phases, each fatal on failure:
                must realize and route; under deterministic algorithms two
                runs are bit-equal, and the largest difference against the
                hash placement is printed.
+     stages  — one more hybrid pass stage by stage, and its groups
+               planned alone with the native and the numpy planner (ms per
+               group of each; the plans must pull the same rows).
      check   — a small hybrid run on the card and on the CPU (plain twins)
                from identical initial weights must agree.
   6. times   — the CUDA kernels one call of each wrapper launches (from
@@ -210,6 +232,83 @@ def pass_capacity(n_census: int) -> int:
     from paddlebox_tpu_torch.sparse.table import _next_pow2
 
     return _next_pow2(n_census + 1 + KEY_CAPACITY)
+
+
+def native_index_live(table) -> None:
+    """The table planned this pass through a live native census index."""
+    ix = table._census_index
+    if ix is None or not ix._handle:
+        raise AssertionError("the table planned without a live native census "
+                             "index")
+
+
+def prefetched_feeds() -> float:
+    """Feeds the prefetch producers have handed over so far."""
+    from paddlebox_tpu_torch.utils.monitor import stats
+
+    return stats.get("trainer.prefetched_feeds")
+
+
+def check_prefetched(trainer, before: float, steps: int) -> None:
+    """Every step of the run since ``before`` took its feed from the
+    producer thread."""
+    fed = prefetched_feeds() - before
+    if trainer.conf.prefetch_batches != 2 or fed != steps:
+        raise AssertionError(
+            f"prefetch_batches {trainer.conf.prefetch_batches}: the producer "
+            f"fed {fed} of {steps} steps")
+
+
+def plans_agree(a, b) -> None:
+    """Two single-chip plans of one batch agree under the reference's
+    order-free equivalence (tests/test_native_planner.py): the same pull
+    rows, mask and missing count; the same push target for every
+    occurrence of a live key; one slot per key in each plan."""
+    import numpy as np
+
+    if not (np.array_equal(a.idx, b.idx)
+            and np.array_equal(a.key_mask, b.key_mask)
+            and a.n_missing == b.n_missing):
+        raise AssertionError("native and numpy plans pull different rows")
+    tgt_a, tgt_b = a.uniq_idx[a.inverse], b.uniq_idx[b.inverse]
+    found_a = (a.idx == tgt_a) & (a.key_mask > 0)
+    found_b = (b.idx == tgt_b) & (b.key_mask > 0)
+    if not (np.array_equal(found_a, found_b)
+            and np.array_equal(tgt_a[found_a], b.idx[found_b])):
+        raise AssertionError("native and numpy plans push to different rows")
+    for p in (a, b):
+        real = p.key_mask > 0
+        inv = p.inverse[real].astype(np.int64)
+        pairs = (inv << 32) | p.idx[real].astype(np.int64)
+        if np.unique(pairs).shape[0] != np.unique(inv).shape[0]:
+            raise AssertionError("a plan gives one key two slots")
+
+
+def group_plans_agree(a, b) -> None:
+    """Two sharded plans of one group pull the same row for every
+    occurrence: the same (owner, row) for a cold one, the same hot slot for
+    a hot one, whatever their slot layouts."""
+    import numpy as np
+
+    n, C = a.serve_rows.shape[1], a.serve_rows.shape[2]
+
+    def pulled(p):
+        sink = p.occ_flat == n * C
+        o = np.where(sink, 0, p.occ_flat // C)
+        c = np.where(sink, 0, p.occ_flat % C)
+        d = np.arange(n)[:, None]
+        rows = np.where(sink, -1, p.serve_rows[o, d, c])
+        return np.where(sink, -1, o), rows
+
+    if (b.serve_rows.shape != a.serve_rows.shape
+            or a.n_missing != b.n_missing
+            or not np.array_equal(a.key_mask, b.key_mask)
+            or not all(np.array_equal(x, y)
+                       for x, y in zip(pulled(a), pulled(b)))
+            or (a.hot_occ is None) != (b.hot_occ is None)
+            or (a.hot_occ is not None
+                and not np.array_equal(a.hot_occ, b.hot_occ))):
+        raise AssertionError("native and numpy group plans pull different rows")
 
 
 # --------------------------------------------------------------------------- #
@@ -501,6 +600,7 @@ def run_passes(ds, table, trainer, passes: int) -> list:
         m = trainer.train_from_dataset(ds, table)
         if trainer.device.type == "cuda":
             torch.cuda.synchronize()
+        native_index_live(table)
         table.end_pass()
         out.append(m)
     return out
@@ -512,10 +612,12 @@ def slice_pass(ds, device="cuda") -> dict:
     _, table, trainer = make_world(N_SLOTS, DENSE, BATCH, EMB, HIDDEN, device,
                                    KEY_CAPACITY)
     n_census = ds.unique_keys().shape[0]
+    fed = prefetched_feeds()
     sk.reset_launches()
     per_pass = run_passes(ds, table, trainer, PASSES)
     launches = dict(sk.launches)
     steps = sum(m["steps"] for m in per_pass)
+    check_prefetched(trainer, fed, steps)
     seconds = sum(m["duration_s"] for m in per_pass)
     samples = sum(m["samples"] for m in per_pass)
     for p, m in enumerate(per_pass):
@@ -593,7 +695,32 @@ def load(files, read_threads: int):
     ), read_threads=read_threads)
     ds.set_filelist(files)
     ds.load_into_memory()
+    if os.environ.get("PADDLEBOX_TORCH_USE_NATIVE_PARSER") != "0" and \
+            ds.parser._native is None:
+        raise AssertionError("a dataset loaded without the native parser")
     return ds
+
+
+def python_parse_check(files, ds) -> float:
+    """Load ``files`` once more with the Python parser: its seconds, and
+    the block must equal the native parser's ``ds``'s bit for bit."""
+    import numpy as np
+
+    os.environ["PADDLEBOX_TORCH_USE_NATIVE_PARSER"] = "0"
+    try:
+        t0 = time.perf_counter()
+        py = load(files, len(files))
+        seconds = time.perf_counter() - t0
+    finally:
+        del os.environ["PADDLEBOX_TORCH_USE_NATIVE_PARSER"]
+    a, b = ds._block, py._block
+    if py.parser._native is not None or a.n_ins != b.n_ins or not all(
+            getattr(a, f).dtype == getattr(b, f).dtype
+            and np.array_equal(getattr(a, f), getattr(b, f))
+            for f in ("keys", "key_offsets", "dense", "labels")):
+        raise AssertionError("native and Python parsers gave different blocks")
+    py.close()
+    return seconds
 
 
 def drive_passes(datasets, table, trainer) -> list:
@@ -612,6 +739,7 @@ def drive_passes(datasets, table, trainer) -> list:
         hits, misses = table.last_cache_hits, table.last_cache_misses
         m = trainer.train_from_dataset(ds, table)
         torch.cuda.synchronize()
+        native_index_live(table)
         t0 = time.perf_counter()
         table.end_pass()
         torch.cuda.synchronize()
@@ -655,10 +783,13 @@ def cached_path(datasets) -> dict:
                                            "cuda", KEY_CAPACITY,
                                            cache_rows=rows)
             if label == "cached":
+                fed = prefetched_feeds()
                 sk.reset_launches()
             per_pass = drive_passes(datasets, table, trainer)
             if label == "cached":
                 launches = dict(sk.launches)
+                check_prefetched(trainer, fed, sum(r["metrics"]["steps"]
+                                                   for r in per_pass))
         finally:
             torch.use_deterministic_algorithms(False)
         runs[label] = (per_pass, table)
@@ -798,6 +929,8 @@ def stage_breakdown(ds, table, trainer, profile: bool) -> None:
             prof.__exit__(None, None, None)
             report_profile(prof, window_s)
             prof = None
+    native_index_live(table)
+    plan_ms = plan_only(ds.batches(), table.plan_batch, plans_agree)
     t0 = time.perf_counter()
     table.end_pass()
     end_s = time.perf_counter() - t0
@@ -806,6 +939,56 @@ def stage_breakdown(ds, table, trainer, profile: bool) -> None:
     log(f"stages over {n} steps, ms per step: " + ", ".join(
         f"{k} {v!r}" for k, v in per.items())
         + f"; begin_pass {begin_s!r} s, end_pass {end_s!r} s")
+    log(f"plan alone over the same {n} batches, ms per step: native "
+        f"{plan_ms[True]!r}, numpy {plan_ms[False]!r}; every native plan "
+        "agrees with the numpy one (order-free)")
+
+
+def feed_turns(ds, table, trainer) -> None:
+    """The trained uncached table, one more pass each fed serially and with
+    the prefetch thread, in turns 0, 2, 2, 0: unsynchronized samples/s of
+    each, as slice_pass reports them."""
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    saved = dict(sk.launches)
+    rates = []
+    for turn, depth in enumerate((0, 2, 2, 0)):
+        trainer.conf.prefetch_batches = depth
+        ds.local_shuffle(seed=PASSES + 1 + turn)
+        table.begin_pass(ds.unique_keys())
+        m = trainer.train_from_dataset(ds, table)
+        torch.cuda.synchronize()
+        table.end_pass()
+        rates.append(m["samples"] / m["duration_s"])
+    trainer.conf.prefetch_batches = 2
+    sk.launches.update(saved)  # not main-path launches
+    log("feed turns, samples/s of one uncached pass each: serial "
+        f"{rates[0]!r}, prefetch 2 {rates[1]!r}, prefetch 2 {rates[2]!r}, "
+        f"serial {rates[3]!r}")
+
+
+def plan_only(batches, plan, agree) -> dict:
+    """Plan each batch (or group) of ``batches`` with the native and with
+    the numpy planner, in turns, timing each call alone; the plans must
+    agree.  Returns {native: ms per call}."""
+    total = {True: 0.0, False: 0.0}
+    n = 0
+    try:
+        for b in batches:
+            plans = {}
+            for native in ((True, False) if n % 2 == 0 else (False, True)):
+                os.environ["PADDLEBOX_TORCH_USE_NATIVE_PLANNER"] = (
+                    "1" if native else "0")
+                t0 = time.perf_counter()
+                plans[native] = plan(b)
+                total[native] += time.perf_counter() - t0
+            agree(plans[True], plans[False])
+            n += 1
+    finally:
+        del os.environ["PADDLEBOX_TORCH_USE_NATIVE_PLANNER"]
+    return {k: v / max(n, 1) * 1e3 for k, v in total.items()}
 
 
 def report_profile(prof, window_s: float) -> None:
@@ -918,6 +1101,7 @@ def drive_hybrid(datasets, table, trainer) -> list:
         m = trainer.train_from_dataset(ds, table, auc_state=auc)
         auc = trainer.last_metric_state
         torch.cuda.synchronize()
+        native_index_live(table)
         t0 = time.perf_counter()
         table.end_pass()
         torch.cuda.synchronize()
@@ -959,11 +1143,14 @@ def hybrid_path(datasets) -> dict:
         try:
             table, trainer = make_hybrid_world("cuda", placement)
             if label == "hybrid":
+                fed = prefetched_feeds()
                 sk.reset_launches()
             per_pass = drive_hybrid(datasets, table, trainer)
             if label == "hybrid":
                 launches = dict(sk.launches)
                 runs_trainer = trainer
+                check_prefetched(trainer, fed, sum(r["metrics"]["steps"]
+                                                   for r in per_pass))
         finally:
             torch.use_deterministic_algorithms(False)
         runs[label] = (per_pass, table)
@@ -1059,10 +1246,105 @@ def hybrid_stages(hybrid: dict) -> None:
                      ("step", t4 - t3)):
             acc[k] += v
         n += 1
+    native_index_live(table)
+    plan_ms = plan_only(_group_batches(ds.batches(), POSITIONS),
+                        table.plan_group, group_plans_agree)
     table.end_pass()
     sk.launches.update(saved)  # not main-path launches
     log(f"hybrid stages over {n} step groups of {POSITIONS} positions, ms per "
         "group: " + ", ".join(f"{k} {v / n * 1e3!r}" for k, v in acc.items()))
+    log(f"hybrid plan alone over the same {n} groups, ms per group: native "
+        f"{plan_ms[True]!r}, numpy {plan_ms[False]!r}; the plans pull the same "
+        "rows")
+
+
+def prefetch_agreement() -> None:
+    """At a small size under deterministic algorithms: two cached
+    single-chip passes and three hybrid passes on POSITIONS positions (the
+    hot block realizes in the third) with the prefetch thread are bit-equal
+    to the same runs fed serially, and launch the kernels as often."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.parallel import (
+        MultiChipTrainer,
+        ShardedSparseTable,
+        make_mesh,
+    )
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.train import Trainer
+
+    saved = dict(sk.launches)
+    files = write_synth_files(
+        os.path.join(WORK_DIR, "small-prefetch"), n_files=2,
+        ins_per_file=512, n_sparse_slots=4, vocab_per_slot=80, dense_dim=3,
+        seed=9, zipf_a=ZIPF_A,
+    )
+    ds = PadBoxSlotDataset(make_synth_config(4, 3, 32, 16), read_threads=2)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+
+    def run(positions, prefetch):
+        trconf = TrainerConfig(auc_buckets=1 << 10, prefetch_batches=prefetch)
+        if positions:
+            tconf = SparseTableConfig(embedding_dim=4, hbm_cache_rows=0,
+                                      placement_update_interval=1,
+                                      placement_hot_capacity=64)
+            mesh = make_mesh(positions)
+            table = ShardedSparseTable(tconf, mesh, seed=5)
+            tr = MultiChipTrainer(CtrDnn(4, tconf.row_width, dense_dim=3,
+                                         hidden=(16, 8)), tconf, mesh, trconf)
+        else:
+            tconf = SparseTableConfig(embedding_dim=4, hbm_cache_rows=256)
+            table = SparseTable(tconf, seed=5)
+            tr = Trainer(CtrDnn(4, tconf.row_width, dense_dim=3,
+                                hidden=(16, 8)), tconf, trconf)
+        sk.reset_launches()
+        fed = prefetched_feeds()
+        metrics = []
+        for p in range(3 if positions else 2):
+            ds.local_shuffle(seed=p)
+            table.begin_pass(ds.unique_keys())
+            metrics.append(tr.train_from_dataset(ds, table))
+            native_index_live(table)
+            table.end_pass()
+        torch.cuda.synchronize()
+        steps = sum(m["steps"] for m in metrics)
+        if prefetch:
+            check_prefetched(tr, fed, steps)
+        return metrics, table.state_dict(), dict(sk.launches)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        for positions in (0, POSITIONS):
+            (m0, s0, l0), (m2, s2, l2) = run(positions, 0), run(positions, 2)
+            if l0 != l2 or not l0["pull_rows"]:
+                raise AssertionError(f"launches differ: {l0} {l2}")
+            for a, b in zip(m0, m2):
+                if ((a["loss"], a["auc"], a["samples"])
+                        != (b["loss"], b["auc"], b["samples"])):
+                    raise AssertionError(
+                        f"prefetched and serial metrics differ "
+                        f"({positions} positions): {a} {b}")
+            if positions and not m2[-1]["hot_occurrences"]:
+                raise AssertionError("the small hybrid run routed nothing hot")
+            if not (np.array_equal(s0["keys"], s2["keys"])
+                    and np.array_equal(s0["values"], s2["values"])):
+                raise AssertionError(f"prefetched and serial tables differ "
+                                     f"({positions} positions)")
+            log(f"prefetch {positions or 'single-chip'}"
+                f"{' positions' if positions else ''}: prefetched run "
+                f"bit-equal to the serial one over {len(m0)} passes (losses "
+                f"{[m['loss'] for m in m2]}), launches {l2}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        ds.close()
+        sk.launches.update(saved)  # not main-path launches
 
 
 def small_hybrid_agreement() -> None:
@@ -1486,6 +1768,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, REPO)
     # a copy of this script alone, without the package beside it, fails here
+    from paddlebox_tpu_torch import _native
     from paddlebox_tpu_torch.ops import cuda_build
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
 
@@ -1500,23 +1783,43 @@ def main(argv=None) -> int:
     os.makedirs(WORK_DIR)
     try:
         t0 = time.perf_counter()
-        built = cuda_build.build(sk.KERNELS)
-        log(f"build: {time.perf_counter() - t0!r} s for {sorted(built)}")
+        # the host libraries build with g++ beside the nvcc builds
+        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+            host = [ex.submit(_native.get_lib), ex.submit(_native.get_plan_lib)]
+            built = cuda_build.build(sk.KERNELS)
+            cuda_s = time.perf_counter() - t0
+            host_libs = [h.result() for h in host]
+        log(f"build: {cuda_s!r} s for {sorted(built)}")
         for name in built:
             ptxas = [line for line in cuda_build.build_log[name]["log"].splitlines()
                      if "registers" in line or "spill" in line]
             log(f"  {name}: " + " | ".join(ptxas))
+        log(f"host libraries: {_native.compiler_version()}; " + ", ".join(
+            f"{name} {entry['seconds']!r} s"
+            for name, entry in sorted(_native.build_log.items())))
+        if any(lib is None for lib in host_libs):
+            raise AssertionError("a host library did not build: " + "; ".join(
+                f"{k}: {v['log']}" for k, v in _native.build_log.items()))
 
         t0 = time.perf_counter()
         files, cached_files = write_data()
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         ds = load(files, N_FILES)
+        load_s = time.perf_counter() - t0
         n_census = ds.unique_keys().shape[0]
+        t0 = time.perf_counter()
         cached_ds = [load(fs, CACHED_FILES) for fs in cached_files]
+        cached_load_s = time.perf_counter() - t0
         censuses = [d.unique_keys() for d in cached_ds]
         log(f"data: {ds.get_memory_data_size()} instances, {n_census} census "
             f"keys; Zipf sets {[d.get_memory_data_size() for d in cached_ds]} "
-            f"instances, censuses {[c.shape[0] for c in censuses]}; in "
-            f"{time.perf_counter() - t0!r} s")
+            f"instances, censuses {[c.shape[0] for c in censuses]}; written "
+            f"in {write_s!r} s")
+        py_load_s = python_parse_check(files, ds)
+        log(f"load (native parser): {load_s!r} s for the uncached set, "
+            f"{cached_load_s!r} s for the Zipf sets; the uncached set with "
+            f"the Python parser {py_load_s!r} s, bit-equal blocks")
 
         P = pass_capacity(n_census)
         errs = check_parity(P, torch.device("cuda"))
@@ -1524,7 +1827,9 @@ def main(argv=None) -> int:
         errs.update(check_hybrid_parity(torch.device("cuda")))
         res = slice_pass(ds)
         stage_breakdown(ds, res["table"], res["trainer"], profile)
+        feed_turns(ds, res["table"], res["trainer"])
         small_agreement()
+        prefetch_agreement()
         cached = cached_path(cached_ds[:CACHED_PASSES])
         lifecycle_check(censuses[:CACHED_PASSES])
         hybrid = hybrid_path(cached_ds[:HYBRID_PASSES])

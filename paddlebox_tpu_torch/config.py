@@ -36,9 +36,13 @@ class _Flags:
         "dataset_shuffle_thread_num": 10,
         # dense-tower compute dtype; this slice runs float32 only
         "compute_dtype": "float32",
-        # the native C++ parser and batch planner are later slices
-        "use_native_parser": False,
-        "use_native_planner": False,
+        # the native C++ slot parser (_native/slot_parser.cpp) when it
+        # builds; the Python parser otherwise (reference default: on)
+        "use_native_parser": True,
+        # the native C++ batch planner (dedup and census resolve,
+        # _native/plan_resolve.cpp) when it builds; numpy otherwise
+        # (reference default: on)
+        "use_native_planner": True,
         # kill switch of the HBM hot-row cache, process-wide, whatever
         # SparseTableConfig.hbm_cache_rows says (reference: flags.hbm_cache)
         "hbm_cache": True,
@@ -136,15 +140,15 @@ class DataFeedConfig:
 
     def __post_init__(self):
         if self.pipe_command:
-            raise not_ported("pipe_command", "a later data-plane slice")
+            raise not_ported("pipe_command", "data cut-outs, item 3")
         if self.enable_pv_merge or self.rank_offset:
-            raise not_ported("PV merge / rank_offset", "model zoo, item 10")
+            raise not_ported("PV merge / rank_offset", "data cut-outs, item 3")
         if self.parse_ins_id or self.parse_logkey:
-            raise not_ported("ins_id / logkey parsing", "model zoo, item 10")
+            raise not_ported("ins_id / logkey parsing", "data cut-outs, item 3")
         if self.task_label_slots:
-            raise not_ported("multi-task labels", "model zoo, item 10")
+            raise not_ported("multi-task labels", "data cut-outs, item 3")
         if self.sequence_slot:
-            raise not_ported("sequence_slot / seq_pos", "model zoo, item 10")
+            raise not_ported("sequence_slot / seq_pos", "data cut-outs, item 3")
         if self.malformed_policy not in ("raise", "skip"):
             raise ValueError(
                 f"malformed_policy must be 'raise' or 'skip', "
@@ -198,7 +202,7 @@ class SparseTableConfig:
     delete_threshold: float = 0.0
     show_decay_rate: float = 0.98
     # The reference defaults it to on and pins it bit-exact against off;
-    # the port runs the serial lifecycle until item 8 brings the overlap.
+    # the port runs the serial lifecycle until item 1 brings the overlap.
     overlap_pass_boundary: bool = False
     # Persistent HBM hot-row cache (sparse/engine/hbm_cache.py): slots kept
     # on the device across passes, so begin_pass fetches only the census
@@ -233,16 +237,16 @@ class SparseTableConfig:
 
     def __post_init__(self):
         if self.expand_dim:
-            raise not_ported("expand_dim", "model zoo, item 10")
+            raise not_ported("expand_dim", "model zoo, item 5")
         if self.slot_learning_rates:
-            raise not_ported("slot_learning_rates", "model zoo, item 10")
+            raise not_ported("slot_learning_rates", "trainer cut-outs, item 3")
         if self.overlap_pass_boundary:
             raise not_ported(
-                "overlap_pass_boundary=True", "pass-boundary overlap, item 8"
+                "overlap_pass_boundary=True", "pass-boundary overlap, item 1"
             )
         if self.store_spill_dir or self.store_log_dir:
             raise not_ported(
-                "store spill / durable log", "persistence, item 8"
+                "store spill / durable log", "persistence, item 1"
             )
 
 
@@ -258,17 +262,22 @@ class TrainerConfig:
     compute_dtype: str = ""  # "" -> flags.compute_dtype
     check_nan_inf: bool = False
     nan_policy: str = "raise"
+    # feed double buffering: a producer thread plans the next batches' keys
+    # and copies their feed to the device (pinned host memory, a side
+    # stream) while the current step computes, at most this many ahead.
+    # 0 (or less) = the serial feed.
+    prefetch_batches: int = 2
 
     def __post_init__(self):
         if self.sync_dense_mode in ("kstep", "async"):
             raise not_ported(f"sync_dense_mode={self.sync_dense_mode!r}",
-                             "multi-chip cut-outs, item 9")
+                             "multi-chip cut-outs, item 3")
         if self.sync_dense_mode != "step":
             raise ValueError(
                 f"unknown sync_dense_mode {self.sync_dense_mode!r}"
             )
         if self.dense_optimizer == "sgd":
-            raise not_ported("dense_optimizer='sgd'", "trainer cut-outs, item 6b")
+            raise not_ported("dense_optimizer='sgd'", "trainer cut-outs, item 3")
         if self.dense_optimizer != "adam":
             raise ValueError(
                 f"unknown dense optimizer {self.dense_optimizer!r}"
@@ -280,7 +289,7 @@ class TrainerConfig:
             )
         if self.nan_policy != "raise":
             raise not_ported(
-                f"nan_policy={self.nan_policy!r}", "trainer cut-outs, item 6b"
+                f"nan_policy={self.nan_policy!r}", "trainer cut-outs, item 3"
             )
         if self.counter_label_tasks:
-            raise not_ported("counter_label_tasks", "model zoo, item 10")
+            raise not_ported("counter_label_tasks", "model zoo, item 5")

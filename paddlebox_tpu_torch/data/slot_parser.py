@@ -1,5 +1,5 @@
 """Slot-formatted text parsing into columnar RecordBlocks (reference:
-paddlebox_tpu/data/slot_parser.py, its pure-Python ``parse_lines`` path).
+paddlebox_tpu/data/slot_parser.py).
 
 One instance per line, slots in config order:
 
@@ -7,7 +7,12 @@ One instance per line, slots in config order:
 
 uint64 slots hold feature signs, float slots hold floats.  The slot named
 ``label_slot`` supplies the label (its first value) and never enters the
-dense matrix.  The reference's native C++ parser is a later slice.
+dense matrix.
+
+Two implementations share one walk layout: the pure-Python ``parse_lines``
+and the native C++ parser (``_native/slot_parser.cpp``) that ``parse_file``
+prefers when it builds and ``malformed_policy`` is "raise", as in the
+reference.  PADDLEBOX_TORCH_USE_NATIVE_PARSER=0 turns the native one off.
 """
 
 from __future__ import annotations
@@ -19,17 +24,18 @@ from typing import Iterable
 
 import numpy as np
 
-from paddlebox_tpu_torch.config import DataFeedConfig, flags, not_ported
+from paddlebox_tpu_torch.config import DataFeedConfig, flags
 from paddlebox_tpu_torch.data.record import RecordBlock
 from paddlebox_tpu_torch.utils.monitor import stats
 
 logger = logging.getLogger(__name__)
 
+# bytes the native parser reads from a stream (.gz) at a time
+_NATIVE_CHUNK = 64 << 20
+
 
 class SlotParser:
     def __init__(self, conf: DataFeedConfig):
-        if flags.use_native_parser:
-            raise not_ported("the native slot parser", "slice-1 cut-outs, item 6b")
         self.conf = conf
         self.sparse_slots = conf.sparse_slots()
         sparse_names = {s.name: i for i, s in enumerate(self.sparse_slots)}
@@ -53,12 +59,62 @@ class SlotParser:
                 self._walk.append(("skip", -1, -1))
         self._dense_width = col
         self.n_sparse = len(self.sparse_slots)
+        self._native = None
+        self._native_tried = False
+        # reader threads call parse_file together: the first builds the
+        # native parser while the others wait for it
+        self._native_lock = threading.Lock()
         # quarantine accounting (malformed_policy="skip"); parse_file runs
         # in reader threads, hence the lock
         self._quar_lock = threading.Lock()
         self.quarantined_lines = 0
         self.quarantined_files = 0
         self.parsed_lines = 0
+
+    def _native_parser(self):
+        """The C++ parser, built and bound on first use; None when the flag
+        is off, the policy is "skip" or the library did not build."""
+        with self._native_lock:
+            if self._native_tried:
+                return self._native
+            self._native_tried = True
+            if not flags.use_native_parser:
+                return None
+            if self.conf.malformed_policy != "raise":
+                # the native parser aborts on the first malformed line; the
+                # quarantine walk (skip, count, roll back) is Python only
+                return None
+            from paddlebox_tpu_torch._native import NativeParser
+
+            try:
+                self._native = NativeParser(self._walk, self.n_sparse,
+                                            self._dense_width)
+            except (RuntimeError, OSError):
+                self._native = None  # unavailable: the Python parser
+            return self._native
+
+    def _native_parse_stream(self, native, fh, path: str) -> RecordBlock:
+        """Feed a binary stream to the native parser in 64 MB chunks cut at
+        line boundaries (a .gz shard is never held whole), the tail after
+        the last newline carried into the next chunk."""
+        blocks = []
+        carry = b""
+        while True:
+            data = fh.read(_NATIVE_CHUNK)
+            if not data:
+                break
+            data = carry + data
+            cut = data.rfind(b"\n")
+            if cut < 0:
+                carry = data
+                continue
+            carry = data[cut + 1:]
+            blocks.append(native.parse_bytes(data[: cut + 1], path=path))
+        if carry:
+            blocks.append(native.parse_bytes(carry, path=path))
+        if not blocks:
+            return native.parse_bytes(b"", path=path)
+        return RecordBlock.concat(blocks)
 
     def parse_lines(self, lines: Iterable[str], path: str = "<lines>") -> RecordBlock:
         keys: list[int] = []
@@ -153,9 +209,18 @@ class SlotParser:
         labels.append(label)
 
     def parse_file(self, path: str) -> RecordBlock:
-        """Read one plain or .gz file and parse it."""
+        """Read one plain or .gz file and parse it: natively when the
+        native parser is available (a plain file in one read, a .gz one in
+        line-aligned chunks), else line by line in Python."""
+        native = self._native_parser()
         if path.endswith(".gz"):
+            if native is not None:
+                with gzip.open(path, "rb") as f:
+                    return self._native_parse_stream(native, f, path)
             with gzip.open(path, "rt") as f:
                 return self.parse_lines(f, path=path)
+        if native is not None:
+            with open(path, "rb") as f:
+                return native.parse_bytes(f.read(), path=path)
         with open(path, "r") as f:
             return self.parse_lines(f, path=path)

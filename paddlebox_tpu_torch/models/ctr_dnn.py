@@ -34,11 +34,11 @@ class CtrDnn(nn.Module):
     ):
         super().__init__()
         if layout != "default":
-            raise not_ported(f"layout={layout!r}", "model zoo, item 10")
+            raise not_ported(f"layout={layout!r}", "model zoo, item 5")
         if expand_dim:
-            raise not_ported("expand_dim", "model zoo, item 10")
+            raise not_ported("expand_dim", "model zoo, item 5")
         if slot_embed_dims:
-            raise not_ported("slot_embed_dims", "model zoo, item 10")
+            raise not_ported("slot_embed_dims", "model zoo, item 5")
         resolve_compute_dtype(compute_dtype)
         self.device = resolve_device(device)
         self.n_sparse_slots = n_sparse_slots

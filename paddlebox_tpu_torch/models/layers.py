@@ -26,7 +26,7 @@ def resolve_compute_dtype(name: Optional[str] = None):
     if name in ("float32", "f32", "fp32"):
         return None
     if name in ("bfloat16", "bf16", "float16", "fp16", "f16"):
-        raise not_ported(f"compute_dtype={name!r}", "slice-1 cut-outs, item 6b")
+        raise not_ported(f"compute_dtype={name!r}", "trainer cut-outs, item 3")
     raise ValueError(f"unknown compute_dtype {name!r}")
 
 

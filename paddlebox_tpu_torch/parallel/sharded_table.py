@@ -137,7 +137,7 @@ class ShardedSparseTable(SparseTable):
             raise not_ported(
                 "the per-shard HBM cache of ShardedSparseTable (pass "
                 "hbm_cache_rows=0 or set PADDLEBOX_TORCH_HBM_CACHE=0)",
-                "multi-chip cache, item 9",
+                "multi-chip cache, item 2",
             )
         super().__init__(conf, seed, device=mesh.device)
         self.mesh = mesh
@@ -351,10 +351,10 @@ class ShardedSparseTable(SparseTable):
 
     # -- cut-outs ----------------------------------------------------------- #
     def prepare_pass(self, pass_keys) -> None:
-        raise not_ported("prepare_pass staging", "pass-boundary overlap, item 8")
+        raise not_ported("sharded prepare_pass staging", "multi-chip reshard, item 4")
 
     def reshard(self, new_mesh: Mesh) -> int:
-        raise not_ported("ShardedSparseTable.reshard", "multi-chip reshard, item 9")
+        raise not_ported("ShardedSparseTable.reshard", "multi-chip reshard, item 4")
 
     # -- pass lifecycle --------------------------------------------------- #
     def _shard_split(self, pk: np.ndarray):
@@ -412,6 +412,7 @@ class ShardedSparseTable(SparseTable):
         )  # per-shard scratch base
         self._pass_row = row_within
         self._pass_keys = cold_pk
+        self._census_index = None  # stale: it indexes the previous census
         self._in_pass = True
         self._delta_keys.append(pk)
 
@@ -452,6 +453,7 @@ class ShardedSparseTable(SparseTable):
         if self._hot_keys.shape[0]:
             self._hot_dirty = True
         self._shard_keys = None
+        self._census_index = None  # dropped, not closed: see SparseTable
         self._pass_keys = None
         self._pass_row = None
         self._in_pass = False
@@ -527,14 +529,33 @@ class ShardedSparseTable(SparseTable):
         per_dev: list = []
         needed = 0
         n_missing = 0
+        ix = self._native_index()
         hot_res = self._hot_keys if self._hot_realize else None
         H = self.hot_block_capacity
         for b in batches:
             if b.n_keys == 0:
                 per_dev.append(None)
                 continue
-            uk, inv = np.unique(b.keys[: b.n_keys], return_inverse=True)
-            rows, owner, miss = self._resolve_shard_rows(uk)
+            real = b.keys[: b.n_keys]
+            out = ix.lookup_unique(real, b.n_keys) if ix is not None else None
+            if out is not None:
+                # native dedup and census lookup: unique keys in first-seen
+                # order (so the slot layout below follows that order, as in
+                # the reference's native plan), census positions -1 where
+                # absent
+                inv, uk, pos = out
+                found = pos >= 0
+                if self._pass_row.shape[0]:
+                    rows = np.where(
+                        found, self._pass_row[np.clip(pos, 0, None)], dead
+                    ).astype(np.int32)
+                else:  # an empty census finds nothing
+                    rows = np.full(uk.shape[0], dead, np.int32)
+                owner = (uk % np.uint64(n)).astype(np.int64)
+                miss = int((~found).sum())
+            else:
+                uk, inv = np.unique(real, return_inverse=True)
+                rows, owner, miss = self._resolve_shard_rows(uk)
             if hot_res is not None and hot_res.shape[0]:
                 hp = np.searchsorted(hot_res, uk)
                 hp_c = np.minimum(hp, hot_res.shape[0] - 1)
@@ -607,7 +628,16 @@ class ShardedSparseTable(SparseTable):
             dead,
         )
         for o in range(n):
-            uq, inv = np.unique(serve_rows[o].reshape(-1), return_inverse=True)
+            out = None
+            if ix is not None:  # the same switch as the request side
+                from paddlebox_tpu_torch._native import dedup_rows_native
+
+                out = dedup_rows_native(serve_rows[o])
+            if out is not None:
+                inv, uq = out  # first-seen order, like the request side
+            else:
+                uq, inv = np.unique(serve_rows[o].reshape(-1),
+                                    return_inverse=True)
             serve_uniq[o, : uq.shape[0]] = uq
             serve_map[o] = inv.reshape(n, C).astype(np.int32)
         self.missing_key_count += n_missing

@@ -22,8 +22,12 @@ the collectives (parallel/collectives.py) span all positions:
     applies them to the one model.
   * metrics: one AUC stream per position, merged at read time.
 
+With ``TrainerConfig.prefetch_batches`` > 0 (the default) grouping,
+``plan_group`` and the feed's copy run on the single-chip trainer's
+producer thread (train/trainer.py), as in the reference.
+
 Cut-outs (each raises ``NotImplementedError``): ``sync_dense_mode``
-kstep/async; the prefetch thread and host plane; the watchdog; telemetry;
+kstep/async; the host plane; the watchdog; telemetry;
 ``evaluate``; dumps; multi-task models; metric groups; ``slot_mask``;
 ``nan_policy`` other than the raise of ``check_nan_inf``.
 """
@@ -56,7 +60,13 @@ from paddlebox_tpu_torch.parallel.sharded_table import (
 )
 from paddlebox_tpu_torch.sparse.optimizer import sparse_adagrad_update
 from paddlebox_tpu_torch.sparse.table import _segment_sum, gather_rows, scatter_add_rows
-from paddlebox_tpu_torch.train.trainer import NonFiniteBatchError
+from paddlebox_tpu_torch.train.trainer import (
+    NonFiniteBatchError,
+    await_feed,
+    prefetched,
+    stage_feed,
+    to_device,
+)
 
 
 def _stack_group(batches: Sequence[HostBatch], plan: ShardedBatchPlan) -> dict:
@@ -245,11 +255,11 @@ class MultiChipTrainer:
                  trainer_conf: Optional[TrainerConfig] = None,
                  metric_group=None, slot_mask: Optional[Iterable[int]] = None):
         if metric_group is not None:
-            raise not_ported("metric groups", "multi-chip cut-outs, item 9")
+            raise not_ported("metric groups", "multi-chip cut-outs, item 3")
         if slot_mask is not None:
-            raise not_ported("slot_mask", "multi-chip cut-outs, item 9")
+            raise not_ported("slot_mask", "multi-chip cut-outs, item 3")
         if getattr(model, "n_tasks", 1) > 1:
-            raise not_ported("multi-task models", "model zoo, item 10")
+            raise not_ported("multi-task models", "model zoo, item 5")
         self.model = model
         self.table_conf = table_conf
         self.mesh = mesh
@@ -299,7 +309,7 @@ class MultiChipTrainer:
                                           device=self.device)
 
     def _to_device(self, host: dict) -> dict:
-        return {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+        return to_device(host, self.device)
 
     # -- the step ----------------------------------------------------------- #
     def _step(self, table: ShardedSparseTable, feed: dict,
@@ -382,8 +392,9 @@ class MultiChipTrainer:
     def train_groups(self, table: ShardedSparseTable,
                      groups: Iterator[Sequence[HostBatch]],
                      auc_state=None) -> dict:
-        """Train over explicit groups of n batches, serially: plan, copy,
-        step."""
+        """Train over explicit groups of n batches: plan, copy, step, with
+        the plan and the copy on the prefetch producer when
+        ``prefetch_batches`` > 0."""
         if not table._in_pass:
             raise RuntimeError("begin_pass before training")
         if table.mesh.n != self.n_dev or table.device != self.device:
@@ -398,16 +409,32 @@ class MultiChipTrainer:
         aucs = [AucState(*(t.clone() for t in unstack_auc_state(stacked, d)))
                 for d in range(self.n_dev)]
         losses, counts = [], []
-        hot_occurrences = 0
-        for group in groups:
-            plan = table.plan_group(group)
-            if plan.hot_occ is not None:
-                hot_occurrences += int((plan.hot_occ < hot_cap).sum())
-            feed = self._to_device(_stack_group(group, plan))
-            loss, cnt = self._step(table, feed, aucs)
-            losses.append(loss)
-            counts.append(cnt)
-            self.global_step += 1
+        hot_occurrences = [0]
+        depth = self.conf.prefetch_batches
+
+        def feeds():
+            """(device feed, ready event) per group; on the producer thread
+            when prefetching."""
+            for group in groups:
+                plan = table.plan_group(group)
+                if plan.hot_occ is not None:
+                    hot_occurrences[0] += int((plan.hot_occ < hot_cap).sum())
+                host = _stack_group(group, plan)
+                if depth > 0:
+                    yield stage_feed(host, self.device)
+                else:
+                    yield self._to_device(host), None
+
+        feed_iter, prefetcher = prefetched(feeds(), depth)
+        try:
+            for feed, ready in feed_iter:
+                loss, cnt = self._step(table, await_feed(feed, ready), aucs)
+                losses.append(loss)
+                counts.append(cnt)
+                self.global_step += 1
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
         merged = AucState(*(torch.stack(ts) for ts in zip(*aucs)))
         metrics = compute_metrics(merged)
         metrics["loss"] = float(torch.stack(losses).mean()) if losses else 0.0
@@ -416,7 +443,7 @@ class MultiChipTrainer:
         metrics["duration_s"] = time.monotonic() - t0
         metrics["missing_keys"] = table.missing_key_count
         metrics["capacity_bumps"] = table.capacity_bumps
-        metrics["hot_occurrences"] = hot_occurrences
+        metrics["hot_occurrences"] = hot_occurrences[0]
         self.last_auc_state = merged
         self.last_metric_state = {"auc": merged}
         return metrics

@@ -31,8 +31,8 @@ table's write-back) before anything reads the store as truth: ``state_dict``,
 membership without moving rows and is required whenever the store changes
 underneath the cache (``load_state_dict``, ``apply_delta``, ``shrink``).
 
-Left out until the multi-chip and census planes are ported (ROADMAP Queue A
-item 9): ``take_rows`` (read-and-evict for hot promotion) and the
+Left out until the sharded table's per-shard cache is ported (ROADMAP Queue
+A item 2): ``take_rows`` (read-and-evict for hot promotion) and the
 metadata-only twin (``materialize_rows=False``).
 """
 

@@ -17,7 +17,9 @@ paddlebox_tpu/sparse/table.py, its serial lifecycle).
     dead row, held at zero.  New keys get a key-deterministic uniform
     init (``_key_uniform``).
   * plan_keys(keys): host-side key -> row resolution and batch dedup, all
-    outputs of static shape.
+    outputs of static shape: through the native census index
+    (``_native/plan_resolve.cpp``) by default, as in the reference, or
+    numpy's unique and searchsorted with PADDLEBOX_TORCH_USE_NATIVE_PLANNER=0.
   * pull_rows / push_and_update: device functions on tensors — the gather,
     and the segment-sum merge + sparse adagrad + counter scatter-add.
   * end_pass(): write the working set back (to the cache and the store).
@@ -34,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from paddlebox_tpu_torch.config import SparseTableConfig, flags, not_ported
+from paddlebox_tpu_torch.config import SparseTableConfig, flags
 from paddlebox_tpu_torch.data.feed import HostBatch
 from paddlebox_tpu_torch.ops import sparse_kernels
 from paddlebox_tpu_torch.sparse.engine import CachePlan, HbmCache
@@ -100,8 +102,6 @@ def _empty_rows(n_cols: int) -> np.ndarray:
 
 class SparseTable:
     def __init__(self, conf: SparseTableConfig, seed: int = 0, device="cuda"):
-        if flags.use_native_planner:
-            raise not_ported("the native batch planner", "slice-1 cut-outs, item 6b")
         self.conf = conf
         self.device = resolve_device(device)
         self._seed = seed
@@ -110,6 +110,9 @@ class SparseTable:
         self.values: Optional[torch.Tensor] = None  # [P, W]
         self.g2sum: Optional[torch.Tensor] = None  # [P]
         self._pass_keys: Optional[np.ndarray] = None  # sorted
+        # the native census index over _pass_keys, built at the pass's
+        # first plan (see _native_index)
+        self._census_index = None
         self._in_pass = False
         # census of every begin_pass since the last pop, for delta_state_dict
         self._delta_keys: list = []
@@ -142,6 +145,19 @@ class SparseTable:
     @property
     def dead_row(self) -> int:
         return self.capacity - 1
+
+    def _native_index(self):
+        """The native census index of this pass, built on first use; None
+        when the native planner is off or did not build.  Shared by the
+        single-chip and the sharded planners, and dropped, never freed
+        eagerly, at every pass boundary."""
+        if not flags.use_native_planner:
+            return None
+        if self._census_index is None:
+            from paddlebox_tpu_torch._native import build_census_index
+
+            self._census_index = build_census_index(self._pass_keys)
+        return self._census_index
 
     def _stage_cap(self, n_keys: int) -> int:
         """Device rows begin_pass allocates for a census of n_keys keys."""
@@ -257,6 +273,7 @@ class SparseTable:
         self.values = buf[:, :w].contiguous()
         self.g2sum = buf[:, w].contiguous()
         self._pass_keys = pk
+        self._census_index = None  # stale: it indexes the previous census
         self._in_pass = True
         self._delta_keys.append(pk)
 
@@ -307,6 +324,11 @@ class SparseTable:
             self.last_write_back_rows = n
         self.values = None
         self.g2sum = None
+        # drop the index rather than close it: a feed-prefetch producer that
+        # outlived its close() join may still be inside resolve() with its
+        # own reference, and refcounting frees the handle only after that
+        # (CensusIndex.__del__), where a close here would free it under it
+        self._census_index = None
         self._pass_keys = None
         self._in_pass = False
 
@@ -319,6 +341,7 @@ class SparseTable:
             return
         self.values = None
         self.g2sum = None
+        self._census_index = None  # dropped, not closed: see end_pass
         self._pass_keys = None
         self._in_pass = False
         self._cache_plan = None
@@ -419,6 +442,18 @@ class SparseTable:
         dead = self.dead_row
         scratch_base = self._pass_keys.shape[0]
         self._last_plan_k = max(self._last_plan_k, K)
+
+        # the C++ planner: a per-pass census hash index and one sort-free
+        # O(K) walk that numbers unique slots in first-seen order.  Training
+        # results equal the numpy path's bit for bit (idx is order-free and
+        # the push permutes inverse and uniq_idx consistently).
+        ix = self._native_index()
+        if ix is not None:
+            out = ix.resolve(keys, n_real, dead, scratch_base)
+            if out is not None:
+                idx, uniq_idx, inverse, mask, n_missing = out
+                self.missing_key_count += n_missing
+                return BatchPlan(idx, uniq_idx, inverse, mask, n_missing)
 
         idx = np.full(K, dead, dtype=np.int32)
         uniq_idx = np.minimum(

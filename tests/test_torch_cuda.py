@@ -634,3 +634,91 @@ def test_hybrid_path_on_the_card(cuda, tmp_path):
     np.testing.assert_array_equal(sg["keys"], sc["keys"])
     np.testing.assert_allclose(sg["values"], sc["values"], atol=1e-4)
     ds.close()
+
+
+def test_staged_feed_is_awaited(cuda):
+    """The prefetch producer's copy (pinned memory, its own stream) held
+    back behind a long sleep on that stream: the consumer's stream waits
+    for it, so a read right after await_feed sees the data."""
+    from paddlebox_tpu_torch.train import trainer as trainer_mod
+
+    host = {"a": np.arange(1 << 22, dtype=np.float32),
+            "b": np.arange(1000, dtype=np.int32)[::-1].copy()}
+    trainer_mod.stage_feed({"c": host["b"]}, cuda)  # makes the copy stream
+    side = trainer_mod._copy_streams[cuda]
+    assert side != torch.cuda.current_stream(cuda)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1 << 28)  # a few hundred ms on the copy stream
+    dev, ready = trainer_mod.stage_feed(host, cuda)
+    assert all(t.is_cuda for t in dev.values())
+    assert not ready.query()  # the copies wait behind the sleep
+    got = {k: (t + 0).cpu()
+           for k, t in trainer_mod.await_feed(dev, ready).items()}
+    for k, v in host.items():
+        assert torch.equal(got[k], torch.from_numpy(v)), k
+
+
+def test_prefetched_runs_are_bit_equal_to_serial(cuda, tmp_path):
+    """Under deterministic algorithms, two cached single-chip passes and
+    three hybrid passes on four positions give the same losses, AUCs and
+    tables with the prefetch thread (pinned copies on a side stream) as
+    with the serial feed, and launch the kernels as often."""
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.parallel import (
+        MultiChipTrainer,
+        ShardedSparseTable,
+        make_mesh,
+    )
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.train import Trainer
+
+    files = write_synth_files(str(tmp_path), n_files=1, ins_per_file=512,
+                              n_sparse_slots=4, vocab_per_slot=80,
+                              dense_dim=3, seed=2, zipf_a=1.3)
+    ds = PadBoxSlotDataset(make_synth_config(4, 3, 32, 16), read_threads=1)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+
+    def run(positions, prefetch):
+        trconf = TrainerConfig(auc_buckets=1 << 10, prefetch_batches=prefetch)
+        if positions:
+            tconf = SparseTableConfig(embedding_dim=4, hbm_cache_rows=0,
+                                      placement_update_interval=1,
+                                      placement_hot_capacity=64)
+            mesh = make_mesh(positions)
+            table = ShardedSparseTable(tconf, mesh, seed=5)
+            tr = MultiChipTrainer(CtrDnn(4, tconf.row_width, dense_dim=3,
+                                         hidden=(16, 8)), tconf, mesh, trconf)
+        else:
+            tconf = SparseTableConfig(embedding_dim=4)
+            table = SparseTable(tconf, seed=5)
+            tr = Trainer(CtrDnn(4, tconf.row_width, dense_dim=3,
+                                hidden=(16, 8)), tconf, trconf)
+        sk.reset_launches()
+        metrics = []
+        for p in range(3 if positions else 2):
+            ds.local_shuffle(seed=p)
+            table.begin_pass(ds.unique_keys())
+            metrics.append(tr.train_from_dataset(ds, table))
+            table.end_pass()
+        torch.cuda.synchronize()
+        return metrics, table.state_dict(), dict(sk.launches)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for positions in (0, 4):
+            (m0, s0, l0), (m2, s2, l2) = run(positions, 0), run(positions, 2)
+            assert l0 == l2 and l0["pull_rows"] > 0
+            for a, b in zip(m0, m2):
+                assert (a["loss"], a["auc"], a["samples"]) == \
+                    (b["loss"], b["auc"], b["samples"])
+            if positions:
+                assert m2[-1]["hot_occurrences"] > 0
+            np.testing.assert_array_equal(s0["keys"], s2["keys"])
+            np.testing.assert_array_equal(s0["values"], s2["values"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        ds.close()

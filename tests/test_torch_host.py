@@ -2,10 +2,12 @@
 files, parsed batches, splitmix64, the key-deterministic row init, the
 bucket store, pass promotion and the batch planner — all bit-exact.
 
-The reference runs with its native parser and planner off (their pure
-numpy/Python paths are what the port copies) and with the HBM cache and
-the pass-boundary overlap off (the port's serial, uncached lifecycle; the
-reference pins both bit-exact against their defaults).
+Each test that reads files or plans keys runs twice: with both packages'
+native parser and planner off (their pure numpy/Python paths), and with
+both on (the defaults; the port builds the reference's C++ sources).  The
+reference runs with the HBM cache and the pass-boundary overlap off (the
+port's serial, uncached lifecycle; the reference pins both bit-exact
+against their defaults).
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ from paddlebox_tpu.sparse.store import splitmix64 as ref_splitmix64
 from paddlebox_tpu.sparse.table import SparseTable as RefTable
 from paddlebox_tpu.sparse.table import _key_uniform as ref_key_uniform
 from paddlebox_tpu_torch.config import SparseTableConfig
+from paddlebox_tpu_torch.config import flags as port_flags
 from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
 from paddlebox_tpu_torch.data.slot_parser import SlotParser
 from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
@@ -34,10 +37,23 @@ torch.set_num_threads(1)
 SLOTS, DENSE, BATCH = 4, 3, 64
 
 
+NATIVE = ("USE_NATIVE_PARSER", "USE_NATIVE_PLANNER")
+
+
 @pytest.fixture
 def ref_numpy_paths(monkeypatch):
-    monkeypatch.setenv("PBOX_USE_NATIVE_PARSER", "0")
-    monkeypatch.setenv("PBOX_USE_NATIVE_PLANNER", "0")
+    """Both packages on their numpy planner and Python parser."""
+    for name in NATIVE:
+        monkeypatch.setenv(f"PBOX_{name}", "0")
+        monkeypatch.setenv(f"PADDLEBOX_TORCH_{name}", "0")
+
+
+@pytest.fixture
+def native_paths(monkeypatch):
+    """Both packages on their native planner and parser."""
+    for name in NATIVE:
+        monkeypatch.setenv(f"PBOX_{name}", "1")
+        monkeypatch.setenv(f"PADDLEBOX_TORCH_{name}", "1")
 
 
 def _tconfs(**kw):
@@ -84,8 +100,15 @@ def test_host_batches_are_identical(tmp_path, ref_numpy_paths, shuffle_seed):
             assert a.dtype == b.dtype, f
             np.testing.assert_array_equal(a, b, err_msg=f)
     assert ref_ds.builder.dropped_keys == ds.builder.dropped_keys
+    assert (ds.parser._native is not None) == port_flags.use_native_parser
     ref_ds.close()
     ds.close()
+
+
+@pytest.mark.parametrize("shuffle_seed", [None, 5])
+def test_host_batches_are_identical_native(tmp_path, native_paths,
+                                           shuffle_seed):
+    test_host_batches_are_identical(tmp_path, native_paths, shuffle_seed)
 
 
 def test_key_capacity_clipping_matches(tmp_path, ref_numpy_paths):
@@ -106,6 +129,10 @@ def test_key_capacity_clipping_matches(tmp_path, ref_numpy_paths):
     assert ds.builder.dropped_keys == ref_ds.builder.dropped_keys > 0
     ref_ds.close()
     ds.close()
+
+
+def test_key_capacity_clipping_matches_native(tmp_path, native_paths):
+    test_key_capacity_clipping_matches(tmp_path, native_paths)
 
 
 @pytest.mark.parametrize("policy", ["raise", "skip"])
@@ -194,6 +221,10 @@ def test_begin_pass_rows_and_write_back_match(ref_numpy_paths):
     np.testing.assert_array_equal(rs["values"], ps["values"])
 
 
+def test_begin_pass_rows_and_write_back_match_native(native_paths):
+    test_begin_pass_rows_and_write_back_match(native_paths)
+
+
 @pytest.mark.parametrize("scratch", [64, 2])
 def test_plan_keys_bit_exact(ref_numpy_paths, scratch):
     """idx / uniq_idx / inverse / key_mask / n_missing, including census
@@ -218,3 +249,10 @@ def test_plan_keys_bit_exact(ref_numpy_paths, scratch):
             np.testing.assert_array_equal(a, b, err_msg=f)
         assert rp.n_missing == pp.n_missing
     assert ref.missing_key_count == port.missing_key_count > 0
+    assert (port._census_index is not None) == port_flags.use_native_planner
+
+
+@pytest.mark.parametrize("scratch", [64, 2])
+def test_plan_keys_bit_exact_native(native_paths, scratch):
+    """The native plans of the two packages, bit for bit (one C++ source)."""
+    test_plan_keys_bit_exact(native_paths, scratch)

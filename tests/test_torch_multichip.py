@@ -66,7 +66,11 @@ from paddlebox_tpu_torch.weights import hot_block_from_jax, params_from_jax
 torch.set_num_threads(1)
 
 S, DENSE, BSZ, VOCAB, PASSES = 3, 2, 16, 60, 3
-NATIVE_FLAGS = ("PBOX_USE_NATIVE_PLANNER", "PBOX_USE_NATIVE_PARSER")
+# the native planner and parser of both packages: off where the port is
+# held against the reference's numpy plan, on in the _native cases
+NATIVE_FLAGS = ("PBOX_USE_NATIVE_PLANNER", "PBOX_USE_NATIVE_PARSER",
+                "PADDLEBOX_TORCH_USE_NATIVE_PLANNER",
+                "PADDLEBOX_TORCH_USE_NATIVE_PARSER")
 # the reference's placement pin (tests/test_placement.py:_train_sharded),
 # cache off: the per-shard cache is not ported
 TABLE_KW = dict(embedding_dim=4, placement_update_interval=1,
@@ -253,11 +257,11 @@ def _batch(keys, n_real, seed):
     return HostBatch(**arrays), RefBatch(**arrays)
 
 
-def test_plan_group_matches_reference(monkeypatch):
+def test_plan_group_matches_reference(monkeypatch, native="0"):
     """n = 4, a different batch on every position (one empty), after three
     passes realized a hot block: every plan array equals the reference's."""
     for k in NATIVE_FLAGS:
-        monkeypatch.setenv(k, "0")
+        monkeypatch.setenv(k, native)
     n = 4
     rng = np.random.default_rng(9)
     vocab = np.unique(np.concatenate([
@@ -300,8 +304,16 @@ def test_plan_group_matches_reference(monkeypatch):
     for o, sk_ in enumerate(port._shard_keys):
         assert (sk_ % np.uint64(n) == np.uint64(o)).all()
         np.testing.assert_array_equal(sk_, ref._shard_keys[o])
+    assert (port._census_index is not None) == (native == "1")
     port.end_pass()
     ref.end_pass()
+
+
+def test_plan_group_matches_reference_native(monkeypatch):
+    """The same with both packages' native planners: census lookups and the
+    serve-side dedup in first-seen order, so a slot layout of its own, and
+    still every plan array equal."""
+    test_plan_group_matches_reference(monkeypatch, native="1")
 
 
 # --------------------------------------------------------------------------- #
@@ -456,12 +468,12 @@ def reference_runs(pass_files):
     seed-3 tower) and that tower, memoized per n."""
     runs = {}
 
-    def run(n):
-        if n not in runs:
+    def run(n, native="0"):
+        if (n, native) not in runs:
             # the reference's numpy planner (the native one dedups in
-            # first-seen order) and its Python parser
+            # first-seen order) and its Python parser, or both native
             old = {k: os.environ.get(k) for k in NATIVE_FLAGS}
-            os.environ.update({k: "0" for k in NATIVE_FLAGS})
+            os.environ.update({k: native for k in NATIVE_FLAGS})
             try:
                 mesh = ref_make_mesh(n)
                 conf = ref_config.SparseTableConfig(placement="loopback",
@@ -473,7 +485,8 @@ def reference_runs(pass_files):
                 tower = [{k: np.asarray(v) for k, v in layer.items()}
                          for layer in tr.dense_state()[0]["tower"]]
                 table = RefShardedTable(conf, mesh, seed=5, bucket_slack=8.0)
-                runs[n] = (_drive(table, tr, pass_files, ref=True), tower)
+                runs[n, native] = (_drive(table, tr, pass_files, ref=True),
+                                   tower)
                 table.close()
             finally:
                 for k, v in old.items():
@@ -481,7 +494,7 @@ def reference_runs(pass_files):
                         os.environ.pop(k, None)
                     else:
                         os.environ[k] = v
-        return runs[n]
+        return runs[n, native]
 
     return run
 
@@ -498,13 +511,17 @@ def _port_run(pass_files, n, tower, placement="loopback"):
 
 
 @pytest.mark.parametrize("n", [2, 4])
-def test_slice_matches_reference(pass_files, reference_runs, n):
+def test_slice_matches_reference(pass_files, reference_runs, monkeypatch, n,
+                                 native="0"):
     """Three passes of the hybrid loopback path, realized, cache off, from
-    the reference's tower.  Host-side state is identical; floats agree at
-    1e-6 (loss, AUC) and 1e-7 (table rows): the dense gradients and the
-    segment sums add in another order on XLA (~1e-7 a step), and the runs
-    measured 3.6e-7 in loss and 6e-9 in rows."""
-    (ref_state, ref_passes), tower = reference_runs(n)
+    the reference's tower, both packages on their numpy planners.
+    Host-side state is identical; floats agree at 1e-6 (loss, AUC) and 1e-7
+    (table rows): the dense gradients and the segment sums add in another
+    order on XLA (~1e-7 a step), and the runs measured 3.6e-7 in loss and
+    6e-9 in rows."""
+    (ref_state, ref_passes), tower = reference_runs(n, native)
+    for k in NATIVE_FLAGS:
+        monkeypatch.setenv(k, native)
     state, passes = _port_run(pass_files, n, tower)
     for (m, hot, plan), (rm, rhot, rplan) in zip(passes, ref_passes):
         np.testing.assert_array_equal(hot, rhot)
@@ -521,6 +538,13 @@ def test_slice_matches_reference(pass_files, reference_runs, n):
                                   ref_state["values"][:, :2])
     np.testing.assert_allclose(state["values"], ref_state["values"],
                                rtol=0, atol=1e-7)
+
+
+def test_slice_matches_reference_native(pass_files, reference_runs,
+                                        monkeypatch):
+    """The same at n = 4 with both packages' native planners and parsers."""
+    test_slice_matches_reference(pass_files, reference_runs, monkeypatch, 4,
+                                 native="1")
 
 
 @pytest.fixture(scope="module")

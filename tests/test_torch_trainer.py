@@ -255,7 +255,7 @@ def test_trainer_rejects_a_model_on_another_device():
 # --------------------------------------------------------------------------- #
 # options this slice does not support raise, naming the later slice
 # --------------------------------------------------------------------------- #
-def _unsupported(case, monkeypatch):
+def _unsupported(case):
     row = 2 + EMB
     if case == "overlap_pass_boundary":
         SparseTableConfig(overlap_pass_boundary=True)
@@ -277,22 +277,16 @@ def _unsupported(case, monkeypatch):
         TrainerConfig(dense_optimizer="sgd")
     elif case == "compute_dtype":
         CtrDnn(SLOTS, row, compute_dtype="bfloat16", device="cpu")
-    elif case == "native_planner":
-        monkeypatch.setenv("PADDLEBOX_TORCH_USE_NATIVE_PLANNER", "1")
-        SparseTable(SparseTableConfig(), device="cpu")
-    elif case == "native_parser":
-        monkeypatch.setenv("PADDLEBOX_TORCH_USE_NATIVE_PARSER", "1")
-        PadBoxSlotDataset(make_synth_config(SLOTS, DENSE, BATCH))
 
 
 @pytest.mark.parametrize("case", [
     "overlap_pass_boundary", "expand_dim", "store_log_dir",
     "layout_conv", "rank_offset", "sequence_slot", "multi_task",
-    "nan_policy", "sgd", "compute_dtype", "native_planner", "native_parser",
+    "nan_policy", "sgd", "compute_dtype",
 ])
-def test_unsupported_options_raise_not_implemented(case, monkeypatch):
+def test_unsupported_options_raise_not_implemented(case):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _unsupported(case, monkeypatch)
+        _unsupported(case)
 
 
 def test_reference_flags_do_not_steer_the_port(monkeypatch):
