@@ -1,9 +1,9 @@
 """Configuration for the PyTorch port: the dataclasses and the flag shim.
 
-A copy of the fields of ``paddlebox_tpu/config.py`` that the single-chip
-CTR-DNN pass reads.  Every other feature of the reference is either absent
-here or, where its field exists, raises ``NotImplementedError`` naming the
-later slice of the port (ROADMAP.md, Queue A) that brings it.
+A copy of the fields of ``paddlebox_tpu/config.py`` that the ported paths
+read.  Every other feature of the reference is either absent here or, where
+its field exists, raises ``NotImplementedError`` naming the later slice of
+the port (ROADMAP.md, Queue A) that brings it.
 """
 
 from __future__ import annotations
@@ -58,6 +58,17 @@ class _Flags:
         # census wire codec: "varint" (sorted-delta LEB128), "raw" (8-byte
         # keys) or "legacy" (the same as varint in one process)
         "hostplane_codec": "varint",
+        # process-wide kill switch of the overlapped pass boundary: 0 runs
+        # the serial lifecycle whatever
+        # SparseTableConfig.overlap_pass_boundary says (reference default:
+        # on)
+        "overlap_pass_boundary": True,
+        # process-wide kill switch of the durable log: 0 leaves
+        # SparseTableConfig.store_log_dir unused (reference default: on)
+        "durable_store": True,
+        # chaos plan of utils/faults.py: "site=spec;site=spec", and its seed
+        "fault_plan": "",
+        "fault_seed": 0,
     }
 
     def __getattr__(self, name: str):
@@ -195,15 +206,36 @@ class SparseTableConfig:
     # device rows reserved past the pass working set so every padding or
     # missing plan slot pushes into its own row (see SparseTable.plan_keys)
     plan_scratch_rows: int = 1 << 15
+    # host-store disk tier (sparse/store.py): with a directory, at most
+    # store_max_resident buckets stay in RAM and the rest spill there as
+    # CRC-checked files
     store_spill_dir: str = ""
+    store_max_resident: int = 64
+    # durable log (sparse/logstore.py): every pass-boundary merge writes
+    # through to crash-consistent segment files and commits a manifest
+    # generation; a table built on the directory recovers the last
+    # committed state.  "" = off; PADDLEBOX_TORCH_DURABLE_STORE=0 is the
+    # process-wide kill switch
     store_log_dir: str = ""
+    # power-of-two bucket count of the log, and the per-bucket segment
+    # count past which a background compaction folds a bucket to one
+    # segment
+    store_log_buckets: int = 8
+    store_compact_threshold: int = 8
     # shrink(): per-day show/clk decay, and rows whose show falls below
     # delete_threshold are evicted
     delete_threshold: float = 0.0
     show_decay_rate: float = 0.98
-    # The reference defaults it to on and pins it bit-exact against off;
-    # the port runs the serial lifecycle until item 1 brings the overlap.
-    overlap_pass_boundary: bool = False
+    # The overlapped pass boundary (sparse/table.py): end_pass copies the
+    # working set to the host and merges it into the store on a background
+    # thread (an overlay keeps reads current; barriers wait for it), and
+    # prepare_pass stages the next pass's resolve and host buffer while the
+    # current pass trains.  Bit-exact against False, the serial lifecycle;
+    # PADDLEBOX_TORCH_OVERLAP_PASS_BOUNDARY=0 forces serial process-wide.
+    overlap_pass_boundary: bool = True
+    # host-store bucket parallelism: lookup, update and decay_evict fan
+    # their per-bucket work over this many threads (<= 1 = serial)
+    store_threads: int = 4
     # Persistent HBM hot-row cache (sparse/engine/hbm_cache.py): slots kept
     # on the device across passes, so begin_pass fetches only the census
     # misses from the host store.  0 disables it, as does
@@ -240,14 +272,6 @@ class SparseTableConfig:
             raise not_ported("expand_dim", "model zoo, item 5")
         if self.slot_learning_rates:
             raise not_ported("slot_learning_rates", "trainer cut-outs, item 3")
-        if self.overlap_pass_boundary:
-            raise not_ported(
-                "overlap_pass_boundary=True", "pass-boundary overlap, item 1"
-            )
-        if self.store_spill_dir or self.store_log_dir:
-            raise not_ported(
-                "store spill / durable log", "persistence, item 1"
-            )
 
 
 @dataclasses.dataclass

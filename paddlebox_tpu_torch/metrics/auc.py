@@ -27,7 +27,7 @@ class AucState(NamedTuple):
     count: torch.Tensor  # int64 scalar
 
 
-def init_auc_state(n_buckets: int = 1 << 20, device="cpu") -> AucState:
+def init_auc_state(n_buckets: int = 1 << 20, device="cuda") -> AucState:
     i64, f32 = torch.int64, torch.float32
     return AucState(
         pos=torch.zeros(n_buckets, dtype=i64, device=device),

@@ -42,14 +42,20 @@ places only inside begin_pass; ``flush`` writes the resident hot rows back
 to the host store, so every barrier sees truth.  The cold census
 (``_pass_keys``) excludes the resident hot keys.
 
+The overlapped pass boundary is the single-chip table's: end_pass hands
+its rows to the merge thread, and ``prepare_pass`` stages the next pass's
+stacked cold working set on the staging thread (host work only), which
+begin_pass consumes when the census and the resident hot set match.
+
 Not ported here (each raises ``NotImplementedError``): the per-shard HBM
-caches, ``prepare_pass`` staging, ``reshard``; and multi-process ownership.
+caches, ``reshard``; and multi-process ownership.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import struct
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -60,11 +66,17 @@ from paddlebox_tpu_torch.data.feed import HostBatch
 from paddlebox_tpu_torch.parallel.census import CensusExchange, LoopbackTransport
 from paddlebox_tpu_torch.parallel.mesh import Mesh
 from paddlebox_tpu_torch.sparse.placement import PlacementPlanner, hot_churn
-from paddlebox_tpu_torch.sparse.table import SparseTable, _next_pow2
+from paddlebox_tpu_torch.sparse.table import (
+    SparseTable,
+    _next_pow2,
+    _patch_in,
+    _sorted_unique,
+)
 from paddlebox_tpu_torch.utils.keycodec import (
     decode_u64_with_perm,
     encode_u64_with_perm,
 )
+from paddlebox_tpu_torch.utils.monitor import stats
 
 # migration payload framing (keycodec-framed, versioned): magic | n_rows |
 # row_width+1 | len(key_stream) | delta-compressed sorted keys | int32 rank
@@ -350,9 +362,6 @@ class ShardedSparseTable(SparseTable):
         return rows
 
     # -- cut-outs ----------------------------------------------------------- #
-    def prepare_pass(self, pass_keys) -> None:
-        raise not_ported("sharded prepare_pass staging", "multi-chip reshard, item 4")
-
     def reshard(self, new_mesh: Mesh) -> int:
         raise not_ported("ShardedSparseTable.reshard", "multi-chip reshard, item 4")
 
@@ -381,14 +390,53 @@ class ShardedSparseTable(SparseTable):
             max((sk.shape[0] for sk in shard_keys), default=0) + 1 + scratch
         )
 
+    def _stage_job(self, pass_keys):
+        """The staging thread's half (host work only): the stacked cold
+        working set of the next census under the CURRENT resident hot set
+        (only begin_pass's exchange changes the plan).  begin_pass discards
+        the stage when the hot set churned in between."""
+        if callable(pass_keys):
+            pass_keys = pass_keys()
+        # one process: the local census is the global one
+        pk = _sorted_unique(pass_keys)
+        _, stage_seq, entries = self._stage_snapshot()
+        shot = self._hot_keys if self._hot_realize else None
+        cold_pk = (np.setdiff1d(pk, shot, assume_unique=True)
+                   if shot is not None and shot.shape[0] else pk)
+        owner, shard_keys, row_within = self._shard_split(cold_pk)
+        lvals = np.zeros((self.n_shards, self._sharded_cap(shard_keys),
+                          self.conf.row_width + 1), dtype=np.float32)
+        for o, sk in enumerate(shard_keys):
+            self._stage_resolve(sk, lvals[o, : sk.shape[0]], None, entries)
+        # stage_seq stays last: _pop_stage reads payload[-1]
+        return pk, owner, shard_keys, row_within, lvals, shot, stage_seq
+
+    def _use_sharded_stage(self, payload, patches, pk: np.ndarray):
+        """(shard_keys, row_within, patched stacked buffer) of a stage that
+        matches the census, the hot set and the capacity, else None
+        (counted as a discard)."""
+        if payload is None:
+            return None
+        spk, _, shard_keys, row_within, lvals, shot, _ = payload
+        if not (np.array_equal(spk, pk)
+                and (shot is None or np.array_equal(shot, self._hot_keys))
+                and lvals.shape[1] == self._sharded_cap(shard_keys)):
+            stats.add("pass.stage_discards")
+            return None
+        for o, sk in enumerate(shard_keys):
+            if sk.shape[0]:
+                _patch_in(sk, lvals[o, : sk.shape[0]], patches)
+        return shard_keys, row_within, lvals
+
     def begin_pass(self, pass_keys: np.ndarray) -> None:
         """Exchange the census (advancing the planner), reconcile the hot
         block with the plan, and promote the cold working set to the device
-        as the stacked ``values``/``g2sum``."""
+        as the stacked ``values``/``g2sum``; a matching stage leaves only
+        its patch and the copy."""
         if self._in_pass:
             raise RuntimeError("end_pass the previous pass first")
-        pk = np.unique(np.asarray(pass_keys, dtype=np.uint64))
-        pk = self._exchange_census(pk)
+        t0 = self._stamp()
+        pk = self._exchange_census(_sorted_unique(pass_keys))
         w = self.conf.row_width
         self.last_hot_moved_rows = 0
         cold_pk = pk
@@ -396,15 +444,30 @@ class ShardedSparseTable(SparseTable):
             self._sync_hot_block()
             if self._hot_keys.shape[0]:
                 cold_pk = np.setdiff1d(pk, self._hot_keys, assume_unique=True)
-        owner, shard_keys, row_within = self._shard_split(cold_pk)
-        cap = self._sharded_cap(shard_keys)
-        lvals = np.zeros((self.n_shards, cap, w + 1), dtype=np.float32)
-        for o, sk in enumerate(shard_keys):
-            lvals[o, : sk.shape[0]] = self._resolve_or_init(sk)
+        t1 = time.perf_counter()
+        payload, patches = self._pop_stage()
+        t2 = time.perf_counter()
+        staged = self._use_sharded_stage(payload, patches, pk)
+        t3 = time.perf_counter()
+        if staged is not None:
+            shard_keys, row_within, lvals = staged
+        else:
+            _, shard_keys, row_within = self._shard_split(cold_pk)
+            cap = self._sharded_cap(shard_keys)
+            lvals = np.zeros((self.n_shards, cap, w + 1), dtype=np.float32)
+            for o, sk in enumerate(shard_keys):
+                lvals[o, : sk.shape[0]] = self._resolve_or_init(sk)
+        t4 = self._stamp()
         buf = torch.from_numpy(lvals).to(self.device)
         # two contiguous tensors: the kernels take no strided views
         self.values = buf[:, :, :w].contiguous()
         self.g2sum = buf[:, :, w].contiguous()
+        t5 = self._stamp()
+        self.last_begin_breakdown = {
+            "staged": staged is not None, "census_s": t1 - t0,
+            "stage_wait_s": t2 - t1, "patch_s": t3 - t2,
+            "resolve_s": t4 - t3, "h2d_s": t5 - t4, "cache_fill_s": 0.0,
+        }
         self.last_promotion_rows = int(cold_pk.shape[0])
         self._shard_keys = shard_keys
         self._shard_live = np.asarray(

@@ -378,20 +378,23 @@ class MultiChipTrainer:
 
     # -- public API --------------------------------------------------------- #
     def train_from_dataset(self, dataset, table: ShardedSparseTable,
-                           auc_state=None, drop_last: bool = False) -> dict:
+                           auc_state=None, drop_last: bool = False,
+                           next_pass_keys=None) -> dict:
         """One pass over the dataset, one batch per position at a time (the
         caller owns begin_pass/end_pass, as with the single-chip Trainer).
         ``auc_state`` (a stacked AucState or ``last_metric_state``)
-        continues an earlier pass's metric streams."""
+        continues an earlier pass's metric streams.  ``next_pass_keys``
+        (an array or a zero-argument callable) goes to
+        ``table.prepare_pass`` once the groups are exhausted."""
         return self.train_groups(
             table, _group_batches(dataset.batches(drop_last=drop_last),
                                   self.n_dev),
-            auc_state=auc_state,
+            auc_state=auc_state, next_pass_keys=next_pass_keys,
         )
 
     def train_groups(self, table: ShardedSparseTable,
                      groups: Iterator[Sequence[HostBatch]],
-                     auc_state=None) -> dict:
+                     auc_state=None, next_pass_keys=None) -> dict:
         """Train over explicit groups of n batches: plan, copy, step, with
         the plan and the copy on the prefetch producer when
         ``prefetch_batches`` > 0."""
@@ -435,6 +438,9 @@ class MultiChipTrainer:
         finally:
             if prefetcher is not None:
                 prefetcher.close()
+        # the staging window, as in the single-chip Trainer
+        if next_pass_keys is not None:
+            table.prepare_pass(next_pass_keys)
         merged = AucState(*(torch.stack(ts) for ts in zip(*aucs)))
         metrics = compute_metrics(merged)
         metrics["loss"] = float(torch.stack(losses).mean()) if losses else 0.0

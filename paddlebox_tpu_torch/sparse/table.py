@@ -1,8 +1,11 @@
 """Single-chip pass-scoped sparse embedding table (reference:
-paddlebox_tpu/sparse/table.py, its serial lifecycle).
+paddlebox_tpu/sparse/table.py).
 
   * host store: every feature ever seen, rows ``[show, clk, embed..., g2sum]``
-    (float32) in a BucketStore.
+    (float32) in a BucketStore (sparse/store.py: a pool of bucket threads,
+    optional spill files).  With ``store_log_dir`` every merge writes
+    through to a durable log first (sparse/logstore.py), and a table built
+    on the directory recovers the last committed merge.
   * HBM cache (sparse/engine/hbm_cache.py, on by default): hot rows that
     persist on the device across passes.  begin_pass fetches only the
     census misses from the host store and fills the hits from the cache;
@@ -24,6 +27,27 @@ paddlebox_tpu/sparse/table.py, its serial lifecycle).
     and the segment-sum merge + sparse adagrad + counter scatter-add.
   * end_pass(): write the working set back (to the cache and the store).
 
+The overlapped pass boundary (``overlap_pass_boundary``, on by default as in
+the reference; PADDLEBOX_TORCH_OVERLAP_PASS_BOUNDARY=0 forces the serial
+lifecycle) changes when rows move, never which:
+
+  * end_pass copies the rows to the host and hands the filled numpy arrays
+    to a merge thread (``_SerialWorker`` "table-merge"); until a merge
+    lands, its rows sit in an overlay that every read consults
+    (``_lookup_with_overlay``).  ``flush`` is the barrier and re-raises a
+    failed merge, which also poisons every later one.
+  * ``prepare_pass(keys)`` stages the NEXT pass on a staging thread while
+    the current one trains: the census resolve against store and overlay
+    (cache misses only), the init of new keys and the host buffer.
+    ``begin_pass`` with the same census then only patches the rows the
+    finishing pass wrote back, copies the buffer to the device and fills
+    the cache hits.
+
+Both threads do host work only: every tensor operation and kernel launch
+(the cache fill's ``gather_slots`` and ``scatter_rows``, the write-back
+gathers) stays on the calling thread and its stream.  ``close()`` retires
+the threads and the store's pool; the table stays usable.
+
 The dead row serves padding and keys missing from the pass census: pulls
 read zeros, and it is re-zeroed after every push.
 """
@@ -31,6 +55,9 @@ read zeros, and it is re-zeroed after every push.
 from __future__ import annotations
 
 import dataclasses
+import logging
+import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -47,7 +74,12 @@ from paddlebox_tpu_torch.sparse.store import (
     BucketStore,
     splitmix64,
 )
+from paddlebox_tpu_torch.utils import faults
 from paddlebox_tpu_torch.utils.device import resolve_device
+from paddlebox_tpu_torch.utils.monitor import stats
+from paddlebox_tpu_torch.utils.workers import SerialWorker as _SerialWorker
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -96,8 +128,34 @@ def _rows_at(table: torch.Tensor, pos: np.ndarray) -> torch.Tensor:
     return sparse_kernels.gather_slots(table, idx.to(table.device))
 
 
+def _sorted_unique(keys) -> np.ndarray:
+    """The census as sorted unique uint64 keys: a copy when ``keys`` is
+    already that (a dataset's ``unique_keys()``, checked in one pass), the
+    sort of ``np.unique`` otherwise."""
+    pk = np.asarray(keys, dtype=np.uint64)
+    if pk.ndim == 1 and (pk.shape[0] < 2 or bool(np.all(pk[1:] > pk[:-1]))):
+        return pk.copy()
+    return np.unique(pk)
+
+
 def _empty_rows(n_cols: int) -> np.ndarray:
     return np.empty((0, n_cols), dtype=np.float32)
+
+
+def _patch_in(keys: np.ndarray, rows: np.ndarray, entries, found=None) -> None:
+    """Overwrite ``rows`` (aligned with sorted ``keys``) with the rows of
+    every (seq, keys, rows) entry for the keys they share, oldest entry
+    first, so later passes win; mark them in ``found`` when given."""
+    n = keys.shape[0]
+    for _, ek, ev in entries:
+        if not ek.shape[0] or not n:
+            continue
+        pos_c = np.minimum(np.searchsorted(ek, keys), ek.shape[0] - 1)
+        hit = ek[pos_c] == keys
+        if hit.any():
+            rows[hit] = ev[pos_c[hit]]
+            if found is not None:
+                found |= hit
 
 
 class SparseTable:
@@ -105,8 +163,36 @@ class SparseTable:
         self.conf = conf
         self.device = resolve_device(device)
         self._seed = seed
-        self._store = BucketStore(n_cols=conf.row_width + 1,
-                                  n_buckets=conf.store_buckets)
+        w = conf.row_width
+        self._store = BucketStore(
+            n_cols=w + 1,  # + g2sum
+            n_buckets=conf.store_buckets,
+            spill_dir=conf.store_spill_dir,
+            max_resident=conf.store_max_resident,
+            n_threads=conf.store_threads,
+            recover_fn=self._recover_spill_bucket,
+        )
+        # the durable log: every merge writes through and commits a
+        # manifest generation; a table built on a committed log recovers
+        # its state here
+        self._log = None
+        self._compact_worker: Optional[_SerialWorker] = None
+        self._compact_future = None
+        if conf.store_log_dir and flags.durable_store:
+            from paddlebox_tpu_torch.sparse.logstore import LogStore
+
+            self._log = LogStore(
+                conf.store_log_dir, n_cols=w + 1,
+                n_buckets=conf.store_log_buckets,
+                compact_threshold=conf.store_compact_threshold,
+            )
+            self._compact_worker = _SerialWorker("table-compact")
+            if self._log.gen > 0:
+                rk, rv = self._log.materialize()
+                if rk.shape[0]:
+                    self._store.load_bulk(rk, rv)
+                    logger.info("durable log %s: recovered %d rows at gen %d",
+                                conf.store_log_dir, rk.shape[0], self._log.gen)
         self.values: Optional[torch.Tensor] = None  # [P, W]
         self.g2sum: Optional[torch.Tensor] = None  # [P]
         self._pass_keys: Optional[np.ndarray] = None  # sorted
@@ -119,10 +205,28 @@ class SparseTable:
         # largest key buffer planned so far: sizes the next pass's scratch
         # region (pass 1 uses conf.plan_scratch_rows)
         self._last_plan_k = 0
-        # the persistent HBM cache, built at the first begin_pass (None when
-        # conf.hbm_cache_rows == 0 or PADDLEBOX_TORCH_HBM_CACHE=0)
+        # -- the overlapped pass boundary ----------------------------------- #
+        # write-backs wait in _overlay as (seq, keys, rows) until their merge
+        # lands; _patch_log keeps those made while a stage is pending, for
+        # begin_pass's patch of the staged buffer
+        self._overlap = bool(conf.overlap_pass_boundary
+                             and flags.overlap_pass_boundary)
+        self._overlay: list = []
+        self._overlay_lock = threading.Lock()
+        self._wb_seq = 0
+        self._merge_worker = _SerialWorker("table-merge")
+        self._merge_futures: list = []
+        self._merge_poisoned = False
+        self._stage_worker = _SerialWorker("table-stage")
+        self._stage_future = None
+        self._patch_log: list = []
+        # the persistent HBM cache, built at the first begin_pass or
+        # prepare_pass (None when conf.hbm_cache_rows == 0 or
+        # PADDLEBOX_TORCH_HBM_CACHE=0).  _cache_lock makes the directory
+        # changes and their write-back atomic against a stage's snapshot.
         self._cache: Optional[HbmCache] = None
         self._cache_tried = False
+        self._cache_lock = threading.Lock()
         self._cache_plan: Optional[CachePlan] = None
         self.last_cache_hits = 0
         self.last_cache_misses = 0  # == the begin-pass promotion patch rows
@@ -131,12 +235,23 @@ class SparseTable:
         self.last_evicted_rows = 0
         self.last_write_back_rows = 0
         self.missing_key_count = 0
+        # seconds of the last begin_pass by phase (census, stage_wait,
+        # patch, resolve, h2d, cache_fill) and whether it consumed a stage;
+        # with boundary_timing set, the card is synchronized between phases
+        # so that each holds its device work
+        self.boundary_timing = False
+        self.last_begin_breakdown: dict = {}
 
     # -- introspection --------------------------------------------------- #
     @property
     def n_features(self) -> int:
-        self.flush()  # hot rows may live only in the cache until a drain
+        self.flush()  # pending merges and hot cache rows land first
         return self._store.n
+
+    @property
+    def overlap_enabled(self) -> bool:
+        """True when this table runs the overlapped pass boundary."""
+        return self._overlap
 
     @property
     def capacity(self) -> int:
@@ -164,17 +279,26 @@ class SparseTable:
         scratch = self._last_plan_k or self.conf.plan_scratch_rows
         return _next_pow2(n_keys + 1 + scratch)
 
+    def _stamp(self) -> float:
+        if self.boundary_timing and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
     # -- the HBM cache ----------------------------------------------------- #
     def _get_cache(self) -> Optional[HbmCache]:
         """The persistent HBM hot-row cache, built on first use (None when
-        disabled)."""
+        disabled).  Built on the calling thread: prepare_pass builds it
+        before it hands anything to the staging thread."""
         if not self._cache_tried:
-            if self.conf.hbm_cache_rows > 0 and flags.hbm_cache:
-                self._cache = HbmCache(
-                    self.conf.hbm_cache_rows, self.conf.row_width + 1,
-                    aging=self.conf.hbm_cache_aging, device=self.device,
-                )
-            self._cache_tried = True
+            with self._cache_lock:
+                if not self._cache_tried:
+                    if self.conf.hbm_cache_rows > 0 and flags.hbm_cache:
+                        self._cache = HbmCache(
+                            self.conf.hbm_cache_rows, self.conf.row_width + 1,
+                            aging=self.conf.hbm_cache_aging,
+                            device=self.device,
+                        )
+                    self._cache_tried = True
         return self._cache
 
     def _caches(self) -> list:
@@ -182,44 +306,256 @@ class SparseTable:
         c = self._get_cache()
         return [c] if c is not None else []
 
-    def _cache_fetch_rows(self, miss: np.ndarray) -> np.ndarray:
+    def _cache_fetch_rows(self, miss: np.ndarray, _entries=None) -> np.ndarray:
         """Host-tier fetch of the cache-MISS rows: the begin-pass promotion
         patch, O(cold keys)."""
-        return self._resolve_or_init(miss)
+        return self._resolve_or_init(miss, _entries=_entries)
 
     def _drain_cache(self) -> None:
         """Write every dirty cache row back to the host store, so the store
-        is truth again for every resident key."""
-        for c in self._caches():
-            keys, rows = c.drain()
-            self._write_back(keys, rows)
+        is truth again for every resident key (part of the flush barrier)."""
+        caches = self._caches()
+        if not caches:
+            return
+        with self._cache_lock:
+            for c in caches:
+                keys, rows = c.drain()
+                self._write_back(keys, rows)
 
     def _invalidate_caches(self) -> None:
         """Drop cache membership (no row moves): required whenever the host
         store changes underneath."""
-        for c in self._caches():
-            c.invalidate()
+        caches = self._caches()  # before the lock: creation takes it too
+        with self._cache_lock:
+            for c in caches:
+                c.invalidate()
+
+    # -- the overlapped pass boundary --------------------------------------- #
+    def _lookup_with_overlay(self, q: np.ndarray, entries=None):
+        """Store lookup with the pending write-backs laid over it, newest
+        last.  ``entries`` pins a snapshot of the overlay (a stage's
+        consistency point); None reads the current one.  An entry whose
+        merge already landed holds exactly the rows the store got, so
+        applying it again is harmless."""
+        if entries is None:
+            with self._overlay_lock:
+                entries = list(self._overlay)
+        vals, found = self._store.lookup(q)
+        _patch_in(q, vals, entries, found)
+        return vals, found
 
     def _write_back(self, keys: np.ndarray, vals: np.ndarray) -> None:
-        """Merge rows for sorted unique ``keys`` into the host store."""
-        if keys.shape[0]:
-            self._store.update(keys, vals)
+        """Hand rows of sorted unique ``keys`` (a filled host array) to the
+        store: merged now on the serial table, through the overlay and the
+        merge thread when overlapped."""
+        if keys.shape[0] == 0:
+            return
+        if not self._overlap:
+            self._merge_into_store(keys, vals)
+            return
+        with self._overlay_lock:
+            self._wb_seq += 1
+            entry = (self._wb_seq, keys, vals)
+            self._overlay.append(entry)
+            if self._stage_future is not None:
+                # a pending stage may have resolved before these rows
+                # existed: begin_pass patches its buffer from this log
+                self._patch_log.append(entry)
+        self._merge_futures.append(
+            self._merge_worker.submit(self._merge_job, entry)
+        )
+
+    def _merge_job(self, entry) -> None:
+        seq, keys, vals = entry
+        try:
+            if self._merge_poisoned:
+                # an earlier merge failed: landing this one would skip a
+                # pass in the store's layering, so the store stays at the
+                # last good pass (the overlay keeps reads right and flush
+                # raises)
+                raise RuntimeError(
+                    "store merge disabled: an earlier pass write-back "
+                    "failed (surfaced at flush)"
+                )
+            faults.inject("store.merge")
+            self._merge_into_store(keys, vals)
+        except BaseException:
+            self._merge_poisoned = True
+            raise
+        with self._overlay_lock:
+            # merges run in order on one thread and a failure poisons the
+            # rest, so the oldest overlay entry is always this one
+            head = self._overlay.pop(0)
+            assert head[0] == seq, "merge completed out of order"
 
     def flush(self) -> None:
         """The barrier before anything reads the host store as truth: drain
-        the dirty cache rows into it.  (The serial table has no background
-        merges to wait for.)"""
+        the dirty cache rows, then wait for every pending merge (the first
+        failure re-raises)."""
         self._drain_cache()
+        while self._merge_futures:
+            self._merge_futures.pop(0).result()
+        if self._log is not None:
+            self._log.commit()
+
+    def close(self) -> None:
+        """Quiesce and retire the background threads: drop a staged pass,
+        barrier on the merges and the compaction, close the log, and retire
+        the merge, stage and compaction threads and the store's pool.  The
+        table stays usable: its threads start again on the next use."""
+        if self._in_pass:
+            raise RuntimeError("end_pass (or abort_pass) before close")
+        try:
+            self._discard_stage()
+            self.flush()
+            if self._compact_future is not None:
+                try:
+                    self._compact_future.result()
+                except Exception:
+                    logger.warning("background log compaction failed at close",
+                                   exc_info=True)
+                self._compact_future = None
+            if self._log is not None:
+                self._log.close()
+        finally:
+            self._store.close()
+            for wk in (self._merge_worker, self._stage_worker,
+                       self._compact_worker):
+                if wk is not None and not wk.close():
+                    logger.warning("a table thread did not exit on close; "
+                                   "it is a daemon and retires after its job")
+
+    def _discard_stage(self) -> None:
+        """Drop any staged next pass (after its job ends, so no staging read
+        races a store change) and trim the patch log."""
+        fut, self._stage_future = self._stage_future, None
+        if fut is not None:
+            try:
+                fut.result()
+            except Exception:
+                logger.debug("discarded a failed background stage",
+                             exc_info=True)
+        with self._overlay_lock:
+            self._patch_log = []
+
+    def prepare_pass(self, pass_keys) -> None:
+        """Stage the NEXT pass's working set on the staging thread while
+        the current pass trains: the census resolve against store and
+        overlay, the init of new keys, and the host buffer begin_pass
+        copies to the device.  ``pass_keys`` is the key array or a
+        zero-argument callable returning it (called on the staging thread,
+        so it may wait for a dataset load).  No-op on a serial table.
+        begin_pass with the same census consumes the stage; any mismatch
+        falls back to its synchronous resolve."""
+        if not self._overlap:
+            return
+        self._discard_stage()
+        self._caches()  # the cache's tensors are made here, not off-thread
+        self._stage_future = self._stage_worker.submit(self._stage_job,
+                                                       pass_keys)
+
+    def staged_pass_keys(self) -> Optional[np.ndarray]:
+        """Wait for a pending stage and return its census (the sorted unique
+        keys to call begin_pass with), or None when nothing is staged."""
+        if self._stage_future is None:
+            return None
+        return self._stage_future.result()[0]
+
+    def _stage_snapshot(self):
+        """(cache directories, write-back seq, overlay) for a stage, taken
+        under _cache_lock then _overlay_lock, the order end_pass changes
+        them in: a stage never pairs a directory from before an eviction
+        with an overlay from after it."""
+        caches = self._caches()
+        with self._cache_lock:
+            cache_keys = [c.snapshot_keys() for c in caches]
+            with self._overlay_lock:
+                return cache_keys, self._wb_seq, list(self._overlay)
+
+    def _stage_resolve(self, pk: np.ndarray, out: np.ndarray, cache_keys,
+                       entries) -> None:
+        """Fill ``out`` [n, W+1] for census ``pk`` on the staging thread.
+        With a cache, only the keys absent from the snapshot directory
+        (hits are filled on the device at begin_pass; keys the finishing
+        pass evicts are always written back, so the patch covers them)."""
+        if cache_keys is None:
+            out[:] = self._resolve_or_init(pk, _entries=entries)
+            return
+        miss_pos = np.nonzero(~HbmCache.hit_mask_in(cache_keys, pk))[0]
+        if miss_pos.shape[0]:
+            out[miss_pos] = self._cache_fetch_rows(pk[miss_pos],
+                                                   _entries=entries)
+
+    def _stage_job(self, pass_keys):
+        if callable(pass_keys):
+            pass_keys = pass_keys()
+        pk = _sorted_unique(pass_keys)
+        cache_keys, stage_seq, entries = self._stage_snapshot()
+        vals = np.zeros((self._stage_cap(pk.shape[0]), self.conf.row_width + 1),
+                        dtype=np.float32)
+        self._stage_resolve(pk, vals[: pk.shape[0]],
+                            cache_keys[0] if cache_keys else None, entries)
+        return pk, vals, stage_seq
+
+    def _pop_stage(self):
+        """Consume the pending stage: (payload, patches), the _stage_job
+        result (payload[-1] is its write-back seq) and the write-backs newer
+        than it, or (None, []) when nothing is staged."""
+        fut, self._stage_future = self._stage_future, None
+        if fut is None:
+            return None, []
+        try:
+            payload = fut.result()
+        except Exception:
+            stats.add("pass.stage_discards")
+            with self._overlay_lock:
+                self._patch_log = []
+            raise
+        with self._overlay_lock:
+            patches = [e for e in self._patch_log if e[0] > payload[-1]]
+            self._patch_log = []
+        return payload, patches
+
+    def _use_stage(self, payload, patches, pk: np.ndarray, cap: int):
+        """The patched [cap, W+1] host buffer of a stage that matches the
+        census and the capacity, else None (counted as a discard).  The
+        patch copies every newer write-back's rows of the keys it shares
+        with the census."""
+        if payload is None:
+            return None
+        spk, vals, _ = payload
+        if vals.shape[0] != cap or not np.array_equal(spk, pk):
+            # the census changed between staging and begin_pass, or the
+            # scratch sizing moved: resolve synchronously
+            stats.add("pass.stage_discards")
+            return None
+        _patch_in(pk, vals[: pk.shape[0]], patches)
+        return vals
 
     # -- pass lifecycle --------------------------------------------------- #
-    def _resolve_or_init(self, pk: np.ndarray) -> np.ndarray:
+    def _resolve_or_init(self, pk: np.ndarray, _entries=None) -> np.ndarray:
         """Rows [n, W+1] for sorted unique keys ``pk``: from the host store
-        when present, freshly initialized otherwise."""
+        with the pending write-backs laid over it, then from the durable
+        log for keys the store lacks, freshly initialized otherwise."""
         w = self.conf.row_width
         if not pk.shape[0]:
             return np.zeros((0, w + 1), dtype=np.float32)
-        vals, found = self._store.lookup(pk)
+        vals, found = self._lookup_with_overlay(pk, _entries)
         n_new = int((~found).sum())
+        if n_new and self._log is not None:
+            # the log's bloom and min-max filters prove most unseen keys
+            # are on no segment without a read; only the maybes pay one
+            miss_idx = np.nonzero(~found)[0]
+            maybe = self._log.might_contain(pk[miss_idx])
+            stats.add("store.census_disk_rejects", int((~maybe).sum()))
+            if maybe.any():
+                lv, lf = self._log.lookup(pk[miss_idx[maybe]])
+                if lf.any():
+                    hit_idx = miss_idx[maybe][lf]
+                    vals[hit_idx] = lv[lf]
+                    found[hit_idx] = True
+                    n_new -= int(lf.sum())
+                    stats.add("store.census_log_hits", int(lf.sum()))
         if n_new:
             init = np.zeros((n_new, w + 1), dtype=np.float32)
             init[:, self.conf.cvm_offset : w] = _key_uniform(
@@ -244,34 +580,57 @@ class SparseTable:
         self.last_cache_misses = n - plan.n_hits
 
     def begin_pass(self, pass_keys: np.ndarray) -> None:
-        """Promote the pass working set to the device.  With the HBM cache,
-        the host supplies only the census misses (the promotion patch) and
-        the hits are filled on the device."""
+        """Promote the pass working set to the device.  A matching stage
+        leaves only the patch, the copy and the cache fill; with the HBM
+        cache, the host supplies only the census misses (the promotion
+        patch) and the hits are filled on the device."""
         if self._in_pass:
             raise RuntimeError("end_pass the previous pass first")
-        pk = np.unique(np.asarray(pass_keys, dtype=np.uint64))
+        t0 = self._stamp()
+        pk = _sorted_unique(pass_keys)
         w = self.conf.row_width
         n = pk.shape[0]
-        vals = np.zeros((self._stage_cap(n), w + 1), dtype=np.float32)
+        cap = self._stage_cap(n)
         cache = self._get_cache()
+        tc = time.perf_counter()
+        payload, patches = self._pop_stage()
+        t1 = time.perf_counter()
+        vals = self._use_stage(payload, patches, pk, cap)
+        staged = vals is not None
+        t2 = time.perf_counter()
         plan = None
-        if cache is None:
-            vals[:n] = self._resolve_or_init(pk)
-        else:
-            # the reference resolves the census twice (once to pick the
-            # misses, once to fill the hits); nothing changes the directory
-            # in between, so one plan serves both
-            plan = cache.lookup(pk)
-            miss_pos = np.nonzero(~plan.hit_mask)[0]
-            if miss_pos.shape[0]:
-                vals[miss_pos] = self._cache_fetch_rows(pk[miss_pos])
+        if vals is None:
+            vals = np.zeros((cap, w + 1), dtype=np.float32)
+            if cache is None:
+                vals[:n] = self._resolve_or_init(pk)
+            else:
+                # the reference resolves the census twice (once to pick the
+                # misses, once to fill the hits); nothing changes the
+                # directory in between, so one plan serves both
+                plan = cache.lookup(pk)
+                miss_pos = np.nonzero(~plan.hit_mask)[0]
+                if miss_pos.shape[0]:
+                    vals[miss_pos] = self._cache_fetch_rows(pk[miss_pos])
+        t3 = self._stamp()
         buf = torch.from_numpy(vals).to(self.device)
-        if plan is not None:
+        t4 = self._stamp()
+        if cache is not None:
+            # a staged buffer holds rows at the current misses (patched:
+            # evicted keys are always written back); the current hits are
+            # filled here on the device
+            if plan is None:
+                plan = cache.lookup(pk)
             self._cache_plan_and_fill(cache, plan, buf, n)
         self._cache_plan = plan
         # two contiguous tensors: the kernels take no strided views
         self.values = buf[:, :w].contiguous()
         self.g2sum = buf[:, w].contiguous()
+        t5 = self._stamp()
+        self.last_begin_breakdown = {
+            "staged": staged, "census_s": tc - t0, "stage_wait_s": t1 - tc,
+            "patch_s": t2 - t1, "resolve_s": t3 - t2, "h2d_s": t4 - t3,
+            "cache_fill_s": t5 - t4,
+        }
         self._pass_keys = pk
         self._census_index = None  # stale: it indexes the previous census
         self._in_pass = True
@@ -282,7 +641,8 @@ class SparseTable:
         """Cached end of pass: hits update their cache slots in place, the
         hottest misses are admitted (evicting aged-out residents), and ONLY
         cold and evicted rows travel to the host.  Evicted rows are written
-        back even when clean (see hbm_cache.py)."""
+        back even when clean, so a staged next pass that saw them resident
+        is patched from the write-back (see hbm_cache.py)."""
         full = torch.cat([self.values, self.g2sum[:, None]], dim=1)
         upd = cache.plan_update(pk, plan)
         upd_pos = np.concatenate([plan.hit_pos, upd.admit_pos])
@@ -300,15 +660,17 @@ class SparseTable:
             cache.set_rows(upd_slots, _rows_at(full, upd_pos))
         wb_keys = np.concatenate([pk[upd.cold_pos], upd.victim_keys])
         order = np.argsort(wb_keys, kind="stable")
-        cache.commit_update(plan, upd)
-        self._write_back(wb_keys[order],
-                         np.concatenate([cold_rows, victim_rows])[order])
+        with self._cache_lock:
+            cache.commit_update(plan, upd)
+            self._write_back(wb_keys[order],
+                             np.concatenate([cold_rows, victim_rows])[order])
         self.last_evicted_rows = int(upd.victim_slots.shape[0])
         self.last_write_back_rows = int(wb_keys.shape[0])
 
     def end_pass(self) -> None:
         """Write the working set back: to the cache for its resident and
-        admitted rows, to the host store for the rest."""
+        admitted rows, to the host store for the rest.  An overlapped table
+        pays only the copy to the host here; the merge runs on its thread."""
         if not self._in_pass:
             raise RuntimeError("no pass in flight")
         pk = self._pass_keys
@@ -348,13 +710,53 @@ class SparseTable:
         if self._delta_keys:
             self._delta_keys.pop()
 
+    def _merge_into_store(self, keys: np.ndarray, vals: np.ndarray) -> None:
+        """Merge rows for sorted unique ``keys`` into the store.  With a
+        durable log the rows land there first and commit a generation: a
+        failure aborts before the store sees them, and a kill after the
+        commit replays them at the next construction."""
+        vals32 = np.asarray(vals, dtype=np.float32)
+        if self._log is not None:
+            self._log.append(keys, vals32)
+            self._log.commit()
+            self._maybe_compact_log()
+        self._store.update(keys, vals32)
+
+    def _recover_spill_bucket(self, b: int):
+        """The store's corrupt-spill recovery: bucket ``b`` rebuilt from the
+        durable log's committed state."""
+        if self._log is None:
+            raise RuntimeError(
+                f"spill bucket {b} corrupt and no durable log configured"
+            )
+        lk, lv = self._log.materialize()
+        mask = self._store._bucket_of(lk) == b
+        return lk[mask], lv[mask]
+
+    def _maybe_compact_log(self) -> None:
+        """Start a background compaction when a log bucket crossed the
+        segment threshold, one at a time.  A failure is counted and logged,
+        never fatal: the log stays correct, only longer."""
+        if self._log is None or not self._log.buckets_over_threshold():
+            return
+        fut = self._compact_future
+        if fut is not None and not fut.done():
+            return
+        if fut is not None and fut.exception() is not None:
+            stats.add("store.compact_failures")
+            logger.warning("background log compaction failed: %s",
+                           fut.exception())
+        self._compact_future = self._compact_worker.submit(self._log.compact)
+
     # -- maintenance ------------------------------------------------------- #
     def shrink(self) -> int:
         """Decay show/clk and evict cold features (the reference's per-day
         ShrinkTable).  Returns the number of evicted rows."""
         if self._in_pass:
             raise RuntimeError("shrink between passes, not inside one")
-        if self.n_features == 0:  # n_features drains the cache
+        # a stage resolved before the shrink would bring back undecayed rows
+        self._discard_stage()
+        if self.n_features == 0:  # n_features flushes: merges and cache
             return 0
         evicted = self._store.decay_evict(
             decay_cols=2,  # show + clk
@@ -363,6 +765,11 @@ class SparseTable:
         )
         # cached rows predate the decay: the next pass re-reads the store
         self._invalidate_caches()
+        if self._log is not None:
+            # the log must not bring decayed or evicted rows back at a
+            # recovery: one rewrite generation replaces it
+            lk, lv = self._store.materialize()
+            self._log.rewrite(lk, lv)
         return evicted
 
     # -- persistence ------------------------------------------------------- #
@@ -375,13 +782,18 @@ class SparseTable:
         return {"keys": keys, "values": vals}
 
     def load_state_dict(self, state: dict) -> None:
-        self.flush()
+        self.flush()  # pending merges must not land on top of the restore
+        self._discard_stage()  # a stage resolved before it is stale
         self._store.load_bulk(
             np.asarray(state["keys"], dtype=np.uint64),
             np.asarray(state["values"], dtype=np.float32),
         )
         # every cached row is now stale relative to the restored store
         self._invalidate_caches()
+        if self._log is not None:
+            # a recovery must give the restored state, not the one before
+            lk, lv = self._store.materialize()
+            self._log.rewrite(lk, lv)
 
     def pass_state_dict(self) -> dict:
         """Snapshot usable mid-pass: the live working set when a pass is
@@ -419,8 +831,12 @@ class SparseTable:
     def apply_delta(self, state: dict) -> None:
         keys = np.asarray(state["keys"], dtype=np.uint64)
         if keys.shape[0]:
+            # ordered after the pending merges; a stage resolved before
+            # these rows existed is dropped
             self.flush()
-            self._write_back(keys, np.asarray(state["values"], np.float32))
+            self._discard_stage()
+            self._merge_into_store(keys,
+                                   np.asarray(state["values"], np.float32))
             # delta rows may overwrite keys the cache holds
             self._invalidate_caches()
 

@@ -15,6 +15,9 @@ on a side stream of its own and records an event; the step's stream waits
 on it.  The producer launches no kernel of ``ops/sparse_kernels.py``: every
 launch stays on the step's thread and stream.  0 runs the feed serially.
 
+``next_pass_keys`` hands the next pass's census to ``table.prepare_pass``
+once the feed is exhausted (the overlapped pass boundary, sparse/table.py).
+
 Scan grouping, the skip/rollback NaN policies, evaluation, dumping, the
 watchdog and telemetry are later slices.
 """
@@ -267,21 +270,47 @@ class Trainer:
         auc = update_auc_state(auc, torch.sigmoid(logits.detach()), labels, mask)
         return loss.detach(), auc
 
+    # -- dense persistence -------------------------------------------------- #
+    def dense_state(self) -> tuple:
+        """(model state_dict, optimizer state_dict) for the checkpoint
+        managers (checkpoint.py)."""
+        return self.model.state_dict(), self.optimizer.state_dict()
+
+    def load_dense_state(self, params, opt_state=None) -> None:
+        if params is not None:
+            self.model.load_state_dict(params)
+        if opt_state is not None:
+            self.optimizer.load_state_dict(opt_state)
+
+    def init_auc(self) -> AucState:
+        """A fresh AUC stream on the trainer's device (the template of a
+        saved metric state)."""
+        return init_auc_state(self.conf.auc_buckets, self.device)
+
+    # -- public API --------------------------------------------------------- #
     def train_from_dataset(
         self,
         dataset,
         table: SparseTable,
         auc_state: Optional[AucState] = None,
         drop_last: bool = False,
+        next_pass_keys=None,
     ) -> dict:
         """Run one pass over the dataset's batches.  The caller owns the
         pass lifecycle: table.begin_pass() before, table.end_pass() after.
-        ``auc_state`` continues an earlier pass's metric stream."""
+        ``auc_state`` continues an earlier pass's metric stream.
+
+        ``next_pass_keys``: the NEXT pass's census (an array, or a
+        zero-argument callable returning one, called on the table's staging
+        thread).  Handed to ``table.prepare_pass`` once this pass's feed is
+        exhausted, while the device still runs the last steps (a no-op on a
+        serial table)."""
         return self.train_steps(table, dataset.batches(drop_last=drop_last),
-                                auc_state)
+                                auc_state, next_pass_keys=next_pass_keys)
 
     def train_steps(self, table: SparseTable, batches: Iterable[HostBatch],
-                    auc_state: Optional[AucState] = None) -> dict:
+                    auc_state: Optional[AucState] = None,
+                    next_pass_keys=None) -> dict:
         """Lower-level entry: train over an explicit batch iterable."""
         if not table._in_pass:
             raise RuntimeError("begin_pass before training")
@@ -289,7 +318,7 @@ class Trainer:
         auc = (
             AucState(*(t.clone() for t in auc_state))
             if auc_state is not None
-            else init_auc_state(self.conf.auc_buckets, self.device)
+            else self.init_auc()
         )
         losses = []
         n_samples = [0.0]
@@ -316,6 +345,11 @@ class Trainer:
         finally:
             if prefetcher is not None:
                 prefetcher.close()
+        # the feed is done (the producer closed) while the card still runs
+        # the last steps: the window the next pass's staging hides in,
+        # before the metric readback below waits for the card
+        if next_pass_keys is not None:
+            table.prepare_pass(next_pass_keys)
         metrics = compute_metrics(auc)
         metrics["loss"] = (
             float(torch.stack(losses).mean()) if losses else 0.0

@@ -9,6 +9,8 @@ same numbers.  They take numpy arrays and import nothing of JAX.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -40,3 +42,42 @@ def hot_block_from_jax(values, g2sum) -> dict:
     tensors {"hot_values", "hot_g2sum"} for ShardedSparseTable."""
     state = table_state_from_jax(values, g2sum)
     return {"hot_values": state["values"], "hot_g2sum": state["g2sum"]}
+
+
+_JAX_TOWER_LEAF = re.compile(r"^\['tower'\]\[(\d+)\]\['([wb])'\]$")
+
+
+def is_jax_param_file(names) -> bool:
+    """True when npz leaf ``names`` are the reference's CtrDnn params as its
+    checkpoints save them (jax key paths: ``['tower'][0]['w']``)."""
+    names = list(names)
+    return bool(names) and all(_JAX_TOWER_LEAF.match(n) for n in names)
+
+
+def params_from_jax_flat(flat: dict) -> dict:
+    """A reference checkpoint's dense leaves {"['tower'][i]['w']": ...} ->
+    a CtrDnn state_dict, through ``params_from_jax``."""
+    layers: dict = {}
+    for name, arr in flat.items():
+        m = _JAX_TOWER_LEAF.match(name)
+        if m is None:
+            raise KeyError(f"not a reference tower leaf: {name!r}")
+        layers.setdefault(int(m.group(1)), {})[m.group(2)] = arr
+    return params_from_jax([layers[i] for i in sorted(layers)])
+
+
+def params_to_jax(state: dict) -> dict:
+    """A CtrDnn state_dict -> the reference's params {"tower": [{"w": [in,
+    out], "b": [out]}, ...]} as numpy arrays (the inverse of
+    ``params_from_jax``)."""
+    tower = []
+    i = 0
+    while f"tower.{i}.weight" in state:
+        w = state[f"tower.{i}.weight"]
+        b = state[f"tower.{i}.bias"]
+        w = w.detach().cpu().numpy() if torch.is_tensor(w) else np.asarray(w)
+        b = b.detach().cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
+        tower.append({"w": np.array(w.T, np.float32, order="C"),
+                      "b": np.array(b, np.float32)})
+        i += 1
+    return {"tower": tower}

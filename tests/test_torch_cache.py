@@ -500,6 +500,10 @@ def test_eviction_writes_rows_back():
     for _ in range(2):
         t.begin_pass(b)
         t.end_pass()
+    # the overlapped default merges on the table's thread: wait for the
+    # merges alone (a flush would also drain the cache)
+    for fut in t._merge_futures:
+        fut.result()
     vals, found = t._store.lookup(a)
     assert found.all() and (vals[:, 0] == 7.0).all()  # before any flush
     assert t._caches()[0].resident <= 8
@@ -527,6 +531,7 @@ def test_cache_is_on_by_default_and_its_kill_switch(monkeypatch):
     t.begin_pass(keys)
     t.end_pass()
     assert t._caches() == []
+    t.flush()  # the overlapped default merges on its thread until a barrier
     assert t._store.n == 29  # the full write-back of the uncached lifecycle
 
 

@@ -659,8 +659,6 @@ def test_cut_outs_raise():
         ShardedSparseTable(SparseTableConfig(), mesh)
     table = ShardedSparseTable(SparseTableConfig(hbm_cache_rows=0), mesh)
     with pytest.raises(NotImplementedError):
-        table.prepare_pass(np.arange(4, dtype=np.uint64))
-    with pytest.raises(NotImplementedError):
         table.reshard(make_mesh(4, device="cpu"))
     for mode in ("kstep", "async"):
         with pytest.raises(NotImplementedError):

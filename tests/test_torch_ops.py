@@ -286,7 +286,7 @@ def test_ctr_dnn_forward_and_grads_with_reference_params():
 def test_auc_matches_reference():
     rng = np.random.default_rng(10)
     nb = 1 << 10
-    rs, ps = ref_auc.init_auc_state(nb), port_auc.init_auc_state(nb)
+    rs, ps = ref_auc.init_auc_state(nb), port_auc.init_auc_state(nb, device="cpu")
     for _ in range(4):
         preds = rng.random(32).astype(np.float32)
         labels = (rng.random(32) < preds).astype(np.float32)

@@ -257,12 +257,8 @@ def test_trainer_rejects_a_model_on_another_device():
 # --------------------------------------------------------------------------- #
 def _unsupported(case):
     row = 2 + EMB
-    if case == "overlap_pass_boundary":
-        SparseTableConfig(overlap_pass_boundary=True)
-    elif case == "expand_dim":
+    if case == "expand_dim":
         SparseTableConfig(expand_dim=4)
-    elif case == "store_log_dir":
-        SparseTableConfig(store_log_dir="/nonexistent")
     elif case == "layout_conv":
         CtrDnn(SLOTS, row, layout="conv", device="cpu")
     elif case == "rank_offset":
@@ -280,8 +276,7 @@ def _unsupported(case):
 
 
 @pytest.mark.parametrize("case", [
-    "overlap_pass_boundary", "expand_dim", "store_log_dir",
-    "layout_conv", "rank_offset", "sequence_slot", "multi_task",
+    "expand_dim", "layout_conv", "rank_offset", "sequence_slot", "multi_task",
     "nan_policy", "sgd", "compute_dtype",
 ])
 def test_unsupported_options_raise_not_implemented(case):
