@@ -89,6 +89,27 @@ Phases, each fatal on failure:
                group of each; the plans must pull the same rows).
      check   — a small hybrid run on the card and on the CPU (plain twins)
                from identical initial weights must agree.
+     sharded — the hybrid path's world at the reference's defaults: the
+               per-shard HBM caches on (CACHE_ROWS, CACHE_ROWS / POSITIONS
+               rows a shard), the same HYBRID_PASSES passes, overlapped and
+               staged, counters reset just before and read just after (all
+               six kernels must launch); per pass each shard's hits and
+               misses, the promotion, write-back, evicted and hot rows
+               moved, begin_pass / end_pass seconds with the begin_pass
+               phases, and samples/s.  Under deterministic algorithms its
+               first three passes must be bit-equal to the uncached hybrid
+               run's.
+     reshard — under deterministic algorithms, that table resharded live
+               from POSITIONS to 2 shard positions at the pass boundary
+               and trained one more pass, then back to POSITIONS: each pass
+               bit-equal to a table rebuilt from state_dict at the new
+               count, no kernel built after a cutover; rows moved and
+               seconds printed.
+     check   — the small hybrid run again with the per-shard caches on,
+               card against CPU, hits included.
+     dense   — the "kstep" (sync_weight_step 4) and "async" dense sync, two
+               small passes each on the card and on the CPU: finite losses
+               that agree.
   6. times   — the CUDA kernels one call of each wrapper launches (from
                torch.profiler; one each, two for scatter_rows), and the
                median time of each kernel, its twin and the equivalent
@@ -577,6 +598,76 @@ def check_cache_parity(census, device) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize()
     return errs
+
+
+def check_shard_cache_parity(census, device) -> None:
+    """The cache kernels against their twins at the sharded cached path's
+    shapes, all bit-exact: one shard's cache of C = CACHE_ROWS //
+    POSITIONS rows [C, W+1]; gather_slots for the drain (all C slots), the
+    hit fill (a shard census's worth of slots, misses among them) and
+    take_rows (a promotion's share of the hot block); scatter_rows for an
+    admission of C unique slots and with duplicates; sorted_search of the
+    keys one shard owns against a directory of C keys padded with
+    all-ones, full and part full."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    W1 = EMB + 3
+    C = CACHE_ROWS // POSITIONS
+    gen = torch.Generator(device=device).manual_seed(7)
+    rows = torch.randn((C, W1), device=device, generator=gen)
+    owned = census[census % np.uint64(POSITIONS) == 0]
+    n_own = owned.shape[0]
+    gathers = (("drain", torch.randperm(C, device=device,
+                                        generator=gen).to(torch.int32)),
+               ("hit fill", torch.randint(-1, C, (n_own,), device=device,
+                                          generator=gen, dtype=torch.int32)),
+               ("take_rows", torch.randperm(C, device=device, generator=gen)
+                [:HOT_CAPACITY // POSITIONS].to(torch.int32)))
+    for what, slots in gathers:
+        if not torch.equal(sk.gather_slots(rows, slots),
+                           sk.gather_slots_plain(rows, slots)):
+            raise AssertionError(f"gather_slots differs from its twin at the "
+                                 f"shard's {what} (K={slots.shape[0]}, C={C})")
+    scatters = (("admission", torch.randperm(C, device=device,
+                                             generator=gen).to(torch.int32)),
+                ("duplicates", torch.randint(-1, C, (C,), device=device,
+                                             generator=gen,
+                                             dtype=torch.int32)))
+    for what, slots in scatters:
+        new = torch.randn((slots.shape[0], W1), device=device, generator=gen)
+        if not torch.equal(sk.scatter_rows(rows.clone(), slots, new),
+                           sk.scatter_rows_plain(rows.clone(), slots, new)):
+            raise AssertionError(f"scatter_rows differs from its twin at the "
+                                 f"shard's {what} (K={C}, C={C})")
+    rng = np.random.default_rng(8)
+    # half of the directory from the shard's census, half other keys of
+    # the shard, in a random order, so that a part-full one keeps both
+    pool = np.unique(np.concatenate([
+        owned[rng.permutation(n_own)[: C // 2]],
+        rng.integers(0, 2**62, size=C, dtype=np.uint64)
+        * np.uint64(POSITIONS)]))
+    resident = pool[rng.permutation(pool.shape[0])[:C]]
+    q = torch.from_numpy(np.ascontiguousarray(owned).view(np.int64)).to(device)
+    for n_real in (C, C - 300):
+        hay = np.full(C, 2**64 - 1, dtype=np.uint64)
+        hay[:n_real] = np.sort(resident[:n_real])
+        hay_t = torch.from_numpy(hay.view(np.int64)).to(device)
+        got = sk.sorted_search(hay_t, n_real, q)
+        if not torch.equal(got, sk.sorted_search_plain(hay_t, n_real, q)):
+            raise AssertionError(f"sorted_search differs from its twin at the "
+                                 f"shard's lookup (Q={n_own}, C={C}, "
+                                 f"n_real={n_real})")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"parity at a shard's cache of C={C} rows: gather_slots bit-exact for "
+        f"the drain (K={C}), the hit fill (K={n_own}) and take_rows "
+        f"(K={HOT_CAPACITY // POSITIONS}); scatter_rows for an admission of "
+        f"{C} unique slots and with duplicates; sorted_search of the "
+        f"{n_own} keys shard 0 owns against {C} keys, full and "
+        f"{C - 300} real ({int((got >= 0).sum())} found)")
 
 
 # --------------------------------------------------------------------------- #
@@ -1251,7 +1342,11 @@ def check_hybrid_parity(device) -> dict:
 
 def make_hybrid_world(device, placement="loopback", n_slots=N_SLOTS,
                       dense=DENSE, emb=EMB, hidden=HIDDEN,
-                      positions=POSITIONS, hot_capacity=HOT_CAPACITY):
+                      positions=POSITIONS, hot_capacity=HOT_CAPACITY,
+                      cache_rows=0, **trainer_kw):
+    """The hybrid arm's table and trainer; ``cache_rows`` > 0 gives the
+    per-shard caches (CACHE_ROWS: the reference's default), and
+    ``trainer_kw`` go to TrainerConfig (the dense-sync modes)."""
     from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
     from paddlebox_tpu_torch.models import CtrDnn
     from paddlebox_tpu_torch.parallel import (
@@ -1261,7 +1356,7 @@ def make_hybrid_world(device, placement="loopback", n_slots=N_SLOTS,
     )
 
     tconf = SparseTableConfig(
-        embedding_dim=emb, hbm_cache_rows=0, placement=placement,
+        embedding_dim=emb, hbm_cache_rows=cache_rows, placement=placement,
         placement_realize=True, placement_update_interval=1,
         placement_hot_capacity=hot_capacity,
     )
@@ -1269,13 +1364,15 @@ def make_hybrid_world(device, placement="loopback", n_slots=N_SLOTS,
     table = ShardedSparseTable(tconf, mesh, seed=0)
     model = CtrDnn(n_slots, tconf.row_width, dense_dim=dense, hidden=hidden,
                    seed=0, device=device)
-    return table, MultiChipTrainer(model, tconf, mesh, TrainerConfig())
+    return table, MultiChipTrainer(model, tconf, mesh,
+                                   TrainerConfig(**trainer_kw))
 
 
 def drive_hybrid(datasets, table, trainer) -> list:
     """One pass over each dataset, the AUC streams continued, begin_pass
     and end_pass timed to a synchronize; per pass the census, the hot set,
-    the host row traffic and the metrics."""
+    the host row traffic, each shard's cache hits and misses, the
+    begin_pass breakdown and the metrics."""
     import torch
 
     out, auc = [], None
@@ -1287,7 +1384,9 @@ def drive_hybrid(datasets, table, trainer) -> list:
         torch.cuda.synchronize()
         begin_s = time.perf_counter() - t0
         promoted, moved = table.last_promotion_rows, table.last_hot_moved_rows
-        staged = table.last_begin_breakdown["staged"]
+        shard_hits = list(table.last_shard_hits)
+        shard_misses = list(table.last_shard_misses)
+        breakdown = dict(table.last_begin_breakdown)
         m = trainer.train_from_dataset(
             ds, table, auc_state=auc,
             next_pass_keys=censuses[i + 1] if i + 1 < len(datasets) else None)
@@ -1304,7 +1403,10 @@ def drive_hybrid(datasets, table, trainer) -> list:
             resident=int(table.hot_resident_keys().shape[0]),
             hot_occ=m["hot_occurrences"], promotion_rows=promoted,
             hot_moved_rows=moved, written_back=table.last_write_back_rows,
-            staged=staged, begin_s=begin_s, end_s=time.perf_counter() - t0,
+            evicted=table.last_evicted_rows, shard_hits=shard_hits,
+            shard_misses=shard_misses, breakdown=breakdown,
+            staged=breakdown["staged"], begin_s=begin_s,
+            end_s=time.perf_counter() - t0,
             samples_per_s=m["samples"] / m["duration_s"], metrics=m,
         ))
     return out
@@ -1398,7 +1500,7 @@ def hybrid_path(datasets) -> dict:
         f"({sa['keys'].shape[0]} rows, auc {auc_a}); largest difference "
         f"against the hash placement {diff!r}")
     return {"launches": launches, "table": table, "trainer": runs_trainer,
-            "datasets": datasets}
+            "datasets": datasets, "det_passes": da, "det_state": sa}
 
 
 def hybrid_stages(hybrid: dict) -> None:
@@ -1570,6 +1672,7 @@ def small_hybrid_agreement() -> None:
             table.end_pass()
         results[device] = (metrics, table.state_dict(),
                            table.hot_resident_keys())
+        table.close()
         ds.close()
     (mg, sg, hg), (mc, sc, hc) = results["cuda"], results["cpu"]
     if not (hg.shape[0] and np.array_equal(hg, hc)
@@ -1590,6 +1693,354 @@ def small_hybrid_agreement() -> None:
     log(f"small hybrid run card vs CPU: {hg.shape[0]} hot keys, losses "
         f"{[m['loss'] for m in mg]} vs {[m['loss'] for m in mc]}, table max "
         f"abs diff {err!r}")
+
+
+# --------------------------------------------------------------------------- #
+# phase 5b: the sharded cached path, reshard, dense sync
+# --------------------------------------------------------------------------- #
+def log_sharded_pass(label: str, p: int, r: dict) -> None:
+    m = r["metrics"]
+    log(f"{label} pass {p}: census {r['census']}, n_hot {r['n_hot']}, hot "
+        f"occurrences routed {r['hot_occ']}; shard hits {r['shard_hits']}, "
+        f"misses {r['shard_misses']}; host rows in (promotion) "
+        f"{r['promotion_rows']}, out (write-back) {r['written_back']}, "
+        f"evicted {r['evicted']}, hot rows moved {r['hot_moved_rows']}; "
+        f"begin_pass {r['begin_s']!r} s, end_pass {r['end_s']!r} s; "
+        f"{r['samples_per_s']!r} samples/s; loss {m['loss']!r} auc "
+        f"{m['auc']!r} steps {m['steps']}")
+    log(f"  {label} pass {p} begin_pass breakdown (staged {r['staged']}): "
+        f"{fmt_breakdown(r['breakdown'])}")
+
+
+def sharded_cached_path(hybrid: dict) -> dict:
+    """The hybrid path's world at the reference's defaults: the per-shard
+    caches on (CACHE_ROWS split over POSITIONS shards), the same
+    HYBRID_PASSES Zipf passes, overlapped and staged, the card
+    synchronized between the begin_pass phases; launch counters reset just
+    before and read just after: all six kernels must launch, the cache's
+    three on this path too.  Then the first three passes again under
+    torch.use_deterministic_algorithms, whose final state_dict must be
+    bit-equal to the uncached hybrid run's (hybrid_path), losses and AUC
+    too.  Returns the deterministic world, which the reshard phase
+    continues."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    datasets = hybrid["datasets"]
+    runs = {}
+    for label, det in (("sharded cached", False),
+                       ("sharded cached deterministic", True)):
+        torch.use_deterministic_algorithms(det)
+        try:
+            table, trainer = make_hybrid_world("cuda", cache_rows=CACHE_ROWS)
+            table.boundary_timing = True
+            if not det:
+                fed = prefetched_feeds()
+                sk.reset_launches()
+            per_pass = drive_hybrid(datasets[:3] if det else datasets, table,
+                                    trainer)
+            if not det:
+                launches = dict(sk.launches)
+                check_prefetched(trainer, fed, sum(r["metrics"]["steps"]
+                                                   for r in per_pass))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        runs[label] = (per_pass, table, trainer)
+        for p, r in enumerate(per_pass):
+            log_sharded_pass(label, p, r)
+    per_pass, table, _ = runs["sharded cached"]
+    steps = sum(r["metrics"]["steps"] for r in per_pass)
+    log(f"sharded cached path launches {launches} over {steps} step groups "
+        f"of {POSITIONS} positions")
+    for name in sk.KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "sharded cached path")
+    if not any(sum(r["shard_hits"]) and r["evicted"] for r in per_pass):
+        raise AssertionError("no sharded cached pass had both hits and "
+                             "evictions")
+    if not (table.hot_resident_keys().shape[0]
+            and all(r["hot_occ"] > 0 for r in per_pass[-2:])):
+        raise AssertionError("the sharded cached path's hot block did not "
+                             "realize and route")
+    if not all(math.isfinite(r["metrics"]["loss"]) for r in per_pass):
+        raise AssertionError("non-finite loss on the sharded cached path")
+    union = np.unique(np.concatenate([ds.unique_keys() for ds in datasets]))
+    state = table.state_dict()  # lands the hot block and drains the caches
+    if (not np.array_equal(state["keys"], union)
+            or not np.isfinite(state["values"]).all()):
+        raise AssertionError("the sharded cached table lost keys or holds "
+                             "non-finite rows")
+    table.close()
+    det_pass, det_table, det_trainer = runs["sharded cached deterministic"]
+    sd, su = det_table.state_dict(), hybrid["det_state"]
+    metrics = [(r["metrics"]["loss"], r["metrics"]["auc"]) for r in det_pass]
+    want = [(r["metrics"]["loss"], r["metrics"]["auc"])
+            for r in hybrid["det_passes"]]
+    if (metrics != want or not np.array_equal(sd["keys"], su["keys"])
+            or not np.array_equal(sd["values"], su["values"])):
+        raise AssertionError(f"deterministic sharded cached and uncached "
+                             f"hybrid runs differ: {metrics} vs {want}")
+    log(f"sharded cached vs uncached hybrid, deterministic over "
+        f"{len(det_pass)} passes: bit-equal ({sd['keys'].shape[0]} rows, "
+        f"losses {[m for m, _ in metrics]})")
+    cpu_agreement(datasets[:3], det_pass, sd, det_table.hot_resident_keys())
+    for what, key in (("begin_pass s", "begin_s"), ("end_pass s", "end_s"),
+                      ("samples/s", "samples_per_s")):
+        log(f"sharded cached boundary: {what} {[r[key] for r in per_pass]}")
+    return {"launches": launches, "table": det_table, "trainer": det_trainer,
+            "datasets": datasets}
+
+
+def cpu_agreement(datasets, card_pass, card_state, card_hot) -> None:
+    """The sharded cached path at full width on the CPU, at a reduced
+    depth (the deterministic card run's three passes of the four; the hot
+    block realizes in the third), from the same seeds: each shard's hits
+    and misses and the hot set equal to the card's, losses within 1e-4
+    relative, AUC within 1e-3 and every table row within 1e-4 (the
+    tolerances of small_agreement: the two devices sum the tower's
+    products in different orders, each step's float32 difference is a few
+    ulps and Adam and AdaGrad carry it only a few steps' worth)."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    saved = dict(sk.launches)
+    t0 = time.perf_counter()
+    table, trainer = make_hybrid_world("cpu", cache_rows=CACHE_ROWS)
+    cpu_pass = drive_hybrid(datasets, table, trainer)
+    state, hot = table.state_dict(), table.hot_resident_keys()
+    table.close()
+    secs = time.perf_counter() - t0
+    sk.launches.update(saved)  # the CPU runs the twins; nothing launched
+    for p, (g, c) in enumerate(zip(card_pass, cpu_pass)):
+        if (g["shard_hits"], g["shard_misses"]) != (c["shard_hits"],
+                                                     c["shard_misses"]):
+            raise AssertionError(
+                f"card/CPU sharded cached pass {p}: shard hits "
+                f"{g['shard_hits']} vs {c['shard_hits']}, misses "
+                f"{g['shard_misses']} vs {c['shard_misses']}")
+        gm, cm = g["metrics"], c["metrics"]
+        if not (math.isfinite(cm["loss"]) and math.isclose(
+                gm["loss"], cm["loss"], rel_tol=1e-4)
+                and abs(gm["auc"] - cm["auc"]) <= 1e-3):
+            raise AssertionError(
+                f"card/CPU sharded cached pass {p}: loss {gm['loss']} vs "
+                f"{cm['loss']}, auc {gm['auc']} vs {cm['auc']}")
+    if not (hot.shape[0] and np.array_equal(hot, card_hot)):
+        raise AssertionError("card/CPU sharded cached runs realized "
+                             "different hot sets")
+    if not np.array_equal(state["keys"], card_state["keys"]):
+        raise AssertionError("card/CPU sharded cached tables hold different "
+                             "keys")
+    err = float(np.abs(state["values"] - card_state["values"]).max())
+    if err > 1e-4:
+        raise AssertionError(f"card/CPU sharded cached table rows differ by "
+                             f"{err}")
+    torch.cuda.synchronize()
+    log(f"sharded cached path at full width, card vs CPU over "
+        f"{len(cpu_pass)} passes: shard hits equal "
+        f"{[c['shard_hits'] for c in cpu_pass]}, {hot.shape[0]} hot keys "
+        f"equal, losses {[g['metrics']['loss'] for g in card_pass]} vs "
+        f"{[c['metrics']['loss'] for c in cpu_pass]}, table max abs diff "
+        f"{err!r} (CPU run {secs!r} s)")
+
+
+def reshard_check(sharded: dict) -> None:
+    """Under deterministic algorithms, the trained deterministic sharded
+    cached table of POSITIONS shards reshards live to 2 at the pass
+    boundary and trains the fourth Zipf set on 2 positions; a table
+    rebuilt at 2 shards from its state_dict trains the same pass from the
+    same dense state.  Both must be bit-equal (state, loss, AUC).  Then
+    2 -> POSITIONS the same way over the first set.  No kernel builds
+    after a cutover.  Prints the rows moved and the reshard seconds."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.ops import cuda_build
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.parallel import (
+        MultiChipTrainer,
+        ShardedSparseTable,
+        make_mesh,
+    )
+
+    saved = dict(sk.launches)
+    live, trainer = sharded["table"], sharded["trainer"]
+    datasets = sharded["datasets"]
+    tconf = live.conf
+    built = sorted(cuda_build.build_log)
+
+    def trainer_on(mesh, dense):
+        model = CtrDnn(N_SLOTS, tconf.row_width, dense_dim=DENSE,
+                       hidden=HIDDEN, seed=0, device="cuda")
+        tr = MultiChipTrainer(model, tconf, mesh, trainer.conf)
+        tr.load_dense_state(*copy.deepcopy(dense))
+        return tr
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        for n_new, ds in ((2, datasets[3]), (POSITIONS, datasets[0])):
+            n_old = live.n_shards
+            mesh = make_mesh(n_new, device="cuda")
+            dense = copy.deepcopy(trainer.dense_state())
+            rebuilt = ShardedSparseTable(tconf, mesh, seed=0)
+            rebuilt.load_state_dict(live.state_dict())
+            (rb,) = drive_hybrid([ds], rebuilt, trainer_on(mesh, dense))
+            moved = live.reshard(mesh)
+            secs = live.last_reshard_s
+            if moved <= 0 or live.n_shards != n_new:
+                raise AssertionError(f"reshard {n_old} -> {n_new} moved "
+                                     f"{moved} rows")
+            trainer = trainer_on(mesh, dense)
+            (lv,) = drive_hybrid([ds], live, trainer)
+            log_sharded_pass(f"reshard {n_old}->{n_new} live", 0, lv)
+            sa, sb = live.state_dict(), rebuilt.state_dict()
+            if ((lv["metrics"]["loss"], lv["metrics"]["auc"])
+                    != (rb["metrics"]["loss"], rb["metrics"]["auc"])
+                    or not np.array_equal(sa["keys"], sb["keys"])
+                    or not np.array_equal(sa["values"], sb["values"])):
+                raise AssertionError(f"live reshard {n_old} -> {n_new} and "
+                                     "the rebuilt table trained differently")
+            rebuilt.close()
+            log(f"reshard {n_old} -> {n_new}: {moved} rows moved in "
+                f"{secs!r} s; the next pass on {n_new} positions bit-equal "
+                f"to a table rebuilt from state_dict ({sa['keys'].shape[0]} "
+                f"rows, loss {lv['metrics']['loss']!r})")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        sk.launches.update(saved)  # not main-path launches
+    if sorted(cuda_build.build_log) != built:
+        raise AssertionError("a kernel was built after a reshard cutover")
+    live.close()
+
+
+def dense_sync_agreement() -> None:
+    """The multi-chip trainer's "kstep" (sync_weight_step 4) and "async"
+    dense sync at small size (4 positions, a narrow tower, the per-shard
+    caches on), two passes each on the card and on the CPU from the same
+    initial weights: finite losses, agreement at small_agreement's
+    tolerances.  "async" pulls only at the pass ends here
+    (sync_weight_step above the pass's 8 step groups): a mid-pass pull
+    reads whatever the update thread has applied by then, so only a
+    pass-end pull, after the drain, is the same on both devices."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    saved = dict(sk.launches)
+    files = write_synth_files(
+        os.path.join(WORK_DIR, "small-dense-sync"), n_files=2,
+        ins_per_file=256, n_sparse_slots=4, vocab_per_slot=50, dense_dim=3,
+        seed=6, zipf_a=ZIPF_A,
+    )
+    for mode, sws in (("kstep", 4), ("async", 1000)):
+        results = {}
+        for device in ("cuda", "cpu"):
+            table, trainer = make_hybrid_world(
+                device, n_slots=4, dense=3, emb=4, hidden=(16, 8),
+                hot_capacity=64, cache_rows=256, sync_dense_mode=mode,
+                sync_weight_step=sws, auc_buckets=1 << 12)
+            ds = PadBoxSlotDataset(make_synth_config(4, 3, 16, 16),
+                                   read_threads=2)
+            ds.set_filelist(files)
+            ds.load_into_memory()
+            metrics = []
+            for _ in range(2):
+                table.begin_pass(ds.unique_keys())
+                metrics.append(trainer.train_from_dataset(ds, table))
+                table.end_pass()
+            results[device] = (metrics, table.state_dict(),
+                               trainer.dense_state()[0])
+            trainer.close()
+            table.close()
+            ds.close()
+        (mg, sg, pg), (mc, sc, pc) = results["cuda"], results["cpu"]
+        for a, b in zip(mg, mc):
+            if not (math.isfinite(a["loss"]) and math.isclose(
+                    a["loss"], b["loss"], rel_tol=1e-4)):
+                raise AssertionError(f"{mode}: card/CPU loss differ: "
+                                     f"{a['loss']} {b['loss']}")
+            if abs(a["auc"] - b["auc"]) > 1e-3:
+                raise AssertionError(f"{mode}: card/CPU auc differ: "
+                                     f"{a['auc']} {b['auc']}")
+        err = float(np.abs(sg["values"] - sc["values"]).max())
+        dense_err = max(float((pg[k].cpu() - pc[k]).abs().max()) for k in pg)
+        if (not np.array_equal(sg["keys"], sc["keys"]) or err > 1e-4
+                or dense_err > 1e-4):
+            raise AssertionError(f"{mode}: card/CPU tables or towers differ "
+                                 f"(rows {err}, tower {dense_err})")
+        log(f"dense sync {mode} (sync_weight_step {sws}) card vs CPU: losses "
+            f"{[m['loss'] for m in mg]} vs {[m['loss'] for m in mc]}, table "
+            f"max abs diff {err!r}, tower {dense_err!r}")
+    sk.launches.update(saved)  # not main-path launches
+
+
+def dense_sync_full(datasets) -> None:
+    """The three dense-sync modes at the hybrid world's full width with
+    the per-shard caches on (sync_weight_step 4), two passes each over the
+    first two Zipf sets, one after another for an in-call comparison of
+    samples/s: finite losses; "kstep"'s position copies and their Adam
+    states equal after its last sync, with every copy's step count equal
+    to the steps taken; "async"'s gradients all applied after the
+    pass-end drain, and the device tower equal to the host master."""
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    saved = dict(sk.launches)
+    sws = 4
+    rates = {}
+    for mode in ("step", "kstep", "async"):
+        table, trainer = make_hybrid_world("cuda", cache_rows=CACHE_ROWS,
+                                           sync_dense_mode=mode,
+                                           sync_weight_step=sws)
+        per_pass = drive_hybrid(datasets, table, trainer)
+        for p, r in enumerate(per_pass):
+            log_sharded_pass(f"dense sync {mode}", p, r)
+        if not all(math.isfinite(r["metrics"]["loss"]) for r in per_pass):
+            raise AssertionError(f"non-finite loss in {mode} dense sync")
+        steps = trainer.global_step
+        if mode == "kstep":
+            if steps % sws:
+                raise AssertionError(f"kstep ended {steps} steps in, between "
+                                     "syncs")
+            first, opt0 = trainer.models[0], trainer.optimizers[0]
+            for m, opt in zip(trainer.models[1:], trainer.optimizers[1:]):
+                for p0, p in zip(first.parameters(), m.parameters()):
+                    s0, st = opt0.state[p0], opt.state[p]
+                    if not (torch.equal(p0, p)
+                            and torch.equal(s0["exp_avg"], st["exp_avg"])
+                            and torch.equal(s0["exp_avg_sq"],
+                                            st["exp_avg_sq"])
+                            and float(st["step"]) == steps):
+                        raise AssertionError("kstep copies differ after a "
+                                             "sync")
+        if mode == "async":
+            ad = trainer.async_dense
+            if not ad.pushes == ad.applied == steps:
+                raise AssertionError(f"async: {ad.pushes} pushes, "
+                                     f"{ad.applied} applied, {steps} steps")
+            master = ad.pull()
+            for name, p in trainer.model.named_parameters():
+                if not torch.equal(p.cpu(), torch.from_numpy(master[name])):
+                    raise AssertionError(f"async: device {name} differs from "
+                                         "the host master after the pass end")
+        rates[mode] = [r["samples_per_s"] for r in per_pass]
+        trainer.close()
+        table.close()
+    sk.launches.update(saved)  # not main-path launches
+    log(f"dense sync at full width (sync_weight_step {sws}, {steps} steps "
+        f"over {len(datasets)} passes): samples/s per pass " + "; ".join(
+            f"{mode} {r}" for mode, r in rates.items()))
 
 
 def hybrid_specs(hybrid: dict) -> dict:
@@ -2015,24 +2466,36 @@ def main(argv=None) -> int:
             f"{cached_load_s!r} s for the Zipf sets; the uncached set with "
             f"the Python parser {py_load_s!r} s, bit-equal blocks")
 
+        def phase(fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            log(f"phase {fn.__name__}: {time.perf_counter() - t!r} s")
+            return out
+
+        cuda = torch.device("cuda")
         P = pass_capacity(n_census)
-        errs = check_parity(P, torch.device("cuda"))
-        errs.update(check_cache_parity(censuses[0], torch.device("cuda")))
-        errs.update(check_hybrid_parity(torch.device("cuda")))
-        res = slice_pass(ds)
-        slice_serial_turn(ds, res["per_pass"])
-        stage_breakdown(ds, res["table"], res["trainer"], profile)
-        feed_turns(ds, res["table"], res["trainer"])
-        small_agreement()
-        prefetch_agreement()
-        cached = cached_path(cached_ds[:CACHED_PASSES])
-        lifecycle_check(censuses[:CACHED_PASSES])
-        persistence_check(cached_ds[:CACHED_PASSES])
-        hybrid = hybrid_path(cached_ds[:HYBRID_PASSES])
-        hybrid_stages(hybrid)
-        small_hybrid_agreement()
-        rows = kernel_times(res, ds, cached, censuses[CACHED_PASSES - 1],
-                            hybrid, errs)
+        errs = phase(check_parity, P, cuda)
+        errs.update(phase(check_cache_parity, censuses[0], cuda))
+        phase(check_shard_cache_parity, censuses[0], cuda)
+        errs.update(phase(check_hybrid_parity, cuda))
+        res = phase(slice_pass, ds)
+        phase(slice_serial_turn, ds, res["per_pass"])
+        phase(stage_breakdown, ds, res["table"], res["trainer"], profile)
+        phase(feed_turns, ds, res["table"], res["trainer"])
+        phase(small_agreement)
+        phase(prefetch_agreement)
+        cached = phase(cached_path, cached_ds[:CACHED_PASSES])
+        phase(lifecycle_check, censuses[:CACHED_PASSES])
+        phase(persistence_check, cached_ds[:CACHED_PASSES])
+        hybrid = phase(hybrid_path, cached_ds[:HYBRID_PASSES])
+        phase(hybrid_stages, hybrid)
+        phase(small_hybrid_agreement)
+        sharded = phase(sharded_cached_path, hybrid)
+        phase(reshard_check, sharded)
+        phase(dense_sync_agreement)
+        phase(dense_sync_full, cached_ds[:2])
+        rows = phase(kernel_times, res, ds, cached,
+                     censuses[CACHED_PASSES - 1], hybrid, errs)
         ds.close()
         for d in cached_ds:
             d.close()

@@ -277,8 +277,14 @@ class SparseTableConfig:
 @dataclasses.dataclass
 class TrainerConfig:
     # dense sync of the multi-chip trainer: "step" sums the positions'
-    # gradients every step (the only mode ported)
+    # gradients every step; "kstep" updates each position's own dense copy
+    # and averages the copies every sync_weight_step steps; "async" sums
+    # the gradients like "step" but hands them, one step late, to a host
+    # table whose thread applies the optimizer (parallel/async_dense.py),
+    # and pulls the parameters back every sync_weight_step steps and at
+    # the pass end
     sync_dense_mode: str = "step"
+    sync_weight_step: int = 1
     dense_lr: float = 1e-3
     dense_optimizer: str = "adam"
     auc_buckets: int = 1 << 20
@@ -293,10 +299,7 @@ class TrainerConfig:
     prefetch_batches: int = 2
 
     def __post_init__(self):
-        if self.sync_dense_mode in ("kstep", "async"):
-            raise not_ported(f"sync_dense_mode={self.sync_dense_mode!r}",
-                             "multi-chip cut-outs, item 3")
-        if self.sync_dense_mode != "step":
+        if self.sync_dense_mode not in ("step", "kstep", "async"):
             raise ValueError(
                 f"unknown sync_dense_mode {self.sync_dense_mode!r}"
             )

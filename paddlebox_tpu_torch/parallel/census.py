@@ -1,9 +1,11 @@
 """Shared-dictionary census exchange (reference: paddlebox_tpu/parallel/census.py,
-without its telemetry and the cache mirrors).
+without its telemetry).
 
 Every rank derives the same **shared dictionary** from the global census
-stream: the placement planner's hot set (sparse/placement.py).  No
-collective builds it; determinism does.  A census message is then ``(a
+stream: the placement planner's hot set (sparse/placement.py) and the keys
+resident in any shard's HBM cache, which every rank predicts by replaying
+each shard's cache directory on a rows-free twin (:class:`FleetCacheMirror`).
+No collective builds it; determinism does.  A census message is then ``(a
 membership bitmap over the dictionary, the varint sorted-delta cold
 tail)``: a dictionary key costs one bit, a cold key about 1-2 bytes
 (utils/keycodec.py).  Every message carries the dictionary's size and a
@@ -13,9 +15,8 @@ are identical to the reference's.
 
 Transports: :class:`LoopbackTransport` (one process: the encode -> decode
 path still runs) and :class:`InProcessCensusGroup` (N simulated ranks on
-threads, for tests).  The reference's ``FleetCacheMirror`` (metadata twins
-of the per-shard HBM caches, joining the dictionary) and its multi-host
-``KvGatherTransport`` come with the cached and the multi-process slices.
+threads, for tests).  The reference's multi-host ``KvGatherTransport``
+comes with the multi-process slice.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from paddlebox_tpu_torch.sparse.engine.hbm_cache import HbmCache
 from paddlebox_tpu_torch.sparse.store import splitmix64
 from paddlebox_tpu_torch.utils import keycodec
 
@@ -129,26 +131,99 @@ class _GroupTransport:
 
 
 # --------------------------------------------------------------------------- #
+# cache mirrors
+# --------------------------------------------------------------------------- #
+class FleetCacheMirror:
+    """Metadata-only twins of EVERY shard's HbmCache directory.
+
+    Cache admission (sparse/engine/hbm_cache.py) is a deterministic
+    function of the per-shard census sequence, and every rank holds the
+    same global census, so every rank can replay every shard's
+    lookup -> touch -> plan_update -> commit sequence on a rows-free twin
+    and predict remote residency without a byte on the wire.  Resident
+    keys join the shared dictionary: a key resident anywhere rides the
+    census as one bit.
+
+    A real cache can diverge from its twin (the fault-site fallbacks evict
+    out of band); that costs only compression, since the dictionary is a
+    codebook, not a coherence protocol, and the twins themselves stay
+    identical across ranks because they never see local-only events.
+    """
+
+    def __init__(self, n_shards: int, per_shard_rows: int, aging: float):
+        self.n_shards = int(n_shards)
+        self._dirs = [
+            HbmCache(per_shard_rows, 1, aging=aging, materialize_rows=False)
+            for _ in range(self.n_shards)
+        ]
+
+    def shard_resident(self, shard: int) -> np.ndarray:
+        """Sorted resident keys of one shard's twin."""
+        return self._dirs[shard].snapshot_keys()
+
+    def resident_keys(self) -> np.ndarray:
+        """All residents, globally sorted (shards partition the key space,
+        so the concat is duplicate-free)."""
+        parts = [d.snapshot_keys() for d in self._dirs]
+        parts = [p for p in parts if p.shape[0]]
+        if not parts:
+            return _EMPTY_U64.copy()
+        return np.sort(np.concatenate(parts))
+
+    def step(self, pk: np.ndarray) -> None:
+        """Replay one pass's directory evolution from the global census."""
+        owner = pk % np.uint64(self.n_shards)
+        for o, d in enumerate(self._dirs):
+            sk = pk[owner == np.uint64(o)]
+            plan = d.lookup(sk)
+            d.touch(plan)
+            d.commit_update(plan, d.plan_update(sk, plan))
+
+    def evict(self, keys: np.ndarray) -> None:
+        """Mirror the realized hot promotion: keys promoted into the
+        replicated block leave the real per-shard caches (``take_rows``),
+        so their twins drop them too."""
+        keys = np.asarray(keys, dtype=np.uint64)
+        if not keys.shape[0]:
+            return
+        owner = keys % np.uint64(self.n_shards)
+        for o, d in enumerate(self._dirs):
+            sk = keys[owner == np.uint64(o)]
+            if sk.shape[0]:
+                d.evict_keys(sk)
+
+
+# --------------------------------------------------------------------------- #
 # the exchange
 # --------------------------------------------------------------------------- #
 class CensusExchange:
     """One rank's half of the census collective.
 
-    Every rank must construct this with the SAME planner configuration and
-    feed it the same call sequence: the dictionary is derived state, and
-    the digest in every message checks that the derivation stayed in
-    lockstep.  ``exchange(local_census)`` returns the global census,
-    identical on every rank and equal to :func:`legacy_union`.
+    Every rank must construct this with the SAME planner and mirror
+    configuration and feed it the same call sequence: the dictionary is
+    derived state, and the digest in every message checks that the
+    derivation stayed in lockstep.  ``exchange(local_census)`` returns the
+    global census, identical on every rank and equal to
+    :func:`legacy_union`.
+
+    ``realize=True`` when the owning table materializes the plan's hot set
+    on the device: hot keys then never reach the real per-shard caches
+    (promotion takes them out), so the twins replay the same split (evict
+    the hot keys, see only the cold census) or residency drifts.
     """
 
-    def __init__(self, transport, planner=None, codec: str = "varint",
-                 channel: str = "census"):
+    def __init__(self, transport, planner=None,
+                 mirror: Optional[FleetCacheMirror] = None,
+                 codec: str = "varint", channel: str = "census",
+                 realize: bool = False):
         if codec not in ("varint", "raw"):
             raise ValueError(f"codec must be varint|raw, got {codec!r}")
         self.transport = transport
         self.planner = planner
+        self.mirror = mirror
         self.codec = codec
         self.channel = channel
+        self.realize = bool(realize)
         self._known: np.ndarray = _EMPTY_U64.copy()
         self.last_wire_bytes = 0  # this rank's encoded payload size
 
@@ -249,7 +324,7 @@ class CensusExchange:
     # -- the collective --------------------------------------------------- #
     def exchange(self, local_census: np.ndarray) -> np.ndarray:
         """Gather every rank's census -> the global census (sorted unique),
-        advancing the planner's dictionary for the NEXT pass."""
+        advancing the planner and mirror dictionary for the NEXT pass."""
         local_pk = np.unique(np.asarray(local_census, dtype=np.uint64))
         known = self._known
         payload = self._encode(local_pk, known)
@@ -274,12 +349,29 @@ class CensusExchange:
     def _advance(self, pk: np.ndarray) -> None:
         """Evolve the shared dictionary from the agreed global census: a
         pure function of ``pk``, so every rank stays in lockstep."""
-        self._known = _EMPTY_U64.copy()
+        parts = []
+        hot = _EMPTY_U64
         if self.planner is not None:
             self.planner.observe(pk)
             plan = self.planner.update_plan()
             if plan.n_hot:
-                self._known = plan.hot_keys
+                parts.append(plan.hot_keys)
+                hot = plan.hot_keys
+        if self.mirror is not None:
+            if self.realize and hot.shape[0]:
+                self.mirror.evict(hot)
+                self.mirror.step(np.setdiff1d(pk, hot, assume_unique=True))
+            else:
+                self.mirror.step(pk)
+            res = self.mirror.resident_keys()
+            if res.shape[0]:
+                parts.append(res)
+        if not parts:
+            self._known = _EMPTY_U64.copy()
+        elif len(parts) == 1:
+            self._known = parts[0]
+        else:
+            self._known = np.unique(np.concatenate(parts))
 
 
 def legacy_union(censuses: Sequence[np.ndarray]) -> np.ndarray:

@@ -1,6 +1,5 @@
 """Multi-chip sparse table: the pass working set sharded by ``key % n``
-(reference: paddlebox_tpu/parallel/sharded_table.py, single-process,
-uncached and serial).
+(reference: paddlebox_tpu/parallel/sharded_table.py, single-process).
 
 Every shard position owns the rows whose key hashes to it.  The host half
 mirrors the single-chip ``SparseTable`` (same host store, same pass
@@ -42,13 +41,31 @@ places only inside begin_pass; ``flush`` writes the resident hot rows back
 to the host store, so every barrier sees truth.  The cold census
 (``_pass_keys``) excludes the resident hot keys.
 
+Per-shard HBM caches (``hbm_cache_rows`` split evenly over the shards,
+on by default as in the reference): each shard position keeps its own
+``HbmCache`` of its cold rows across passes.  begin_pass fetches only each
+shard's census misses from the host and fills the hits on the device
+(``sorted_search`` resolves, ``gather_slots`` reads); end_pass updates the
+resident rows and admits new ones in place (``scatter_rows``) and writes
+back only the cold and evicted rows, in one globally sorted write-back.
+A promotion into the hot block reads the row out of its shard's cache
+(``take_rows``), so the block never starts from a stale store row.  The
+fault sites ``cache.fetch`` and ``cache.admit`` degrade a pass to the
+uncached lifecycle, never to stale rows.
+
 The overlapped pass boundary is the single-chip table's: end_pass hands
 its rows to the merge thread, and ``prepare_pass`` stages the next pass's
-stacked cold working set on the staging thread (host work only), which
-begin_pass consumes when the census and the resident hot set match.
+stacked cold working set on the staging thread (host work only; only
+each shard's cache misses), which begin_pass consumes when the census and
+the resident hot set match.
 
-Not ported here (each raises ``NotImplementedError``): the per-shard HBM
-caches, ``reshard``; and multi-process ownership.
+``reshard`` grows or shrinks the shard count at a pass boundary, all or
+nothing: a migration that changes nothing, then a cutover that commits.
+Training after it is bit-equal to a table rebuilt at the new count from
+a checkpoint.
+
+Not ported here: multi-process ownership (every shard lives in this
+process and its one host store).
 """
 
 from __future__ import annotations
@@ -61,17 +78,24 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from paddlebox_tpu_torch.config import SparseTableConfig, flags, not_ported
+from paddlebox_tpu_torch.config import SparseTableConfig, flags
 from paddlebox_tpu_torch.data.feed import HostBatch
-from paddlebox_tpu_torch.parallel.census import CensusExchange, LoopbackTransport
+from paddlebox_tpu_torch.parallel.census import (
+    CensusExchange,
+    FleetCacheMirror,
+    LoopbackTransport,
+)
 from paddlebox_tpu_torch.parallel.mesh import Mesh
+from paddlebox_tpu_torch.sparse.engine import HbmCache
 from paddlebox_tpu_torch.sparse.placement import PlacementPlanner, hot_churn
 from paddlebox_tpu_torch.sparse.table import (
     SparseTable,
+    _empty_rows,
     _next_pow2,
     _patch_in,
     _sorted_unique,
 )
+from paddlebox_tpu_torch.utils import faults
 from paddlebox_tpu_torch.utils.keycodec import (
     decode_u64_with_perm,
     encode_u64_with_perm,
@@ -145,12 +169,6 @@ class ShardedSparseTable(SparseTable):
 
     def __init__(self, conf: SparseTableConfig, mesh: Mesh, seed: int = 0,
                  bucket_slack: float = 2.0):
-        if conf.hbm_cache_rows > 0 and flags.hbm_cache:
-            raise not_ported(
-                "the per-shard HBM cache of ShardedSparseTable (pass "
-                "hbm_cache_rows=0 or set PADDLEBOX_TORCH_HBM_CACHE=0)",
-                "multi-chip cache, item 2",
-            )
         super().__init__(conf, seed, device=mesh.device)
         self.mesh = mesh
         self.n_shards = mesh.n
@@ -184,32 +202,78 @@ class ShardedSparseTable(SparseTable):
         # resident hot rows updated by a pass and not yet written back
         self._hot_dirty = False
         self._census: Optional[CensusExchange] = None
+        # the planner's evidence carried across a reshard cutover: it seeds
+        # the rebuilt planner, so the hot set survives the new shard map
+        self._carry_freq: Optional[tuple] = None
+        # one HbmCache per shard position, built by _caches(), and the
+        # pass's per-shard cache plans (None when the pass runs uncached)
+        self._shard_cache_list: list = []
+        self._cache_plans: Optional[list] = None
+        self.last_shard_hits: list = []
+        self.last_shard_misses: list = []
         # host row traffic of the last begin_pass / end_pass, for reports:
-        # cold rows host -> device, and hot rows moved by the migration
-        # (promoted rows fetched plus demoted rows written back)
+        # cold rows host -> device (the cache misses), and hot rows moved
+        # by the migration (promoted rows fetched plus demoted rows
+        # written back)
         self.last_promotion_rows = 0
         self.last_hot_moved_rows = 0
+        self.last_reshard_s = 0.0
 
     def _get_cache(self):
-        """The sharded table runs uncached: its per-shard caches are not
-        ported (the constructor refuses a config that asks for them)."""
+        """Unused here: the sharded lifecycle goes through the per-shard
+        list (_caches)."""
         return None
+
+    def _caches(self) -> list:
+        """One HbmCache per shard position, built on first use (empty when
+        the cache is off): ``hbm_cache_rows`` split evenly over the
+        shards, every one on the mesh's device."""
+        if not self._cache_tried:
+            with self._cache_lock:
+                if not self._cache_tried:
+                    per_shard = self.conf.hbm_cache_rows // self.n_shards
+                    if per_shard > 0 and flags.hbm_cache:
+                        self._shard_cache_list = [
+                            HbmCache(per_shard, self.conf.row_width + 1,
+                                     aging=self.conf.hbm_cache_aging,
+                                     device=self.device)
+                            for _ in range(self.n_shards)
+                        ]
+                    self._cache_tried = True
+        return self._shard_cache_list
 
     # -- census wire (placement + compression) ----------------------------- #
     def _census_exchange_obj(self) -> CensusExchange:
         """The CensusExchange over a loopback transport, with the placement
-        planner unless placement is "hash"."""
+        planner unless placement is "hash", seeded from the caches' LFU
+        evidence and from a reshard's carried tracker, and with the fleet
+        cache mirror when the caches are on."""
         if self._census is None:
             planner = None
+            mirror = None
             if self._placement_mode in ("hybrid", "loopback"):
                 planner = PlacementPlanner(
                     hot_capacity=self.conf.placement_hot_capacity,
                     aging=self.conf.placement_aging,
                     update_interval=self.conf.placement_update_interval,
                 )
+                caches = self._caches()
+                for c in caches:
+                    used = np.nonzero(c.used)[0]
+                    if used.shape[0]:
+                        planner.seed(c.keys[used], c.freq[used])
+                if self._carry_freq is not None:
+                    planner.seed(*self._carry_freq)
+                    self._carry_freq = None
+                if caches:
+                    mirror = FleetCacheMirror(self.n_shards,
+                                              caches[0].capacity,
+                                              self.conf.hbm_cache_aging)
             codec = "raw" if flags.hostplane_codec == "raw" else "varint"
-            self._census = CensusExchange(LoopbackTransport(),
-                                          planner=planner, codec=codec)
+            self._census = CensusExchange(
+                LoopbackTransport(), planner=planner, mirror=mirror,
+                codec=codec, realize=self._hot_realize,
+            )
         return self._census
 
     def _exchange_census(self, pk: np.ndarray) -> np.ndarray:
@@ -344,14 +408,37 @@ class ShardedSparseTable(SparseTable):
             )
         self._hot_keys = np.asarray(target, np.uint64).copy()
 
+    def _fetch_owned_hot_rows(self, keys: np.ndarray) -> np.ndarray:
+        """Promotion read-through, shard by shard: cache hits come out of
+        the cache and leave its directory (``take_rows``: the hot block is
+        their truth now), misses resolve from the store and the overlay,
+        unseen keys init key-deterministically."""
+        caches = self._caches()
+        if not caches:
+            return self._resolve_or_init(keys)
+        out = np.zeros((keys.shape[0], self.conf.row_width + 1), np.float32)
+        owner = keys % np.uint64(self.n_shards)
+        for o, cache in enumerate(caches):
+            pos = np.nonzero(owner == np.uint64(o))[0]
+            if not pos.shape[0]:
+                continue
+            sk = keys[pos]
+            with self._cache_lock:
+                hit, rows = cache.take_rows(sk)
+            if hit.any():
+                out[pos[hit]] = rows
+            if not hit.all():
+                out[pos[~hit]] = self._resolve_or_init(sk[~hit])
+        return out
+
     def _fetch_hot_rows(self, promote: np.ndarray) -> np.ndarray:
-        """[P, W+1] rows for the sorted promoted keys, read through the host
-        store (uncached, and in one process every shard is owned), with
-        the key-deterministic init for unseen keys.  Under "loopback" the
-        rows ride the migration frame's encode -> decode round trip and
-        must come back bit-exact."""
-        rows = self._resolve_or_init(promote)
-        if promote.shape[0] and self._placement_mode == "loopback":
+        """[P, W+1] rows for the sorted promoted keys (in one process every
+        shard is owned).  Under "loopback" the rows ride the migration
+        frame's encode -> decode round trip and must come back bit-exact."""
+        if not promote.shape[0]:
+            return _empty_rows(self.conf.row_width + 1)
+        rows = self._fetch_owned_hot_rows(promote)
+        if self._placement_mode == "loopback":
             dk, drows = _decode_migration(_encode_migration(promote, rows))
             if not (np.array_equal(dk, promote)
                     and np.array_equal(drows, rows)):
@@ -361,9 +448,127 @@ class ShardedSparseTable(SparseTable):
             rows = drows
         return rows
 
-    # -- cut-outs ----------------------------------------------------------- #
+    def abort_pass(self) -> None:
+        self._cache_plans = None
+        super().abort_pass()
+
+    # -- live reshard ------------------------------------------------------- #
     def reshard(self, new_mesh: Mesh) -> int:
-        raise not_ported("ShardedSparseTable.reshard", "multi-chip reshard, item 4")
+        """Grow or shrink the shard count at a pass boundary.  Returns the
+        number of rows whose owner shard changed.
+
+        The cut point is the checkpoint barrier: ``flush`` lands the hot
+        block and the dirty cache rows and waits out the merges, so the
+        host store is truth for every key before anything moves; a staged
+        next pass is dropped (it was laid out for the old split).  Two
+        phases, each a fault site: ``_reshard_migrate`` frames the
+        owner-changed rows hottest first and checks their round trip
+        without changing anything, ``_reshard_cutover`` commits.  A
+        failure in either restores the old shard map (``_reshard_abort``)
+        and re-raises.
+
+        Rows move verbatim, a new key's init depends on the key alone, and
+        every shard orders its rows by the sorted global census, so
+        training after a live reshard is bit-equal to a table rebuilt at
+        the new shard count from a checkpoint."""
+        if self._in_pass:
+            raise RuntimeError("reshard between passes, never inside one")
+        if new_mesh.n < 1:
+            raise ValueError("the new mesh has no shard positions")
+        if new_mesh.device != self.device:
+            raise ValueError(
+                f"the new mesh is on {new_mesh.device}, the table on "
+                f"{self.device}: every shard lives on the table's device")
+        self.flush()
+        self._discard_stage()
+        if new_mesh.n == self.n_shards:
+            return 0
+        old = self._reshard_snapshot()
+        t0 = time.perf_counter()
+        try:
+            moved = self._reshard_migrate(new_mesh)
+            self._reshard_cutover(new_mesh)
+        except Exception:
+            self._reshard_abort(old)
+            stats.add("reshard.aborts")
+            raise
+        stats.add("reshard.migrated_rows", moved)
+        self.last_reshard_s = time.perf_counter() - t0
+        return moved
+
+    def _reshard_snapshot(self) -> dict:
+        """References to everything the cutover replaces: the migration
+        changes nothing and the cutover swaps these fields only after its
+        fault site, so on every abort they are still the old state."""
+        return {
+            "mesh": self.mesh, "n_shards": self.n_shards,
+            "caches": self._shard_cache_list,
+            "cache_tried": self._cache_tried, "census": self._census,
+            "last_serve_n": self._last_serve_n,
+            "carry_freq": self._carry_freq, "hot_keys": self._hot_keys,
+            "hot_values": self.hot_values, "hot_g2sum": self.hot_g2sum,
+            "hot_dirty": self._hot_dirty,
+        }
+
+    def _reshard_migrate(self, new_mesh: Mesh) -> int:
+        """Frame the owner-changed rows for the new shard map, hottest
+        first by the planner's evidence (ties in key order), and check
+        that the frame decodes to them bit for bit, or abort: the
+        reference's loopback discipline, which holds the wire format to
+        what a second owner would receive.  Changes nothing: in one
+        process ownership never leaves the one host store, so no row
+        merges or drops.  Returns the number of rows moved."""
+        faults.inject("reshard.migrate")
+        keys, rows = self._store.materialize()
+        moved_mask = (keys % np.uint64(self.n_shards)
+                      != keys % np.uint64(new_mesh.n))
+        mk, mrows = keys[moved_mask], rows[moved_mask]
+        planner = None if self._census is None else self._census.planner
+        if planner is not None and mk.shape[0]:
+            order = np.argsort(-planner.frequencies(mk), kind="stable")
+            mk, mrows = mk[order], mrows[order]
+        dk, drows = _decode_migration(_encode_migration(mk, mrows))
+        if not (np.array_equal(dk, mk) and np.array_equal(drows, mrows)):
+            raise RuntimeError(
+                "reshard migration payload failed the loopback round-trip "
+                "verify")
+        return int(moved_mask.sum())
+
+    def _reshard_cutover(self, new_mesh: Mesh) -> None:
+        """Commit the new shard map.  The fault site fires before any
+        change, so a failed cutover leaves the old map whole.  The flush
+        at the cut point drained the caches and the hot block, so dropping
+        both loses nothing; the planner's evidence seeds the rebuilt
+        census exchange."""
+        faults.inject("reshard.cutover")
+        if self._census is not None and self._census.planner is not None:
+            self._carry_freq = self._census.planner.evidence()
+        self._census = None
+        self.mesh = new_mesh
+        self.n_shards = new_mesh.n
+        # the caches, the scratch sizing and the hot block belong to the
+        # old split; the next begin_pass rebuilds them
+        self._shard_cache_list = []
+        self._cache_tried = False
+        self._cache_plans = None
+        self._shard_keys = None
+        self._last_serve_n = 0
+        self._drop_hot_residency()
+
+    def _reshard_abort(self, old: dict) -> None:
+        """Restore the old shard map from the snapshot's references."""
+        self.mesh = old["mesh"]
+        self.n_shards = old["n_shards"]
+        self._shard_cache_list = old["caches"]
+        self._cache_tried = old["cache_tried"]
+        self._census = old["census"]
+        self._last_serve_n = old["last_serve_n"]
+        self._carry_freq = old["carry_freq"]
+        self._hot_keys = old["hot_keys"]
+        self.hot_values = old["hot_values"]
+        self.hot_g2sum = old["hot_g2sum"]
+        self._hot_dirty = old["hot_dirty"]
+        self._cache_plans = None
 
     # -- pass lifecycle --------------------------------------------------- #
     def _shard_split(self, pk: np.ndarray):
@@ -393,13 +598,15 @@ class ShardedSparseTable(SparseTable):
     def _stage_job(self, pass_keys):
         """The staging thread's half (host work only): the stacked cold
         working set of the next census under the CURRENT resident hot set
-        (only begin_pass's exchange changes the plan).  begin_pass discards
-        the stage when the hot set churned in between."""
+        (only begin_pass's exchange changes the plan), each shard resolving
+        only the misses of its cache's snapshot directory.  begin_pass
+        discards the stage when the hot set churned in between, or when
+        the fetch was fault-injected (the buffer is then None)."""
         if callable(pass_keys):
             pass_keys = pass_keys()
         # one process: the local census is the global one
         pk = _sorted_unique(pass_keys)
-        _, stage_seq, entries = self._stage_snapshot()
+        cache_keys, stage_seq, entries = self._stage_snapshot()
         shot = self._hot_keys if self._hot_realize else None
         cold_pk = (np.setdiff1d(pk, shot, assume_unique=True)
                    if shot is not None and shot.shape[0] else pk)
@@ -407,7 +614,11 @@ class ShardedSparseTable(SparseTable):
         lvals = np.zeros((self.n_shards, self._sharded_cap(shard_keys),
                           self.conf.row_width + 1), dtype=np.float32)
         for o, sk in enumerate(shard_keys):
-            self._stage_resolve(sk, lvals[o, : sk.shape[0]], None, entries)
+            if not self._stage_resolve(
+                    sk, lvals[o, : sk.shape[0]],
+                    cache_keys[o] if cache_keys else None, entries):
+                lvals = None
+                break
         # stage_seq stays last: _pop_stage reads payload[-1]
         return pk, owner, shard_keys, row_within, lvals, shot, stage_seq
 
@@ -418,7 +629,7 @@ class ShardedSparseTable(SparseTable):
         if payload is None:
             return None
         spk, _, shard_keys, row_within, lvals, shot, _ = payload
-        if not (np.array_equal(spk, pk)
+        if not (lvals is not None and np.array_equal(spk, pk)
                 and (shot is None or np.array_equal(shot, self._hot_keys))
                 and lvals.shape[1] == self._sharded_cap(shard_keys)):
             stats.add("pass.stage_discards")
@@ -428,11 +639,56 @@ class ShardedSparseTable(SparseTable):
                 _patch_in(sk, lvals[o, : sk.shape[0]], patches)
         return shard_keys, row_within, lvals
 
+    def _cached_sync_resolve(self, caches, shard_keys, lvals,
+                             pk: np.ndarray) -> Optional[list]:
+        """The synchronous census resolve against the per-shard caches:
+        each shard fetches only its misses from the host.  Returns the
+        shards' cache plans, which the device hit-fill reuses.  A
+        fault-injected fetch (``cache.fetch``) degrades the whole pass to
+        the uncached host resolve (dirty rows drain first, the census
+        leaves every cache) and returns None: no hit-fill then."""
+        try:
+            plans = []
+            for o, sk in enumerate(shard_keys):
+                plan = caches[o].lookup(sk)
+                miss_pos = np.nonzero(~plan.hit_mask)[0]
+                if miss_pos.shape[0]:
+                    lvals[o, miss_pos] = self._cache_fetch_rows(sk[miss_pos])
+                plans.append(plan)
+        except faults.FaultInjected:
+            self._cache_degrade(pk)
+            lvals[:] = 0.0
+            for o, sk in enumerate(shard_keys):
+                lvals[o, : sk.shape[0]] = self._resolve_or_init(sk)
+            return None
+        return plans
+
+    def _cache_hit_fill(self, caches, plans, shard_keys,
+                        buf: torch.Tensor) -> int:
+        """Fill every shard's cache hits into the stacked buffer ``buf``
+        [n, cap, W+1] straight from the device (hits never touch the
+        host): a gather_slots of the hit slots into the hit positions.
+        Credits each census (``touch``), keeps the pass's plans for
+        end_pass and returns the hits."""
+        self._cache_plans = []
+        for o, sk in enumerate(shard_keys):
+            plan = plans[o] if plans is not None else caches[o].lookup(sk)
+            if plan.n_hits:
+                pos = torch.from_numpy(plan.hit_pos.astype(np.int64))
+                buf[o].index_copy_(0, pos.to(self.device),
+                                   caches[o].gather_rows(plan.hit_slots))
+            caches[o].touch(plan)
+            self._cache_plans.append(plan)
+            self.last_shard_hits.append(plan.n_hits)
+            self.last_shard_misses.append(int(sk.shape[0]) - plan.n_hits)
+        return sum(self.last_shard_hits)
+
     def begin_pass(self, pass_keys: np.ndarray) -> None:
         """Exchange the census (advancing the planner), reconcile the hot
         block with the plan, and promote the cold working set to the device
-        as the stacked ``values``/``g2sum``; a matching stage leaves only
-        its patch and the copy."""
+        as the stacked ``values``/``g2sum``: the host supplies each shard's
+        cache misses, the hits are filled on the device.  A matching stage
+        leaves only its patch, the copy and the fill."""
         if self._in_pass:
             raise RuntimeError("end_pass the previous pass first")
         t0 = self._stamp()
@@ -449,26 +705,42 @@ class ShardedSparseTable(SparseTable):
         t2 = time.perf_counter()
         staged = self._use_sharded_stage(payload, patches, pk)
         t3 = time.perf_counter()
+        caches = self._caches()
+        plans = None
         if staged is not None:
             shard_keys, row_within, lvals = staged
         else:
             _, shard_keys, row_within = self._shard_split(cold_pk)
             cap = self._sharded_cap(shard_keys)
             lvals = np.zeros((self.n_shards, cap, w + 1), dtype=np.float32)
-            for o, sk in enumerate(shard_keys):
-                lvals[o, : sk.shape[0]] = self._resolve_or_init(sk)
+            if caches:
+                plans = self._cached_sync_resolve(caches, shard_keys, lvals,
+                                                  cold_pk)
+                if plans is None:
+                    caches = []
+            else:
+                for o, sk in enumerate(shard_keys):
+                    lvals[o, : sk.shape[0]] = self._resolve_or_init(sk)
         t4 = self._stamp()
         buf = torch.from_numpy(lvals).to(self.device)
+        t5 = self._stamp()
+        self._cache_plans = None
+        self.last_shard_hits, self.last_shard_misses = [], []
+        hits = 0
+        if caches:
+            hits = self._cache_hit_fill(caches, plans, shard_keys, buf)
+            self.last_cache_hits = hits
+            self.last_cache_misses = int(cold_pk.shape[0]) - hits
         # two contiguous tensors: the kernels take no strided views
         self.values = buf[:, :, :w].contiguous()
         self.g2sum = buf[:, :, w].contiguous()
-        t5 = self._stamp()
+        t6 = self._stamp()
         self.last_begin_breakdown = {
             "staged": staged is not None, "census_s": t1 - t0,
             "stage_wait_s": t2 - t1, "patch_s": t3 - t2,
-            "resolve_s": t4 - t3, "h2d_s": t5 - t4, "cache_fill_s": 0.0,
+            "resolve_s": t4 - t3, "h2d_s": t5 - t4, "cache_fill_s": t6 - t5,
         }
-        self.last_promotion_rows = int(cold_pk.shape[0])
+        self.last_promotion_rows = int(cold_pk.shape[0]) - hits
         self._shard_keys = shard_keys
         self._shard_live = np.asarray(
             [sk.shape[0] for sk in shard_keys], np.int32
@@ -502,15 +774,73 @@ class ShardedSparseTable(SparseTable):
                 ).cpu().numpy())
         return ks, vs
 
+    def _end_pass_cached_sharded(self, caches, plans) -> None:
+        """Cached end of pass, shard by shard: hits and admits update their
+        cache slots in place (``set_rows``) from the stacked working set,
+        and only the cold and evicted rows come to the host, in ONE
+        globally sorted write-back.  A fault at ``cache.admit`` degrades
+        every shard to the full write-back with the census hits leaving
+        the caches, as on an uncached table."""
+        try:
+            faults.inject("cache.admit")
+            upds = [c.plan_update(self._shard_keys[o], plans[o])
+                    for o, c in enumerate(caches)]
+        except faults.FaultInjected:
+            stats.add("cache.admit_fallbacks")
+            ks, vs = self._live_rows()
+            with self._cache_lock:
+                for o, c in enumerate(caches):
+                    sk = self._shard_keys[o]
+                    c.evict_keys(sk[plans[o].hit_mask])
+                self._sorted_write_back(ks, vs)
+            self.last_write_back_rows = int(sum(k.shape[0] for k in ks))
+            return
+        full = torch.cat([self.values, self.g2sum[:, :, None]], dim=2)
+        dev_idx = lambda a: torch.from_numpy(a.astype(np.int64)).to(
+            self.device)
+        ks, vs = [], []
+        n_evicted = 0
+        for o, c in enumerate(caches):
+            sk = self._shard_keys[o]
+            plan, upd = plans[o], upds[o]
+            if not sk.shape[0]:
+                continue
+            upd_pos = np.concatenate([plan.hit_pos, upd.admit_pos])
+            if upd_pos.shape[0]:
+                if upd.victim_slots.shape[0]:
+                    # victims are read before set_rows overwrites them
+                    ks.append(upd.victim_keys)
+                    vs.append(c.gather_rows(upd.victim_slots).cpu().numpy())
+                    n_evicted += int(upd.victim_slots.shape[0])
+                c.set_rows(np.concatenate([plan.hit_slots, upd.admit_slots]),
+                           full[o].index_select(0, dev_idx(upd_pos)))
+            if upd.cold_pos.shape[0]:
+                ks.append(sk[upd.cold_pos])
+                vs.append(full[o].index_select(
+                    0, dev_idx(upd.cold_pos)).cpu().numpy())
+        with self._cache_lock:
+            for o, c in enumerate(caches):
+                c.commit_update(plans[o], upds[o])
+            self._sorted_write_back(ks, vs)
+        self.last_evicted_rows = n_evicted
+        self.last_write_back_rows = int(sum(k.shape[0] for k in ks))
+
     def end_pass(self) -> None:
-        """Write the cold working set back to the host store.  The hot block
-        stays on the device: its rows are now newer than the store until
-        the next flush or demotion."""
+        """Write the cold working set back: to each shard's cache for its
+        resident and admitted rows, to the host store for the rest.  The
+        hot block stays on the device: its rows are now newer than the
+        store until the next flush or demotion."""
         if not self._in_pass:
             raise RuntimeError("no pass in flight")
-        ks, vs = self._live_rows()
-        self._sorted_write_back(ks, vs)
-        self.last_write_back_rows = int(sum(k.shape[0] for k in ks))
+        caches = self._caches()
+        plans, self._cache_plans = self._cache_plans, None
+        self.last_evicted_rows = 0
+        if caches and plans is not None:
+            self._end_pass_cached_sharded(caches, plans)
+        else:
+            ks, vs = self._live_rows()
+            self._sorted_write_back(ks, vs)
+            self.last_write_back_rows = int(sum(k.shape[0] for k in ks))
         self.values = None
         self.g2sum = None
         if self._hot_keys.shape[0]:

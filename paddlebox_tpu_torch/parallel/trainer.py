@@ -17,23 +17,34 @@ the collectives (parallel/collectives.py) span all positions:
     (serve_map) -> sparse adagrad -> the scatter_add_rows kernel.  Hot
     gradients fold over positions in a fixed ascending order and every
     copy of the hot block applies the identical update.
-  * dense sync ("step"): the positions' gradients of ``per_ins.sum() /
-    psum(count)`` are summed (psum) and one ``torch.optim.Adam`` step
-    applies them to the one model.
+  * dense sync, ``TrainerConfig.sync_dense_mode``:
+    - "step": the positions' gradients of ``per_ins.sum() / psum(count)``
+      are summed (psum) and one ``torch.optim.Adam`` step applies them to
+      the one model.
+    - "kstep": every position holds its own dense copy and Adam state and
+      steps on its own gradient of ``per_ins.sum() / count``; every
+      ``sync_weight_step`` steps the floating leaves of the copies and of
+      their Adam states are averaged (the step counts are left alone).
+      The pass loss is the positions' losses weighted by their counts.
+    - "async": the "step" gradient, handed one step late to a host
+      ``AsyncDenseTable`` (parallel/async_dense.py) whose thread applies
+      Adam; the device parameters are pulled back every
+      ``sync_weight_step`` steps and, after a drain, at the pass end.
   * metrics: one AUC stream per position, merged at read time.
 
 With ``TrainerConfig.prefetch_batches`` > 0 (the default) grouping,
 ``plan_group`` and the feed's copy run on the single-chip trainer's
 producer thread (train/trainer.py), as in the reference.
 
-Cut-outs (each raises ``NotImplementedError``): ``sync_dense_mode``
-kstep/async; the host plane; the watchdog; telemetry;
+Cut-outs (each raises ``NotImplementedError``): the host plane; the
+watchdog; telemetry;
 ``evaluate``; dumps; multi-task models; metric groups; ``slot_mask``;
 ``nan_policy`` other than the raise of ``check_nan_inf``.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Iterable, Iterator, Optional, Sequence
 
@@ -53,6 +64,7 @@ from paddlebox_tpu_torch.metrics.auc import (
 from paddlebox_tpu_torch.models.layers import bce_with_logits, resolve_compute_dtype
 from paddlebox_tpu_torch.ops import sparse_kernels
 from paddlebox_tpu_torch.parallel import collectives
+from paddlebox_tpu_torch.parallel.async_dense import AsyncDenseTable
 from paddlebox_tpu_torch.parallel.mesh import Mesh
 from paddlebox_tpu_torch.parallel.sharded_table import (
     ShardedBatchPlan,
@@ -272,24 +284,110 @@ class MultiChipTrainer:
                 raise ValueError(
                     f"model parameters on {p.device}, mesh on {self.device}"
                 )
+        # one dense copy per position in "kstep" mode (position 0 is the
+        # caller's model; the copies start equal), one shared copy else.
         # torch.optim.Adam's defaults match optax.adam's (trainer.py)
-        self.optimizer = torch.optim.Adam(model.parameters(),
-                                          lr=self.conf.dense_lr)
+        n_copies = self.n_dev if self.conf.sync_dense_mode == "kstep" else 1
+        self.models = [model] + [copy.deepcopy(model)
+                                 for _ in range(n_copies - 1)]
+        self.optimizers = [torch.optim.Adam(m.parameters(),
+                                            lr=self.conf.dense_lr)
+                           for m in self.models]
+        self.optimizer = self.optimizers[0]
+        # the host table of "async" mode, built at the first pass
+        self.async_dense: Optional[AsyncDenseTable] = None
         self.global_step = 0
         self.last_auc_state: Optional[AucState] = None
         self.last_metric_state: Optional[dict] = None
 
     # -- dense persistence -------------------------------------------------- #
     def dense_state(self) -> tuple:
-        """(model state_dict, optimizer state_dict): in "step" mode every
-        position holds the same dense state, so there is one copy."""
+        """(model state_dict, optimizer state_dict) of position 0: in
+        "step" and "async" mode every position holds the same dense state;
+        in "kstep" mode the copies drift between syncs."""
         return self.model.state_dict(), self.optimizer.state_dict()
 
     def load_dense_state(self, params, opt_state=None) -> None:
-        if params is not None:
-            self.model.load_state_dict(params)
+        """Load one dense state into every position's copy; ``params`` may
+        also be a list of one state_dict per position (the reference's
+        stacked per-position state, ``weights.params_from_jax_stacked``),
+        which must be equal where the mode keeps one shared copy."""
+        if isinstance(params, (list, tuple)):
+            if len(params) != self.n_dev:
+                raise ValueError(f"{len(params)} dense states for "
+                                 f"{self.n_dev} positions")
+            if len(self.models) == 1:
+                if not all(torch.equal(params[0][k], p[k])
+                           for p in params[1:] for k in params[0]):
+                    raise ValueError(
+                        f"sync_dense_mode={self.conf.sync_dense_mode!r} "
+                        "keeps one dense copy: the positions' states differ")
+                params = params[:1]
+            for m, p in zip(self.models, params):
+                m.load_state_dict(p)
+        elif params is not None:
+            for m in self.models:
+                m.load_state_dict(params)
         if opt_state is not None:
-            self.optimizer.load_state_dict(opt_state)
+            for o in self.optimizers:
+                o.load_state_dict(opt_state)
+        if self.async_dense is not None:
+            # the host master copy restarts from the loaded state
+            self.close()
+
+    def close(self) -> None:
+        """Retire the host table of "async" mode (raises when its update
+        thread had died)."""
+        table, self.async_dense = self.async_dense, None
+        if table is not None:
+            table.stop()
+
+    @torch.no_grad()
+    def _average_copies(self) -> None:
+        """The "kstep" sync: every floating leaf of the position copies and
+        of their Adam states becomes the copies' mean (an ascending psum
+        over n); Adam's step counts are equal on every copy and stay."""
+        n = len(self.models)
+        for group in zip(*(m.parameters() for m in self.models)):
+            mean = collectives.psum(torch.stack(group))[0] / n
+            for p in group:
+                p.copy_(mean)
+        states = [[o.state[p] for p in m.parameters()]
+                  for m, o in zip(self.models, self.optimizers)]
+        for per_param in zip(*states):
+            for key in ("exp_avg", "exp_avg_sq"):
+                group = [st[key] for st in per_param if key in st]
+                if len(group) == n:
+                    mean = collectives.psum(torch.stack(group))[0] / n
+                    for t in group:
+                        t.copy_(mean)
+
+    def _stage_async(self, grads: Sequence[torch.Tensor]) -> tuple:
+        """Start one step's summed gradient on its way to the host: on the
+        card a non-blocking copy into pinned buffers, then an event behind
+        it, so that waiting for it later waits for this step alone."""
+        if self.device.type != "cuda":
+            return [g.cpu() for g in grads], None
+        host = [torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+                for g in grads]
+        for h, g in zip(host, grads):
+            h.copy_(g, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _push_async(self, staged: tuple) -> None:
+        host, done = staged
+        if done is not None:
+            done.synchronize()
+        names = [name for name, _ in self.model.named_parameters()]
+        self.async_dense.push({k: h.numpy() for k, h in zip(names, host)})
+
+    @torch.no_grad()
+    def _pull_async(self) -> None:
+        master = self.async_dense.pull()
+        for name, p in self.model.named_parameters():
+            p.copy_(torch.from_numpy(master[name]))
 
     # -- state -------------------------------------------------------------- #
     def init_auc(self) -> AucState:
@@ -314,11 +412,15 @@ class MultiChipTrainer:
     # -- the step ----------------------------------------------------------- #
     def _step(self, table: ShardedSparseTable, feed: dict,
               aucs: list) -> tuple:
-        """One step over every position; updates the model, the table and
-        the hot block in place and ``aucs`` (one AucState per position).
-        Returns (psummed loss, instance count) as device scalars."""
+        """One step over every position; updates the model copies (or, in
+        "async" mode, returns their gradient), the table and the hot block
+        in place and ``aucs`` (one AucState per position).  Returns (loss,
+        per-position instance counts [n], summed dense gradients or None)
+        on the device: the psummed loss, or in "kstep" mode each
+        position's own loss [n]."""
         tconf = self.table_conf
         n = self.n_dev
+        mode = self.conf.sync_dense_mode
         hot = "hot_occ" in feed
         if hot:
             rows = hybrid_pull(table.values, table.hot_values,
@@ -329,35 +431,54 @@ class MultiChipTrainer:
             rows = sharded_pull(table.values, feed["serve_rows"],
                                 feed["occ_flat"], tconf.create_threshold,
                                 tconf.cvm_offset)
-        params = list(self.model.parameters())
         mask = feed["ins_mask"]
-        denom = torch.clamp(collectives.psum(mask.sum(1))[0], min=1.0)
+        cnt = mask.sum(1)
+        if mode == "kstep":
+            # each copy trains on its own batch's mean
+            denoms = torch.clamp(cnt, min=1.0)
+        else:
+            denoms = torch.clamp(collectives.psum(cnt), min=1.0)
         losses, pgrads, row_grads, preds = [], [], [], []
         for d in range(n):
+            model = self.models[d % len(self.models)]
+            params = list(model.parameters())
             r = rows[d].detach().requires_grad_(True)
-            logits = self.model(r, feed["key_segments"][d], feed["dense"][d],
-                                mask.shape[1])
+            logits = model(r, feed["key_segments"][d], feed["dense"][d],
+                           mask.shape[1])
             per_ins = bce_with_logits(logits, feed["labels"][d]) * mask[d]
-            loss = per_ins.sum() / denom
+            loss = per_ins.sum() / denoms[d]
             grads = torch.autograd.grad(loss, params + [r])
             losses.append(loss.detach())
             pgrads.append(grads[:-1])
             row_grads.append(grads[-1])
             preds.append(torch.sigmoid(logits.detach()))
-        summed = [collectives.psum(torch.stack(g))[0] for g in zip(*pgrads)]
-        loss = collectives.psum(torch.stack(losses))[0]
+        summed = None
+        if mode == "kstep":
+            loss = torch.stack(losses)
+            dense_grads = [g for gs in pgrads for g in gs]
+        else:
+            summed = [collectives.psum(torch.stack(g))[0]
+                      for g in zip(*pgrads)]
+            loss = collectives.psum(torch.stack(losses))[0]
+            dense_grads = summed
         if self.conf.check_nan_inf:
-            finite = torch.isfinite(loss)
-            for g in summed + row_grads:
+            finite = torch.isfinite(loss).all()
+            for g in dense_grads + row_grads:
                 finite &= torch.isfinite(g).all()
             if not bool(finite):
                 raise NonFiniteBatchError(
                     f"non-finite loss/grad at step {self.global_step}"
                 )
-        for p, g in zip(params, summed):
-            p.grad = g
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        if mode != "async":
+            # "step": the one copy takes the summed gradient; "kstep":
+            # each copy its own
+            for d, (model, opt) in enumerate(zip(self.models,
+                                                 self.optimizers)):
+                for p, g in zip(model.parameters(),
+                                summed if summed is not None else pgrads[d]):
+                    p.grad = g
+                opt.step()
+                opt.zero_grad(set_to_none=True)
         sharded_push_and_update(
             table.values, table.g2sum, row_grads, feed["occ_flat"],
             feed["serve_map"], feed["serve_uniq"], feed["key_mask"],
@@ -374,7 +495,7 @@ class MultiChipTrainer:
         for d in range(n):
             aucs[d] = update_auc_state(aucs[d], preds[d], feed["labels"][d],
                                        mask[d])
-        return loss, mask.sum()
+        return loss, cnt, summed if mode == "async" else None
 
     # -- public API --------------------------------------------------------- #
     def train_from_dataset(self, dataset, table: ShardedSparseTable,
@@ -414,6 +535,13 @@ class MultiChipTrainer:
         losses, counts = [], []
         hot_occurrences = [0]
         depth = self.conf.prefetch_batches
+        mode = self.conf.sync_dense_mode
+        if mode == "async" and self.async_dense is None:
+            self.async_dense = AsyncDenseTable(
+                dict(self.model.named_parameters()),
+                optimizer=self.conf.dense_optimizer, lr=self.conf.dense_lr)
+        pull_every = max(self.conf.sync_weight_step, 1)
+        pending: list = []  # "async": gradients pushed one step late
 
         def feeds():
             """(device feed, ready event) per group; on the producer thread
@@ -431,10 +559,27 @@ class MultiChipTrainer:
         feed_iter, prefetcher = prefetched(feeds(), depth)
         try:
             for feed, ready in feed_iter:
-                loss, cnt = self._step(table, await_feed(feed, ready), aucs)
+                loss, cnt, grads = self._step(table, await_feed(feed, ready),
+                                              aucs)
+                if grads is not None:
+                    pending.append(self._stage_async(grads))
+                    if len(pending) > 1:
+                        self._push_async(pending.pop(0))
+                    if (self.global_step + 1) % pull_every == 0:
+                        self._pull_async()
                 losses.append(loss)
                 counts.append(cnt)
                 self.global_step += 1
+                if mode == "kstep" and self.global_step % pull_every == 0:
+                    self._average_copies()
+            if mode == "async":
+                # the pass end: the late gradient goes in, the master copy
+                # absorbs everything, the device parameters refresh
+                for g in pending:
+                    self._push_async(g)
+                pending.clear()
+                self.async_dense.drain()
+                self._pull_async()
         finally:
             if prefetcher is not None:
                 prefetcher.close()
@@ -443,7 +588,17 @@ class MultiChipTrainer:
             table.prepare_pass(next_pass_keys)
         merged = AucState(*(torch.stack(ts) for ts in zip(*aucs)))
         metrics = compute_metrics(merged)
-        metrics["loss"] = float(torch.stack(losses).mean()) if losses else 0.0
+        metrics["loss"] = 0.0
+        if losses and mode == "kstep":
+            # local means, recombined weighted by the real instance counts
+            # so that padded empty batches do not bias the pass
+            per_step = torch.stack(losses).double().cpu().numpy()
+            cnts = torch.stack(counts).double().cpu().numpy()
+            num = (per_step * cnts).sum(axis=1)
+            metrics["loss"] = float(
+                (num / np.maximum(cnts.sum(axis=1), 1.0)).mean())
+        elif losses:
+            metrics["loss"] = float(torch.stack(losses).mean())
         metrics["samples"] = float(torch.stack(counts).sum()) if counts else 0.0
         metrics["steps"] = len(losses)
         metrics["duration_s"] = time.monotonic() - t0

@@ -31,9 +31,11 @@ table's write-back) before anything reads the store as truth: ``state_dict``,
 membership without moving rows and is required whenever the store changes
 underneath the cache (``load_state_dict``, ``apply_delta``, ``shrink``).
 
-Left out until the sharded table's per-shard cache is ported (ROADMAP Queue
-A item 2): ``take_rows`` (read-and-evict for hot promotion) and the
-metadata-only twin (``materialize_rows=False``).
+``materialize_rows=False`` builds a metadata-only twin: the directory and
+its policy with no device rows and no device at all (its lookups search the
+host directory), which the census plane's ``FleetCacheMirror``
+(parallel/census.py) replays per shard.  ``take_rows`` is the read-and-evict
+of hot promotion on the sharded table.
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ def _i32(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 class HbmCache:
     def __init__(self, capacity: int, n_cols: int, aging: float = 0.8,
-                 device="cuda"):
+                 device="cuda", materialize_rows: bool = True):
         if capacity <= 0:
             raise ValueError(f"capacity must be positive, got {capacity}")
         if not 0.0 < aging < 1.0:
@@ -98,9 +100,13 @@ class HbmCache:
         self.capacity = int(capacity)
         self.n_cols = int(n_cols)
         self.aging = float(aging)
-        self.device = resolve_device(device)
-        self.rows = torch.zeros((self.capacity, self.n_cols),
-                                dtype=torch.float32, device=self.device)
+        # a twin has no rows, so no device either
+        self.device = resolve_device(device) if materialize_rows else None
+        self.rows: Optional[torch.Tensor] = (
+            torch.zeros((self.capacity, self.n_cols), dtype=torch.float32,
+                        device=self.device)
+            if materialize_rows else None
+        )
         # directory (slot-indexed)
         self.keys = np.zeros(self.capacity, dtype=np.uint64)
         self.used = np.zeros(self.capacity, dtype=bool)
@@ -171,12 +177,18 @@ class HbmCache:
         return pos.cpu().numpy()
 
     def lookup(self, pk: np.ndarray) -> CachePlan:
-        """Resolve a sorted unique census against the directory."""
+        """Resolve a sorted unique census against the directory: through
+        the sorted_search kernel, or on the host for a twin."""
         n = pk.shape[0]
-        if n == 0 or self._sorted_keys.shape[0] == 0:
+        sk = self._sorted_keys
+        if n == 0 or sk.shape[0] == 0:
             return CachePlan(np.zeros(n, dtype=bool), _EMPTY_I32, _EMPTY_I32)
-        pos = self._device_positions(pk)
-        hit = pos >= 0
+        if self.rows is None:
+            pos = np.minimum(np.searchsorted(sk, pk), sk.shape[0] - 1)
+            hit = sk[pos] == pk
+        else:
+            pos = self._device_positions(pk)
+            hit = pos >= 0
         hit_pos = np.nonzero(hit)[0].astype(np.int32)
         return CachePlan(hit, hit_pos, self._sorted_slots[pos[hit]])
 
@@ -255,10 +267,44 @@ class HbmCache:
         self._rebuild_index()
         return int(slots.shape[0])
 
+    def take_rows(self, keys: np.ndarray, pad_to: Optional[int] = None
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """Read and evict for hot promotion: ``keys`` leaving for the
+        replicated hot block must not stay resident here too, or the next
+        census would home them twice.  Returns ``(hit_mask bool [n], rows
+        [hits, n_cols])``, rows aligned with the hit subset of ``keys`` in
+        order; the evicted slots drop clean (the caller now holds the
+        newest copy).  Misses are the caller's to resolve from the store.
+        ``pad_to`` pads the gather to a fixed length with slot 0, as the
+        reference does to reuse one compiled gather."""
+        keys = np.asarray(keys, dtype=np.uint64)
+        mask = self.hit_mask_in(self._sorted_keys, keys)
+        if not mask.any():
+            return mask, np.empty((0, self.n_cols), dtype=np.float32)
+        pos = np.searchsorted(self._sorted_keys, keys[mask])
+        slots = self._sorted_slots[pos]
+        k = int(slots.shape[0])
+        if pad_to is not None and pad_to >= k:
+            padded = np.zeros(pad_to, dtype=np.int32)
+            padded[:k] = slots
+            rows = self.gather_rows(padded).cpu().numpy()[:k]
+        else:
+            rows = self.gather_rows(slots).cpu().numpy()
+        self.used[slots] = False
+        self.dirty[slots] = False
+        self._rebuild_index()
+        return mask, rows
+
     # -- row movement ------------------------------------------------------ #
+    def _check_rows(self, what: str) -> None:
+        if self.rows is None:
+            raise RuntimeError(f"metadata-only cache twin has no rows to "
+                               f"{what} (materialize_rows=False)")
+
     def gather_rows(self, slots: np.ndarray) -> torch.Tensor:
         """Rows of ``slots`` as a new device tensor [K, n_cols], through the
         gather_slots kernel."""
+        self._check_rows("gather")
         return sparse_kernels.gather_slots(self.rows, _i32(slots, self.device))
 
     def set_rows(self, slots: np.ndarray, rows: torch.Tensor) -> None:
@@ -266,6 +312,7 @@ class HbmCache:
         scatter_rows kernel (duplicate slots: the last occurrence wins)."""
         if np.asarray(slots).shape[0] == 0:
             return
+        self._check_rows("set")
         sparse_kernels.scatter_rows(self.rows, _i32(slots, self.device), rows)
 
     # -- coherence --------------------------------------------------------- #

@@ -114,7 +114,46 @@ class PlacementPlanner:
         """The current plan (stable across calls until update_plan)."""
         return self._plan
 
+    def frequencies(self, keys: np.ndarray) -> np.ndarray:
+        """Tracked frequency of each queried key (0.0 when unseen): the
+        reshard migration orders its rows hottest first by it."""
+        q = np.asarray(keys, dtype=np.uint64)
+        out = np.zeros(q.shape[0], dtype=np.float64)
+        if self._keys.shape[0] and q.shape[0]:
+            pos_c = np.minimum(np.searchsorted(self._keys, q),
+                               self._keys.shape[0] - 1)
+            found = self._keys[pos_c] == q
+            out[found] = self._freq[pos_c[found]]
+        return out
+
+    def evidence(self) -> tuple:
+        """(keys, freq) copy of the whole tracker, carried across a
+        reshard cutover so the rebuilt planner starts warm."""
+        return self._keys.copy(), self._freq.copy()
+
     # -- frequency feeding ------------------------------------------------ #
+    def seed(self, keys: np.ndarray, freq: np.ndarray) -> None:
+        """Merge external frequency evidence (an HbmCache's LFU directory,
+        or a carried tracker); a key tracked on both sides keeps the
+        larger frequency."""
+        k = np.asarray(keys, dtype=np.uint64)
+        f = np.asarray(freq, dtype=np.float64)
+        if k.shape[0] != f.shape[0]:
+            raise ValueError("seed keys/freq length mismatch")
+        if not k.shape[0]:
+            return
+        order = np.argsort(k, kind="stable")
+        k, f = k[order], f[order]
+        # collapse duplicate seed keys (max wins)
+        uk, start = np.unique(k, return_index=True)
+        fmax = np.maximum.reduceat(f, start)
+        merged_keys = np.concatenate([self._keys, uk])
+        merged_freq = np.concatenate([self._freq, fmax])
+        order = np.argsort(merged_keys, kind="stable")
+        mk, mf = merged_keys[order], merged_freq[order]
+        out_k, start = np.unique(mk, return_index=True)
+        self._keys, self._freq = out_k, np.maximum.reduceat(mf, start)
+
     def observe(self, census: np.ndarray) -> None:
         """One pass observed: age every tracked frequency, credit this
         census's keys +1, admit unseen keys at 1.0, prune the frozen-cold

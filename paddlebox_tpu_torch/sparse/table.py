@@ -308,19 +308,41 @@ class SparseTable:
 
     def _cache_fetch_rows(self, miss: np.ndarray, _entries=None) -> np.ndarray:
         """Host-tier fetch of the cache-MISS rows: the begin-pass promotion
-        patch, O(cold keys)."""
+        patch, O(cold keys).  Fault site ``cache.fetch``: the callers catch
+        the failure and degrade to the full host resolve
+        (``_cache_degrade``), never to stale rows."""
+        faults.inject("cache.fetch")
         return self._resolve_or_init(miss, _entries=_entries)
 
+    def _cache_degrade(self, pk: np.ndarray) -> None:
+        """cache.fetch failed: write every dirty row back and drop the
+        census keys from the caches, so the pass runs fully host-resolved
+        (the overlay shows the drained rows at once) with no stale row."""
+        stats.add("cache.fetch_fallbacks")
+        self._drain_cache()
+        caches = self._caches()
+        with self._cache_lock:
+            for c in caches:
+                c.evict_keys(pk)
+
     def _drain_cache(self) -> None:
-        """Write every dirty cache row back to the host store, so the store
-        is truth again for every resident key (part of the flush barrier)."""
+        """Write every dirty cache row back to the host store in one
+        globally sorted write-back over the caches, so the store is truth
+        again for every resident key (part of the flush barrier)."""
         caches = self._caches()
         if not caches:
             return
         with self._cache_lock:
+            ks, vs = [], []
             for c in caches:
-                keys, rows = c.drain()
-                self._write_back(keys, rows)
+                k, v = c.drain()
+                if k.shape[0]:
+                    ks.append(k)
+                    vs.append(v)
+            if ks:
+                k = np.concatenate(ks)
+                order = np.argsort(k, kind="stable")
+                self._write_back(k[order], np.concatenate(vs)[order])
 
     def _invalidate_caches(self) -> None:
         """Drop cache membership (no row moves): required whenever the host
@@ -473,18 +495,24 @@ class SparseTable:
                 return cache_keys, self._wb_seq, list(self._overlay)
 
     def _stage_resolve(self, pk: np.ndarray, out: np.ndarray, cache_keys,
-                       entries) -> None:
+                       entries) -> bool:
         """Fill ``out`` [n, W+1] for census ``pk`` on the staging thread.
         With a cache, only the keys absent from the snapshot directory
         (hits are filled on the device at begin_pass; keys the finishing
-        pass evicts are always written back, so the patch covers them)."""
+        pass evicts are always written back, so the patch covers them).
+        False when the fetch was fault-injected: begin_pass then discards
+        the stage and resolves synchronously."""
         if cache_keys is None:
             out[:] = self._resolve_or_init(pk, _entries=entries)
-            return
+            return True
         miss_pos = np.nonzero(~HbmCache.hit_mask_in(cache_keys, pk))[0]
-        if miss_pos.shape[0]:
-            out[miss_pos] = self._cache_fetch_rows(pk[miss_pos],
-                                                   _entries=entries)
+        try:
+            if miss_pos.shape[0]:
+                out[miss_pos] = self._cache_fetch_rows(pk[miss_pos],
+                                                       _entries=entries)
+        except faults.FaultInjected:
+            return False
+        return True
 
     def _stage_job(self, pass_keys):
         if callable(pass_keys):
@@ -493,8 +521,10 @@ class SparseTable:
         cache_keys, stage_seq, entries = self._stage_snapshot()
         vals = np.zeros((self._stage_cap(pk.shape[0]), self.conf.row_width + 1),
                         dtype=np.float32)
-        self._stage_resolve(pk, vals[: pk.shape[0]],
-                            cache_keys[0] if cache_keys else None, entries)
+        if not self._stage_resolve(pk, vals[: pk.shape[0]],
+                                   cache_keys[0] if cache_keys else None,
+                                   entries):
+            vals = None
         return pk, vals, stage_seq
 
     def _pop_stage(self):
@@ -524,9 +554,11 @@ class SparseTable:
         if payload is None:
             return None
         spk, vals, _ = payload
-        if vals.shape[0] != cap or not np.array_equal(spk, pk):
-            # the census changed between staging and begin_pass, or the
-            # scratch sizing moved: resolve synchronously
+        if (vals is None or vals.shape[0] != cap
+                or not np.array_equal(spk, pk)):
+            # the stage's fetch was fault-injected, the census changed
+            # between staging and begin_pass, or the scratch sizing moved:
+            # resolve synchronously
             stats.add("pass.stage_discards")
             return None
         _patch_in(pk, vals[: pk.shape[0]], patches)
@@ -601,16 +633,22 @@ class SparseTable:
         plan = None
         if vals is None:
             vals = np.zeros((cap, w + 1), dtype=np.float32)
-            if cache is None:
-                vals[:n] = self._resolve_or_init(pk)
-            else:
+            if cache is not None:
                 # the reference resolves the census twice (once to pick the
                 # misses, once to fill the hits); nothing changes the
                 # directory in between, so one plan serves both
-                plan = cache.lookup(pk)
-                miss_pos = np.nonzero(~plan.hit_mask)[0]
-                if miss_pos.shape[0]:
-                    vals[miss_pos] = self._cache_fetch_rows(pk[miss_pos])
+                try:
+                    plan = cache.lookup(pk)
+                    miss_pos = np.nonzero(~plan.hit_mask)[0]
+                    if miss_pos.shape[0]:
+                        vals[miss_pos] = self._cache_fetch_rows(pk[miss_pos])
+                except faults.FaultInjected:
+                    # a degraded pass: dirty rows drain, the census leaves
+                    # the cache, and the host resolves everything
+                    self._cache_degrade(pk)
+                    cache = plan = None
+            if cache is None:
+                vals[:n] = self._resolve_or_init(pk)
         t3 = self._stamp()
         buf = torch.from_numpy(vals).to(self.device)
         t4 = self._stamp()
@@ -636,6 +674,18 @@ class SparseTable:
         self._in_pass = True
         self._delta_keys.append(pk)
 
+    @staticmethod
+    def _cache_update_plan(cache: HbmCache, pk: np.ndarray, plan: CachePlan):
+        """The admission decision of the finished pass.  Fault site
+        ``cache.admit``: a failure returns None, and the caller degrades to
+        the full write-back with the census leaving the cache."""
+        try:
+            faults.inject("cache.admit")
+            return cache.plan_update(pk, plan)
+        except faults.FaultInjected:
+            stats.add("cache.admit_fallbacks")
+            return None
+
     def _end_pass_cached(self, cache: HbmCache, plan: CachePlan,
                          pk: np.ndarray, n: int) -> None:
         """Cached end of pass: hits update their cache slots in place, the
@@ -644,7 +694,15 @@ class SparseTable:
         back even when clean, so a staged next pass that saw them resident
         is patched from the write-back (see hbm_cache.py)."""
         full = torch.cat([self.values, self.g2sum[:, None]], dim=1)
-        upd = cache.plan_update(pk, plan)
+        upd = self._cache_update_plan(cache, pk, plan)
+        if upd is None:
+            # the census hits leave the cache and every row writes back,
+            # as on an uncached table
+            with self._cache_lock:
+                cache.evict_keys(pk[plan.hit_mask])
+                self._write_back(pk, full[:n].cpu().numpy())
+            self.last_write_back_rows = n
+            return
         upd_pos = np.concatenate([plan.hit_pos, upd.admit_pos])
         upd_slots = np.concatenate([plan.hit_slots, upd.admit_slots])
         # victims are read before set_rows overwrites their slots

@@ -47,6 +47,15 @@ class FaultInjected(RuntimeError):
 KNOWN_SITES = {
     # pass-boundary pipeline: the background store merge (sparse/table.py)
     "store.merge",
+    # the HBM cache (sparse/table.py, parallel/sharded_table.py): the
+    # begin-pass fetch of the cache misses (failure: the full host
+    # resolve) and the end-pass admission (failure: the census leaves the
+    # cache and the whole working set writes back); both degrade, never
+    # corrupt
+    "cache.fetch", "cache.admit",
+    # live reshard (parallel/sharded_table.py): the migration and the
+    # cutover commit; a failure in either aborts back to the old shard map
+    "reshard.migrate", "reshard.cutover",
     # durable cold tier (sparse/logstore.py): segment block append, the
     # compaction between its staged merge and its manifest commit, and the
     # manifest commit's CURRENT swing

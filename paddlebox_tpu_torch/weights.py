@@ -27,6 +27,17 @@ def params_from_jax(tower) -> dict:
     return state
 
 
+def params_from_jax_stacked(tower) -> list:
+    """The reference's per-position dense state (the multi-chip trainer's
+    params, every leaf stacked ``[n, ...]`` over the shard positions) ->
+    one CtrDnn state_dict per position, for
+    ``MultiChipTrainer.load_dense_state``."""
+    n = np.asarray(tower[0]["w"]).shape[0]
+    return [params_from_jax([{k: np.asarray(v)[d] for k, v in layer.items()}
+                             for layer in tower])
+            for d in range(n)]
+
+
 def table_state_from_jax(values, g2sum) -> dict:
     """The reference's device working set (values [P, W], g2sum [P]) as
     contiguous float32 tensors {"values", "g2sum"} for SparseTable."""

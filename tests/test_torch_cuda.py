@@ -532,6 +532,74 @@ def test_cached_lifecycle_on_the_card_is_bit_exact_with_uncached(cuda):
         np.testing.assert_array_equal(s["values"], states[0]["values"])
 
 
+def _sharded_lifecycle(table, censuses):
+    """Passes over ``censuses`` with a deterministic in-pass update of
+    every row, cold or resident hot."""
+    for pk in censuses:
+        table.begin_pass(pk)
+        for v, g in ((table.values, table.g2sum),
+                     (table.hot_values, table.hot_g2sum)):
+            if v is not None:
+                v += 1.0
+                g += 0.5
+        table.end_pass()
+
+
+def test_sharded_cached_lifecycle_on_the_card_is_bit_exact_with_uncached(cuda):
+    """Four shard positions, three overlapping censuses, a deterministic
+    in-pass update: with a tiny per-shard cache (eviction every pass) and
+    the default one, the state_dicts equal the uncached table's, and the
+    caches went through the three cache kernels, not their twins."""
+    from paddlebox_tpu_torch.config import SparseTableConfig
+    from paddlebox_tpu_torch.parallel import ShardedSparseTable, make_mesh
+
+    rng = np.random.default_rng(1)
+    censuses = [np.unique(rng.zipf(1.3, size=5000).astype(np.uint64))
+                for _ in range(3)]
+    states = []
+    for rows in (0, 256, 1 << 16):
+        conf = SparseTableConfig(embedding_dim=8, hbm_cache_rows=rows,
+                                 placement="hash")
+        t = ShardedSparseTable(conf, make_mesh(4), seed=0)
+        sk.reset_launches()
+        _sharded_lifecycle(t, censuses)
+        if rows:
+            for name in ("gather_slots", "scatter_rows", "sorted_search"):
+                assert sk.launches[name] > 0, name
+            assert t.last_cache_hits > 0
+        states.append(t.state_dict())
+        t.close()
+    for st in states[1:]:
+        np.testing.assert_array_equal(st["keys"], states[0]["keys"])
+        np.testing.assert_array_equal(st["values"], states[0]["values"])
+
+
+def test_reshard_on_the_card_is_bit_exact_with_rebuilt(cuda):
+    """At the defaults (per-shard caches, hybrid placement), a live
+    reshard 4 -> 2 then a pass equals a table rebuilt at 2 shards from
+    state_dict then the same pass."""
+    from paddlebox_tpu_torch.config import SparseTableConfig
+    from paddlebox_tpu_torch.parallel import ShardedSparseTable, make_mesh
+
+    rng = np.random.default_rng(2)
+    censuses = [np.unique(rng.zipf(1.3, size=5000).astype(np.uint64))
+                for _ in range(3)]
+    conf = SparseTableConfig(embedding_dim=8, placement_update_interval=1,
+                             placement_hot_capacity=64)
+    live = ShardedSparseTable(conf, make_mesh(4), seed=0)
+    _sharded_lifecycle(live, censuses[:2])
+    rebuilt = ShardedSparseTable(conf, make_mesh(2), seed=0)
+    rebuilt.load_state_dict(live.state_dict())
+    assert live.reshard(make_mesh(2)) > 0
+    for t in (live, rebuilt):
+        _sharded_lifecycle(t, censuses[2:])
+    a, b = live.state_dict(), rebuilt.state_dict()
+    np.testing.assert_array_equal(a["keys"], b["keys"])
+    np.testing.assert_array_equal(a["values"], b["values"])
+    live.close()
+    rebuilt.close()
+
+
 # --------------------------------------------------------------------------- #
 # the hybrid-placement kernel and the multi-chip path
 # --------------------------------------------------------------------------- #

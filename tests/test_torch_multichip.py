@@ -71,8 +71,9 @@ S, DENSE, BSZ, VOCAB, PASSES = 3, 2, 16, 60, 3
 NATIVE_FLAGS = ("PBOX_USE_NATIVE_PLANNER", "PBOX_USE_NATIVE_PARSER",
                 "PADDLEBOX_TORCH_USE_NATIVE_PLANNER",
                 "PADDLEBOX_TORCH_USE_NATIVE_PARSER")
-# the reference's placement pin (tests/test_placement.py:_train_sharded),
-# cache off: the per-shard cache is not ported
+# the reference's placement pin (tests/test_placement.py:_train_sharded)
+# with the cache off; the cached lifecycle is held in
+# tests/test_torch_shardcache.py
 TABLE_KW = dict(embedding_dim=4, placement_update_interval=1,
                 placement_hot_capacity=64, hbm_cache_rows=0)
 
@@ -654,21 +655,15 @@ def test_hot_tier_lifecycle(pass_files, port_tower):
 
 def test_cut_outs_raise():
     mesh = make_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="hbm_cache_rows=0.*PADDLEBOX_TORCH_HBM_CACHE=0"):
-        ShardedSparseTable(SparseTableConfig(), mesh)
-    table = ShardedSparseTable(SparseTableConfig(hbm_cache_rows=0), mesh)
-    with pytest.raises(NotImplementedError):
-        table.reshard(make_mesh(4, device="cpu"))
-    for mode in ("kstep", "async"):
-        with pytest.raises(NotImplementedError):
-            TrainerConfig(sync_dense_mode=mode)
+    table = ShardedSparseTable(SparseTableConfig(), mesh)
     with pytest.raises(ValueError):
         TrainerConfig(sync_dense_mode="bogus")
     model = CtrDnn(S, 6, dense_dim=DENSE, hidden=(8,), device="cpu")
     with pytest.raises(NotImplementedError):
-        MultiChipTrainer(model, SparseTableConfig(hbm_cache_rows=0), mesh,
-                         slot_mask=[0])
+        MultiChipTrainer(model, SparseTableConfig(), mesh, slot_mask=[0])
+    with pytest.raises(NotImplementedError):
+        MultiChipTrainer(model, SparseTableConfig(), mesh,
+                         metric_group=object())
     table.begin_pass(np.arange(1, 30, dtype=np.uint64))
     with pytest.raises(TypeError):
         table.plan_batch(None)
