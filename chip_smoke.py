@@ -96,9 +96,9 @@ Phases, each fatal on failure:
                six kernels must launch); per pass each shard's hits and
                misses, the promotion, write-back, evicted and hot rows
                moved, begin_pass / end_pass seconds with the begin_pass
-               phases, and samples/s.  Under deterministic algorithms its
-               first three passes must be bit-equal to the uncached hybrid
-               run's.
+               phases, and samples/s.  Under deterministic algorithms all
+               its passes must be bit-equal to the uncached hybrid run's,
+               and agree with the same passes on the CPU.
      reshard — under deterministic algorithms, that table resharded live
                from POSITIONS to 2 shard positions at the pass boundary
                and trained one more pass, then back to POSITIONS: each pass
@@ -110,7 +110,21 @@ Phases, each fatal on failure:
      dense   — the "kstep" (sync_weight_step 4) and "async" dense sync, two
                small passes each on the card and on the CPU: finite losses
                that agree.
-  6. times   — the CUDA kernels one call of each wrapper launches (from
+  6. graph   — TrainerConfig(scan_steps=GRAPH_K) on the uncached slice
+               world: the k-step body captured once a pass as a CUDA graph
+               and replayed; under deterministic algorithms bit-equal to
+               eager steps over GRAPH_PASSES Zipf sets, one capture a pass;
+               then eager, graph, graph, eager turns: samples/s, host
+               seconds in the step a step, synchronized ms per step.
+     policies — at full width: skip_batch (a poisoned batch leaves the
+               state of the run without it, eager and under the graph, bit
+               for bit), rollback to the first pass's checkpoint, evaluate
+               without updates, the bf16 and fp16 towers and SGD against
+               the CPU.
+     slots   — the hybrid world with a slot mask and a per-slot LR map over
+               three passes (hot block realized): excluded slots untouched,
+               card against CPU.
+  7. times   — the CUDA kernels one call of each wrapper launches (from
                torch.profiler; one each, two for scatter_rows), and the
                median time of each kernel, its twin and the equivalent
                PyTorch library call at the main paths' shapes with the L2
@@ -167,6 +181,17 @@ CACHED_PASSES, CACHED_FILES, CACHED_INS_PER_FILE, ZIPF_A = 3, 4, 16_000, 1.3
 # the third begin_pass, so passes 2 and 3 route hot occurrences.
 POSITIONS, HOT_CAPACITY, HYBRID_PASSES = 4, 4096, 4
 ZIPF_SETS = max(CACHED_PASSES, HYBRID_PASSES)
+
+# The step policies: scan_steps GRAPH_K (a CUDA graph of 8 steps) on the
+# uncached slice world, against eager steps over GRAPH_PASSES Zipf sets,
+# timed in turns over the uncached set, and synchronized over its first
+# STEP_MS_BATCHES; the NaN policies and evaluate over its first
+# POLICY_BATCHES batches (two groups of 8: the warm-up and the captured
+# one), the compute dtypes and SGD card against CPU over
+# POLICY_CPU_BATCHES; the slot policy over the first SLOT_BATCHES batches
+# of three Zipf sets (2 step groups of the 4 positions a pass).
+GRAPH_K, GRAPH_PASSES, STEP_MS_BATCHES = 8, 2, 48
+POLICY_BATCHES, POLICY_CPU_BATCHES, SLOT_BATCHES = 16, 2, 8
 
 # H100 SXM device memory rate and float32 rate outside the tensor cores
 # (NVIDIA data sheet): the bytes and operations bounds.
@@ -674,7 +699,8 @@ def check_shard_cache_parity(census, device) -> None:
 # phase 3: the slice pass
 # --------------------------------------------------------------------------- #
 def make_world(n_slots, dense, batch, emb, hidden, device, key_capacity=None,
-               cache_rows=0, overlap=True, seed=0, **table_kw):
+               cache_rows=0, overlap=True, seed=0, trainer_kw=None,
+               **table_kw):
     from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
     from paddlebox_tpu_torch.data.synth import make_synth_config
     from paddlebox_tpu_torch.models import CtrDnn
@@ -690,7 +716,8 @@ def make_world(n_slots, dense, batch, emb, hidden, device, key_capacity=None,
     table = SparseTable(tconf, seed=seed, device=device)
     model = CtrDnn(n_slots, tconf.row_width, dense_dim=dense, hidden=hidden,
                    seed=seed, device=device)
-    trainer = Trainer(model, tconf, TrainerConfig(), device=device)
+    trainer = Trainer(model, tconf, TrainerConfig(**(trainer_kw or {})),
+                      device=device)
     return conf, table, trainer
 
 
@@ -1343,10 +1370,12 @@ def check_hybrid_parity(device) -> dict:
 def make_hybrid_world(device, placement="loopback", n_slots=N_SLOTS,
                       dense=DENSE, emb=EMB, hidden=HIDDEN,
                       positions=POSITIONS, hot_capacity=HOT_CAPACITY,
-                      cache_rows=0, **trainer_kw):
+                      cache_rows=0, table_kw=None, slot_mask=None,
+                      **trainer_kw):
     """The hybrid arm's table and trainer; ``cache_rows`` > 0 gives the
-    per-shard caches (CACHE_ROWS: the reference's default), and
-    ``trainer_kw`` go to TrainerConfig (the dense-sync modes)."""
+    per-shard caches (CACHE_ROWS: the reference's default), ``table_kw``
+    go to SparseTableConfig (the LR map), ``slot_mask`` to the trainer and
+    ``trainer_kw`` to TrainerConfig (the dense-sync modes)."""
     from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
     from paddlebox_tpu_torch.models import CtrDnn
     from paddlebox_tpu_torch.parallel import (
@@ -1358,14 +1387,15 @@ def make_hybrid_world(device, placement="loopback", n_slots=N_SLOTS,
     tconf = SparseTableConfig(
         embedding_dim=emb, hbm_cache_rows=cache_rows, placement=placement,
         placement_realize=True, placement_update_interval=1,
-        placement_hot_capacity=hot_capacity,
+        placement_hot_capacity=hot_capacity, **(table_kw or {}),
     )
     mesh = make_mesh(positions, device=device)
     table = ShardedSparseTable(tconf, mesh, seed=0)
     model = CtrDnn(n_slots, tconf.row_width, dense_dim=dense, hidden=hidden,
                    seed=0, device=device)
     return table, MultiChipTrainer(model, tconf, mesh,
-                                   TrainerConfig(**trainer_kw))
+                                   TrainerConfig(**trainer_kw),
+                                   slot_mask=slot_mask)
 
 
 def drive_hybrid(datasets, table, trainer) -> list:
@@ -1416,9 +1446,10 @@ def hybrid_path(datasets) -> dict:
     """The full-width model on POSITIONS positions with the realized hybrid
     placement, launch counters reset just before and read just after; the
     hash placement and the hybrid one again, in turns, for the times; then
-    two hybrid runs under torch.use_deterministic_algorithms over the first
-    three passes (the hot block realizes in the third), which must be
-    bit-equal, and the hash placement under it for the difference."""
+    two hybrid runs under torch.use_deterministic_algorithms over all
+    HYBRID_PASSES passes (the hot block realizes in the third and changes
+    in the fourth), which must be bit-equal, and the hash placement under
+    it, over the first three, for the difference."""
     import numpy as np
     import torch
 
@@ -1440,8 +1471,9 @@ def hybrid_path(datasets) -> dict:
             if label == "hybrid":
                 fed = prefetched_feeds()
                 sk.reset_launches()
-            per_pass = drive_hybrid(datasets[:3] if det else datasets, table,
-                                    trainer)
+            per_pass = drive_hybrid(
+                datasets[:3] if label == "hash deterministic" else datasets,
+                table, trainer)
             if label == "hybrid":
                 launches = dict(sk.launches)
                 runs_trainer = trainer
@@ -1492,15 +1524,21 @@ def hybrid_path(datasets) -> dict:
             or not np.array_equal(sa["values"], sb["values"])):
         raise AssertionError(f"deterministic hybrid reruns differ: auc {auc_a} "
                              f"vs {auc_b}")
-    sh = runs["hash deterministic"][1].state_dict()
-    if not np.array_equal(sh["keys"], sa["keys"]):
-        raise AssertionError("hash and hybrid tables hold different keys")
-    diff = float(np.abs(sh["values"] - sa["values"]).max())
+    if len(da) != HYBRID_PASSES or not da[-1]["hot_moved_rows"]:
+        raise AssertionError("the deterministic hybrid runs did not reach "
+                             "the fourth pass's hot-set change")
     log(f"hybrid deterministic reruns over {len(da)} passes: bit-equal "
-        f"({sa['keys'].shape[0]} rows, auc {auc_a}); largest difference "
-        f"against the hash placement {diff!r}")
+        f"({sa['keys'].shape[0]} rows, auc {auc_a}, losses "
+        f"{[r['metrics']['loss'] for r in da]}, hot rows moved "
+        f"{[r['hot_moved_rows'] for r in da]})")
+    dh = runs["hash deterministic"][0]
+    diff = [abs(a["metrics"]["loss"] - b["metrics"]["loss"])
+            for a, b in zip(da, dh)]
+    log(f"hybrid against the hash placement, deterministic, loss "
+        f"difference per pass over {len(dh)} passes: {diff}")
     return {"launches": launches, "table": table, "trainer": runs_trainer,
-            "datasets": datasets, "det_passes": da, "det_state": sa}
+            "datasets": datasets, "det_passes": da, "det_state": sa,
+            "per_pass": per_pass}
 
 
 def hybrid_stages(hybrid: dict) -> None:
@@ -1516,8 +1554,10 @@ def hybrid_stages(hybrid: dict) -> None:
 
     saved = dict(sk.launches)
     table, trainer = hybrid["table"], hybrid["trainer"]
+    # the data set as it is: the sharded cached phase drives the same
+    # objects next, and an in-place shuffle here changed its fourth pass
+    # (ROADMAP C2)
     ds = hybrid["datasets"][-1]
-    ds.local_shuffle(seed=HYBRID_PASSES)
     table.begin_pass(ds.unique_keys())
     stacked = trainer.init_auc()
     aucs = [unstack_auc_state(stacked, d) for d in range(POSITIONS)]
@@ -1718,7 +1758,7 @@ def sharded_cached_path(hybrid: dict) -> dict:
     HYBRID_PASSES Zipf passes, overlapped and staged, the card
     synchronized between the begin_pass phases; launch counters reset just
     before and read just after: all six kernels must launch, the cache's
-    three on this path too.  Then the first three passes again under
+    three on this path too.  Then the HYBRID_PASSES passes again under
     torch.use_deterministic_algorithms, whose final state_dict must be
     bit-equal to the uncached hybrid run's (hybrid_path), losses and AUC
     too.  Returns the deterministic world, which the reshard phase
@@ -1739,8 +1779,7 @@ def sharded_cached_path(hybrid: dict) -> dict:
             if not det:
                 fed = prefetched_feeds()
                 sk.reset_launches()
-            per_pass = drive_hybrid(datasets[:3] if det else datasets, table,
-                                    trainer)
+            per_pass = drive_hybrid(datasets, table, trainer)
             if not det:
                 launches = dict(sk.launches)
                 check_prefetched(trainer, fed, sum(r["metrics"]["steps"]
@@ -1786,7 +1825,11 @@ def sharded_cached_path(hybrid: dict) -> dict:
     log(f"sharded cached vs uncached hybrid, deterministic over "
         f"{len(det_pass)} passes: bit-equal ({sd['keys'].shape[0]} rows, "
         f"losses {[m for m, _ in metrics]})")
-    cpu_agreement(datasets[:3], det_pass, sd, det_table.hot_resident_keys())
+    unc = [r["metrics"]["loss"] for r in hybrid["per_pass"]]
+    log(f"sharded cached vs uncached hybrid, without deterministic "
+        f"algorithms, losses per pass: {[r['metrics']['loss'] for r in per_pass]}"
+        f" vs {unc}")
+    cpu_agreement(datasets, det_pass, sd, det_table.hot_resident_keys())
     for what, key in (("begin_pass s", "begin_s"), ("end_pass s", "end_s"),
                       ("samples/s", "samples_per_s")):
         log(f"sharded cached boundary: {what} {[r[key] for r in per_pass]}")
@@ -1795,9 +1838,10 @@ def sharded_cached_path(hybrid: dict) -> dict:
 
 
 def cpu_agreement(datasets, card_pass, card_state, card_hot) -> None:
-    """The sharded cached path at full width on the CPU, at a reduced
-    depth (the deterministic card run's three passes of the four; the hot
-    block realizes in the third), from the same seeds: each shard's hits
+    """The sharded cached path at full width on the CPU over the
+    deterministic card run's HYBRID_PASSES passes (the hot block realizes
+    in the third and changes in the fourth), from the same seeds: each
+    shard's hits
     and misses and the hot set equal to the card's, losses within 1e-4
     relative, AUC within 1e-3 and every table row within 1e-4 (the
     tolerances of small_agreement: the two devices sum the tower's
@@ -2041,6 +2085,429 @@ def dense_sync_full(datasets) -> None:
     log(f"dense sync at full width (sync_weight_step {sws}, {steps} steps "
         f"over {len(datasets)} passes): samples/s per pass " + "; ".join(
             f"{mode} {r}" for mode, r in rates.items()))
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: the trainer's step policies
+# --------------------------------------------------------------------------- #
+class _Batches:
+    """A fixed list of batches behind the dataset interface (their keys
+    are the census)."""
+
+    def __init__(self, batches):
+        import numpy as np
+
+        self._batches = list(batches)
+        self._census = np.unique(np.concatenate(
+            [b.keys[: b.n_keys] for b in self._batches]))
+
+    def batches(self, drop_last: bool = False):
+        return iter(self._batches)
+
+    def unique_keys(self):
+        return self._census
+
+
+def _sync_equal(label, a_state, b_state, a_metrics=(), b_metrics=()):
+    """Raise unless two runs' state_dicts and metric tuples are bit-equal."""
+    import numpy as np
+
+    if (list(a_metrics) != list(b_metrics)
+            or not np.array_equal(a_state["keys"], b_state["keys"])
+            or not np.array_equal(a_state["values"], b_state["values"])):
+        diff = (float(np.abs(a_state["values"] - b_state["values"]).max())
+                if a_state["values"].shape == b_state["values"].shape
+                else "shapes differ")
+        raise AssertionError(f"{label}: not bit-equal (metrics {a_metrics} "
+                             f"vs {b_metrics}, rows max abs diff {diff})")
+
+
+def _group_ms(ds, k: int) -> list:
+    """The first STEP_MS_BATCHES batches of the uncached slice world, every
+    feed on the card beforehand: seconds of each group of ``k`` steps
+    through ``Trainer._run_group``, to a synchronize (with k > 1: the
+    warm-up group, the capture and its first replay, then the replays)."""
+    import itertools
+
+    import torch
+
+    from paddlebox_tpu_torch.train.trainer import host_feed
+
+    _, table, trainer = make_world(N_SLOTS, DENSE, BATCH, EMB, HIDDEN, "cuda",
+                                   KEY_CAPACITY,
+                                   trainer_kw=dict(scan_steps=k))
+    batches = _Batches(itertools.islice(ds.batches(), STEP_MS_BATCHES))
+    table.begin_pass(batches.unique_keys())
+    feeds = [trainer._to_device(host_feed(b, table.plan_batch(b)))
+             for b in batches.batches()]
+    auc, gn = trainer.init_auc(), torch.zeros(2, device="cuda")
+    torch.cuda.synchronize()
+    out = []
+    for i in range(0, len(feeds) // k * k, k):
+        t0 = time.perf_counter()
+        trainer._run_group(table, feeds[i:i + k], auc, gn)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    table.end_pass()
+    table.close()
+    return out
+
+
+def graph_steps(ds, zipf_sets) -> dict:
+    """TrainerConfig(scan_steps=GRAPH_K) on the uncached slice world at full
+    width: each pass captures the k-step body once as a CUDA graph (after
+    an eager warm-up group) and replays it.  Under deterministic
+    algorithms the graph run over the first GRAPH_PASSES Zipf sets (32
+    steps a pass: a warm-up group and three replays) must be bit-equal to
+    the eager run's (state, losses, AUC, grad_norm), with one capture a
+    pass and the expected replays; launch counters reset just before the
+    graph run and read just after (wrapper calls: eager steps and
+    captures; replays run the captured launches again).  Then, without
+    deterministic algorithms, one pass of the uncached set each in turns
+    eager, graph, graph, eager: samples/s and the host seconds the
+    consumer thread spends in the step (dispatch or replay) a step; and
+    the synchronized ms per step of each."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    det = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for label, k in (("eager", 1), ("graph", GRAPH_K)):
+            _, table, trainer = make_world(
+                N_SLOTS, DENSE, BATCH, EMB, HIDDEN, "cuda", KEY_CAPACITY,
+                trainer_kw=dict(scan_steps=k))
+            if k > 1:
+                fed = prefetched_feeds()
+                sk.reset_launches()
+            per_pass = drive_passes(zipf_sets, table, trainer)
+            per_pass = [r["metrics"] for r in per_pass]
+            torch.cuda.synchronize()
+            if k > 1:
+                launches = dict(sk.launches)
+                groups = sum(m["steps"] // k + m["steps"] % k
+                             for m in per_pass)
+                check_prefetched_groups(trainer, fed, groups)
+            det[label] = (per_pass, table.state_dict(), trainer)
+            table.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (pe, se, _), (pg, sg, tg) = det["eager"], det["graph"]
+    steps = [m["steps"] for m in pg]
+    full = sum(n // GRAPH_K for n in steps)
+    if tg.graph_captures != GRAPH_PASSES or tg.graph_replays != full - GRAPH_PASSES:
+        raise AssertionError(
+            f"graph run: {tg.graph_captures} captures and {tg.graph_replays} "
+            f"replays over {GRAPH_PASSES} passes of {steps} steps")
+    for name in ("pull_rows", "scatter_add_rows"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the graph path")
+    _sync_equal("graph against eager steps, deterministic", sg, se,
+                [(m["loss"], m["auc"], m["grad_norm"]) for m in pg],
+                [(m["loss"], m["auc"], m["grad_norm"]) for m in pe])
+    log(f"graph_steps deterministic: scan_steps {GRAPH_K} over {GRAPH_PASSES} "
+        f"passes of {steps} steps bit-equal to eager steps (losses "
+        f"{[m['loss'] for m in pg]}); {tg.graph_captures} captures, "
+        f"{tg.graph_replays} replays x {GRAPH_K} steps; wrapper launches "
+        f"{launches} (eager warm-up and tail steps and the captures; the "
+        f"replays launch the captured kernels again)")
+
+    def timed(trainer):
+        """Host seconds the consumer spends in _run_group."""
+        spent = [0.0]
+        inner = trainer._run_group
+
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        trainer._run_group = run
+        return spent
+
+    turns = []
+    for label, k in (("eager", 1), ("graph", GRAPH_K), ("graph", GRAPH_K),
+                     ("eager", 1)):
+        _, table, trainer = make_world(N_SLOTS, DENSE, BATCH, EMB, HIDDEN,
+                                       "cuda", KEY_CAPACITY,
+                                       trainer_kw=dict(scan_steps=k))
+        spent = timed(trainer)
+        (m,) = run_passes(ds, table, trainer, 1)
+        table.close()
+        turns.append((label, m["samples"] / m["duration_s"],
+                      spent[0] / m["steps"] * 1e3))
+    log("graph_steps turns (prefetched passes, no deterministic algorithms): "
+        + "; ".join(f"{label} {sps!r} samples/s, step dispatch {ms!r} ms/step"
+                    for label, sps, ms in turns))
+    eager = _group_ms(ds, 1)
+    graph = _group_ms(ds, GRAPH_K)
+    e_ms = float(np.median(eager[2:])) * 1e3
+    g_ms = float(np.median(graph[2:])) * 1e3 / GRAPH_K
+    log(f"graph_steps synchronized step, ms per step: eager {e_ms!r} (median "
+        f"of {len(eager) - 2} steps), graph replay {g_ms!r} (median of "
+        f"{len(graph) - 2} replays of {GRAPH_K}); warm-up group "
+        f"{graph[0] * 1e3!r} ms, capture and first replay "
+        f"{graph[1] * 1e3!r} ms")
+    return {"launches": launches, "turns": turns}
+
+
+def check_prefetched_groups(trainer, before: float, groups: int) -> None:
+    """Every group of the run since ``before`` (a group of scan_steps feeds,
+    or one feed of the tail) came from the producer thread."""
+    fed = prefetched_feeds() - before
+    if trainer.conf.prefetch_batches != 2 or fed != groups:
+        raise AssertionError(f"the producer fed {fed} of {groups} groups")
+
+
+def _card_and_cpu(batches, label, **trainer_kw) -> tuple:
+    """The same batches, one pass from the same seeds, on the card and on
+    the CPU: (card metrics, CPU metrics, card state, CPU state)."""
+    import numpy as np
+
+    census = _Batches(batches).unique_keys()
+    out = {}
+    for device in ("cuda", "cpu"):
+        _, table, trainer = make_world(N_SLOTS, DENSE, BATCH, EMB, HIDDEN,
+                                       device, KEY_CAPACITY,
+                                       trainer_kw=trainer_kw)
+        table.begin_pass(census)
+        m = trainer.train_steps(table, batches)
+        table.end_pass()
+        out[device] = (m, table.state_dict())
+        table.close()
+    (mg, sg), (mc, sc) = out["cuda"], out["cpu"]
+    if not (math.isfinite(mg["loss"]) and np.array_equal(sg["keys"], sc["keys"])):
+        raise AssertionError(f"{label}: non-finite card loss or other keys")
+    return mg, mc, sg, sc
+
+
+def step_policies(ds) -> None:
+    """The step policies at full width on the uncached slice world, over
+    the first POLICY_BATCHES batches of its pass, launch counters reset
+    just before the skip_batch drive and read just after:
+      * skip_batch under deterministic algorithms: a train.nan-poisoned
+        batch (in a replayed group) leaves the state of the same run
+        without that batch, eagerly and under the graph, bit for bit, and
+        the graph run equals the eager one;
+      * rollback (under the graph): a poisoned second pass raises
+        PassRolledBack, and the table and the dense state equal the first
+        pass's checkpoint bit for bit;
+      * evaluate leaves the table and the parameters bit-unchanged;
+      * a bf16 and an fp16 tower agree with the CPU within the bounds of
+        the reference's test_bf16_training_parity (AUC 0.03, loss 0.05),
+        and SGD agrees with the CPU within small_agreement's tolerances."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.train import AutoCheckpointer
+    from paddlebox_tpu_torch.train.trainer import (
+        PassRolledBack,
+        opt_state_tensors,
+    )
+    from paddlebox_tpu_torch.utils import faults
+    from paddlebox_tpu_torch.utils.monitor import stats
+
+    batches = list(itertools.islice(ds.batches(), POLICY_BATCHES))
+    census = _Batches(batches).unique_keys()
+    bad = POLICY_BATCHES - 4  # in the group replayed right after capture
+    without = batches[:bad] + batches[bad + 1:]
+
+    def world(**kw):
+        _, table, trainer = make_world(N_SLOTS, DENSE, BATCH, EMB, HIDDEN,
+                                       "cuda", KEY_CAPACITY, trainer_kw=kw)
+        return table, trainer
+
+    def run(table, trainer, feed, plan=None):
+        table.begin_pass(census)
+        if plan is None:
+            m = trainer.train_steps(table, feed)
+        else:
+            with faults.fault_plan(plan):
+                m = trainer.train_steps(table, feed)
+        table.end_pass()
+        torch.cuda.synchronize()
+        return m, table.state_dict()
+
+    saved = dict(sk.launches)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        sk.reset_launches()
+        for label, k in (("eager", 1), ("graph", GRAPH_K)):
+            skipped = stats.get("train.nan_skipped_steps")
+            table, trainer = world(scan_steps=k, nan_policy="skip_batch")
+            runs[label] = run(table, trainer, batches,
+                              {"train.nan": f"at:{bad}"})
+            if stats.get("train.nan_skipped_steps") - skipped != 1:
+                raise AssertionError(f"skip_batch {label}: no step skipped")
+            table.close()
+            table, trainer = world(scan_steps=k)
+            runs[label + " without"] = run(table, trainer, without)
+            table.close()
+        launches = dict(sk.launches)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name in ("pull_rows", "scatter_add_rows"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "step-policy path")
+    key = lambda m: (m["loss"], m["auc"], m["steps"], m["count"])
+    for label in ("eager", "graph"):
+        (ma, sa), (mb, sb) = runs[label], runs[label + " without"]
+        _sync_equal(f"skip_batch {label} against the run without the batch",
+                    sa, sb, key(ma), key(mb))
+    _sync_equal("skip_batch graph against eager", runs["graph"][1],
+                runs["eager"][1], key(runs["graph"][0]),
+                key(runs["eager"][0]))
+    log(f"step_policies skip_batch (deterministic, batch {bad} of "
+        f"{POLICY_BATCHES} poisoned): eager and graph runs bit-equal to the "
+        f"runs without it and to each other (loss "
+        f"{runs['graph'][0]['loss']!r}, {runs['graph'][0]['steps']} steps); "
+        f"launches {launches}")
+
+    # rollback, then evaluate, on one world under the graph
+    table, trainer = world(scan_steps=GRAPH_K, nan_policy="rollback")
+    acp = AutoCheckpointer(os.path.join(WORK_DIR, "acp"), job_id="smoke")
+    trainer.checkpointer = acp
+    run(table, trainer, batches)
+    acp.after_pass(0, table, trainer)
+    state0 = table.state_dict()
+    dense0 = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    opt0 = [t.clone() for t in opt_state_tensors(trainer.optimizer)]
+    table.begin_pass(census)
+    try:
+        with faults.fault_plan({"train.nan": f"at:{bad}"}):
+            trainer.train_steps(table, batches)
+        raise AssertionError("rollback: the poisoned pass did not roll back")
+    except PassRolledBack as e:
+        status = e.status
+    if table._in_pass or status["next_pass"] != 1:
+        raise AssertionError(f"rollback left the pass open or status {status}")
+    _sync_equal("rollback against the first pass's checkpoint",
+                table.state_dict(), state0)
+    for k, v in trainer.model.state_dict().items():
+        if not torch.equal(v, dense0[k]):
+            raise AssertionError(f"rollback: parameter {k} differs")
+    for a, b in zip(opt_state_tensors(trainer.optimizer), opt0):
+        if not torch.equal(a.to(b.device), b):
+            raise AssertionError("rollback: optimizer state differs")
+    table.begin_pass(census)
+    live = table.pass_state_dict()
+    m_eval = trainer.evaluate(_Batches(batches), table)
+    _sync_equal("evaluate", table.pass_state_dict(), live)
+    table.end_pass()
+    for k, v in trainer.model.state_dict().items():
+        if not torch.equal(v, dense0[k]):
+            raise AssertionError(f"evaluate changed parameter {k}")
+    table.close()
+    sk.launches.update(saved)  # the rest are comparison runs
+    log(f"step_policies rollback (graph): PassRolledBack to tag "
+        f"{status['tag']!r}, table and dense state bit-equal to the "
+        f"checkpoint; evaluate: auc {m_eval['auc']!r} over {m_eval['count']} "
+        f"instances, table and parameters unchanged")
+
+    short = batches[:POLICY_CPU_BATCHES]
+    f32 = _card_and_cpu(short, "float32")
+    for name in ("bfloat16", "float16"):
+        mg, mc, _, _ = _card_and_cpu(short, name, compute_dtype=name)
+        for other, what in ((mc, "CPU " + name), (f32[0], "card float32")):
+            if (abs(mg["loss"] - other["loss"]) >= 0.05
+                    or abs(mg["auc"] - other["auc"]) >= 0.03):
+                raise AssertionError(
+                    f"{name} tower on the card: loss {mg['loss']} auc "
+                    f"{mg['auc']} against {what} {other['loss']} "
+                    f"{other['auc']}")
+        log(f"step_policies {name} tower over {len(short)} steps: card loss "
+            f"{mg['loss']!r} auc {mg['auc']!r}; CPU loss {mc['loss']!r} auc "
+            f"{mc['auc']!r}; card float32 loss {f32[0]['loss']!r}")
+    mg, mc, sg, sc = _card_and_cpu(short, "sgd", dense_optimizer="sgd")
+    err = float(np.abs(sg["values"] - sc["values"]).max())
+    if (not math.isclose(mg["loss"], mc["loss"], rel_tol=1e-4)
+            or abs(mg["auc"] - mc["auc"]) > 1e-3 or err > 1e-4):
+        raise AssertionError(f"sgd card/CPU: loss {mg['loss']} vs "
+                             f"{mc['loss']}, rows differ by {err}")
+    log(f"step_policies sgd over {len(short)} steps: card loss "
+        f"{mg['loss']!r} vs CPU {mc['loss']!r}, grad_norm {mg['grad_norm']!r}"
+        f" vs {mc['grad_norm']!r}, rows max abs diff {err!r}")
+
+
+def slot_policy(hybrid: dict) -> None:
+    """The hybrid world (POSITIONS positions, the realized hot block) with
+    a slot mask (slots 12-15 out) and a per-slot LR map (slots 0-3 at
+    0.0005, 4-7 at 0.1) over the first SLOT_BATCHES batches of the first
+    three Zipf sets (the hot block realizes in the third pass, so
+    hot_cold_select runs under the policy), the card under deterministic
+    algorithms (run-to-run atomics differ by more than the tolerance over
+    three passes), launch counters reset just before and read just after.
+    Excluded slots' rows keep zero counters, their initial embeddings and
+    g2sum; the card agrees with the same run on the CPU at
+    cpu_agreement's tolerances, hot set included."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.config import SparseTableConfig
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.sparse.table import _key_uniform
+
+    datasets = [_Batches(itertools.islice(ds.batches(), SLOT_BATCHES))
+                for ds in hybrid["datasets"][:3]]
+    mask = tuple(range(N_SLOTS - 4))
+    lrs = tuple((s, 0.0005) for s in range(4)) + tuple(
+        (s, 0.1) for s in range(4, 8))
+    out = {}
+    for device in ("cuda", "cpu"):
+        saved = dict(sk.launches)
+        table, trainer = make_hybrid_world(
+            device, table_kw=dict(slot_learning_rates=lrs), slot_mask=mask)
+        sk.reset_launches()
+        torch.use_deterministic_algorithms(device == "cuda")
+        try:
+            per_pass = drive_hybrid(datasets, table, trainer)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        launches = dict(sk.launches)
+        sk.launches.update(saved)
+        out[device] = (per_pass, table.state_dict(),
+                       table.hot_resident_keys(), launches)
+        table.close()
+    (pg, sg, hg, launches), (pc, sc, hc, _) = out["cuda"], out["cpu"]
+    for name in ("pull_rows", "scatter_add_rows", "hot_cold_select"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the slot "
+                                 "policy path")
+    if not (hg.shape[0] and np.array_equal(hg, hc) and pg[-1]["hot_occ"] > 0):
+        raise AssertionError("slot policy: the hot block did not realize "
+                             "alike on the card and the CPU")
+    slot = (sg["keys"].astype(np.int64) - 1) // VOCAB
+    out_slots = slot >= N_SLOTS - 4
+    init = _key_uniform(sg["keys"][out_slots], seed=0, n_cols=EMB,
+                        rng_range=SparseTableConfig().initial_range)
+    vals = sg["values"][out_slots]  # [show, clk, embed..., g2sum]
+    if (vals[:, :2].any() or vals[:, -1].any()
+            or not np.array_equal(vals[:, 2:2 + EMB], init)):
+        raise AssertionError("slot policy: an excluded slot's row moved")
+    for p, (g, c) in enumerate(zip(pg, pc)):
+        gm, cm = g["metrics"], c["metrics"]
+        if not (math.isclose(gm["loss"], cm["loss"], rel_tol=1e-4)
+                and abs(gm["auc"] - cm["auc"]) <= 1e-3):
+            raise AssertionError(f"slot policy card/CPU pass {p}: loss "
+                                 f"{gm['loss']} vs {cm['loss']}")
+    err = float(np.abs(sg["values"] - sc["values"]).max())
+    if not np.array_equal(sg["keys"], sc["keys"]) or err > 1e-4:
+        raise AssertionError(f"slot policy card/CPU rows differ by {err}")
+    log(f"slot_policy over {len(pg)} passes: launches {launches}; "
+        f"{int(out_slots.sum())} rows of the excluded slots untouched; card "
+        f"losses {[r['metrics']['loss'] for r in pg]} vs CPU "
+        f"{[r['metrics']['loss'] for r in pc]}, {hg.shape[0]} hot keys "
+        f"equal, rows max abs diff {err!r}")
 
 
 def hybrid_specs(hybrid: dict) -> dict:
@@ -2494,6 +2961,9 @@ def main(argv=None) -> int:
         phase(reshard_check, sharded)
         phase(dense_sync_agreement)
         phase(dense_sync_full, cached_ds[:2])
+        phase(graph_steps, ds, cached_ds[:GRAPH_PASSES])
+        phase(step_policies, ds)
+        phase(slot_policy, hybrid)
         rows = phase(kernel_times, res, ds, cached,
                      censuses[CACHED_PASSES - 1], hybrid, errs)
         ds.close()

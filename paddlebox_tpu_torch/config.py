@@ -34,7 +34,8 @@ class _Flags:
         # reader threads of PadBoxSlotDataset (reference:
         # FLAGS_padbox_dataset_shuffle_thread_num)
         "dataset_shuffle_thread_num": 10,
-        # dense-tower compute dtype; this slice runs float32 only
+        # dense-tower compute dtype: "float32", "bfloat16" or "float16"
+        # (models/layers.py:resolve_compute_dtype)
         "compute_dtype": "float32",
         # the native C++ slot parser (_native/slot_parser.cpp) when it
         # builds; the Python parser otherwise (reference default: on)
@@ -270,8 +271,6 @@ class SparseTableConfig:
     def __post_init__(self):
         if self.expand_dim:
             raise not_ported("expand_dim", "model zoo, item 5")
-        if self.slot_learning_rates:
-            raise not_ported("slot_learning_rates", "trainer cut-outs, item 3")
 
 
 @dataclasses.dataclass
@@ -297,15 +296,21 @@ class TrainerConfig:
     # stream) while the current step computes, at most this many ahead.
     # 0 (or less) = the serial feed.
     prefetch_batches: int = 2
+    # multi-step dispatch of the single-chip Trainer: this many steps run
+    # as one group, which the card captures once a pass as a CUDA graph and
+    # replays (the reference's lax.scan of k steps); the CPU runs the same
+    # group body eagerly.  A tail shorter than k runs single steps.  1 =
+    # one step at a time.  With check_nan_inf the host reads the group's
+    # flags once a replay, and ticks after a non-finite one leave every
+    # state untouched.
+    scan_steps: int = 1
 
     def __post_init__(self):
         if self.sync_dense_mode not in ("step", "kstep", "async"):
             raise ValueError(
                 f"unknown sync_dense_mode {self.sync_dense_mode!r}"
             )
-        if self.dense_optimizer == "sgd":
-            raise not_ported("dense_optimizer='sgd'", "trainer cut-outs, item 3")
-        if self.dense_optimizer != "adam":
+        if self.dense_optimizer not in ("adam", "sgd"):
             raise ValueError(
                 f"unknown dense optimizer {self.dense_optimizer!r}"
             )
@@ -313,10 +318,6 @@ class TrainerConfig:
             raise ValueError(
                 f"unknown nan_policy {self.nan_policy!r} "
                 "(want raise | skip_batch | rollback)"
-            )
-        if self.nan_policy != "raise":
-            raise not_ported(
-                f"nan_policy={self.nan_policy!r}", "trainer cut-outs, item 3"
             )
         if self.counter_label_tasks:
             raise not_ported("counter_label_tasks", "model zoo, item 5")

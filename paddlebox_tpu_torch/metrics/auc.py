@@ -11,7 +11,7 @@ Kahan pairs ``[sum, compensation]`` in float32, as in the reference.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -55,25 +55,45 @@ def kahan_value(acc) -> float:
     return float(a[0] - a[1])
 
 
-@torch.no_grad()
 def update_auc_state(state: AucState, preds: torch.Tensor,
                      labels: torch.Tensor, mask: torch.Tensor) -> AucState:
-    """Accumulate one batch.  preds: [B] probabilities in [0, 1]; labels:
-    [B] in {0, 1}; mask: [B] 1.0 for real instances."""
+    """Accumulate one batch into a copy of ``state``.  preds: [B]
+    probabilities in [0, 1]; labels: [B] in {0, 1}; mask: [B] 1.0 for real
+    instances."""
+    return update_auc_state_(AucState(*(t.clone() for t in state)), preds,
+                             labels, mask)
+
+
+@torch.no_grad()
+def update_auc_state_(state: AucState, preds: torch.Tensor,
+                      labels: torch.Tensor, mask: torch.Tensor,
+                      gate: Optional[torch.Tensor] = None) -> AucState:
+    """Accumulate one batch IN PLACE into ``state``'s tensors, which keep
+    their addresses (a captured CUDA graph replays into them).  ``gate``:
+    a bool device scalar; where False the batch adds nothing
+    (``torch.where`` on every increment, so the NaN of a poisoned batch
+    cannot leak in)."""
     nb = state.pos.shape[0]
     idx = torch.clamp((preds * nb).to(torch.int32), 0, nb - 1)
     pos_w = (mask * labels).to(torch.int64)
     neg_w = (mask * (1.0 - labels)).to(torch.int64)
     err = (preds - labels) * mask
-    return AucState(
-        pos=state.pos.index_add(0, idx, pos_w),
-        neg=state.neg.index_add(0, idx, neg_w),
-        abserr=_kahan_add(state.abserr, err.abs().sum()),
-        sqrerr=_kahan_add(state.sqrerr, (err * err).sum()),
-        pred_sum=_kahan_add(state.pred_sum, (preds * mask).sum()),
-        label_sum=state.label_sum + (mask * labels).sum().to(torch.int64),
-        count=state.count + mask.sum().to(torch.int64),
-    )
+    label_inc = (mask * labels).sum().to(torch.int64)
+    count_inc = mask.sum().to(torch.int64)
+    sums = [(state.abserr, err.abs().sum()), (state.sqrerr, (err * err).sum()),
+            (state.pred_sum, (preds * mask).sum())]
+    if gate is not None:
+        pos_w, neg_w = torch.where(gate, pos_w, 0), torch.where(gate, neg_w, 0)
+        label_inc = torch.where(gate, label_inc, 0)
+        count_inc = torch.where(gate, count_inc, 0)
+    state.pos.index_add_(0, idx, pos_w)
+    state.neg.index_add_(0, idx, neg_w)
+    for acc, x in sums:
+        new = _kahan_add(acc, x)
+        acc.copy_(new if gate is None else torch.where(gate, new, acc))
+    state.label_sum.add_(label_inc)
+    state.count.add_(count_inc)
+    return state
 
 
 def stack_auc_states(base: AucState, n: int) -> AucState:

@@ -39,7 +39,9 @@ class CtrDnn(nn.Module):
             raise not_ported("expand_dim", "model zoo, item 5")
         if slot_embed_dims:
             raise not_ported("slot_embed_dims", "model zoo, item 5")
-        resolve_compute_dtype(compute_dtype)
+        # None (float32), torch.bfloat16 or torch.float16; the trainers set
+        # it from TrainerConfig.compute_dtype when that names one
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.device = resolve_device(device)
         self.n_sparse_slots = n_sparse_slots
         self.emb_width = emb_width
@@ -67,4 +69,4 @@ class CtrDnn(nn.Module):
             use_cvm=self.use_cvm, cvm_offset=self.cvm_offset,
         )
         x = torch.cat([pooled, dense], dim=1) if self.dense_dim else pooled
-        return mlp(self.tower, x)[:, 0]
+        return mlp(self.tower, x, self.compute_dtype)[:, 0]

@@ -161,6 +161,9 @@ class ShardedBatchPlan:
     # f32 [n, H] per-hot-slot learning rate, 0.0 where the position has no
     # occurrence of the slot; the step folds it with pmax over positions
     hot_lr: Optional[np.ndarray] = None
+    # f32 [n, n*C] learning rate of each served unique row (aligned with
+    # serve_uniq), under a per-slot LR map only
+    serve_lr: Optional[np.ndarray] = None
 
 
 class ShardedSparseTable(SparseTable):
@@ -901,13 +904,25 @@ class ShardedSparseTable(SparseTable):
         c = int(np.ceil(key_capacity * self.bucket_slack / n / 8.0)) * 8
         return min(key_capacity, max(c, 8))
 
-    def plan_group(self, batches: Sequence[HostBatch]) -> ShardedBatchPlan:
+    def plan_group(self, batches: Sequence[HostBatch],
+                   slot_lr_vec: Optional[np.ndarray] = None,
+                   n_slots: Optional[int] = None) -> ShardedBatchPlan:
         """Resolve one batch group (one batch per shard position) into the
         stacked all_to_all plan.  The bucket capacity is exact-fit, never
         lossy: the worst per-shard occupancy is found first, and the bucket
-        grows in power-of-two steps above the base when a group needs it."""
+        grows in power-of-two steps above the base when a group needs it.
+
+        ``slot_lr_vec`` + ``n_slots``: the per-slot LR map ([S] float32 of
+        train/slot_policy.py).  Each occurrence's slot lr is resolved on the
+        requester, carried beside the row id in the want matrix, and folded
+        into a per-served-unique-row lr (``plan.serve_lr``) by the serve
+        dedup; hot slots take it in ``hot_lr``.  A key in several slots
+        takes the last assignment, as the single-chip feed's does."""
         if not self._in_pass:
             raise RuntimeError("begin_pass before planning batches")
+        if slot_lr_vec is not None and not n_slots:
+            raise ValueError("slot_lr_vec needs n_slots to resolve "
+                             "occurrence slots from key_segments")
         default_lr = float(self.conf.learning_rate)
         n = self.n_shards
         if len(batches) != n:
@@ -979,6 +994,8 @@ class ShardedSparseTable(SparseTable):
             self.capacity_bumps += 1
 
         want = np.full((n, n, C), dead, dtype=np.int32)
+        want_lr = (None if slot_lr_vec is None
+                   else np.full((n, n, C), default_lr, dtype=np.float32))
         occ = np.full((n, K), n * C, dtype=np.int32)
         mask = np.zeros((n, K), dtype=np.float32)
         # every occurrence also carries a hot slot (H = sink for cold and
@@ -999,17 +1016,27 @@ class ShardedSparseTable(SparseTable):
                 ishot, n * C, owner * C + slot
             ).astype(np.int32)[inv]
             mask[d, :n_keys] = 1.0
+            klr = np.full(rows.shape[0], default_lr, np.float32)
+            if want_lr is not None:
+                # occurrence slot -> lr, merged per unique key (last wins)
+                klr[inv] = np.asarray(slot_lr_vec, np.float32)[
+                    np.asarray(batches[d].key_segments[:n_keys]) % n_slots]
+                want_lr[d, owner[cold], slot[cold]] = klr[cold]
             if hot_occ is not None and hp_c is not None:
                 hot_occ[d, :n_keys] = np.where(
                     ishot, hp_c, H
                 ).astype(np.int32)[inv]
                 if ishot.any():
-                    hot_lr[d, hp_c[ishot]] = default_lr
+                    hot_lr[d, hp_c[ishot]] = klr[ishot]
         # the serve side: shard o serves want[:, o, :]; dedup the rows so
         # the push updates each row once (the dead row shares one segment;
         # it is scrubbed after every push)
         serve_rows = np.ascontiguousarray(want.transpose(1, 0, 2))
         serve_map = np.empty((n, n, C), dtype=np.int32)
+        serve_lr = lr_serve = None
+        if want_lr is not None:
+            lr_serve = want_lr.transpose(1, 0, 2)  # aligned with serve_rows
+            serve_lr = np.full((n, n * C), default_lr, np.float32)
         # padding tail: every slot its OWN scratch row (live + j), so
         # serve_uniq is unique apart from np.unique's single dead entry and
         # the slots past the scratch region clamped to the dead row, whose
@@ -1033,9 +1060,14 @@ class ShardedSparseTable(SparseTable):
                                     return_inverse=True)
             serve_uniq[o, : uq.shape[0]] = uq
             serve_map[o] = inv.reshape(n, C).astype(np.int32)
+            if serve_lr is not None:
+                # requesters of one row carry one key, hence one slot lr
+                # (dead and padding rows may disagree: their deltas are
+                # zeroed in the push, so any value is benign)
+                serve_lr[o][inv] = lr_serve[o].reshape(-1)
         self.missing_key_count += n_missing
         return ShardedBatchPlan(serve_rows, occ, serve_map, serve_uniq, mask,
-                                n_missing, hot_occ, hot_lr)
+                                n_missing, hot_occ, hot_lr, serve_lr)
 
     def _resolve_shard_rows(self, uk: np.ndarray):
         """Owner shard and row-within-shard for sorted unique keys (the dead

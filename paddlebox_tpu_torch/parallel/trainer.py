@@ -36,10 +36,18 @@ With ``TrainerConfig.prefetch_batches`` > 0 (the default) grouping,
 ``plan_group`` and the feed's copy run on the single-chip trainer's
 producer thread (train/trainer.py), as in the reference.
 
+The step policies, as in the reference's multi-chip trainer: ``slot_mask``
+(the single-chip gating, per position), the per-slot LR map through
+``plan_group`` (``serve_lr`` and ``hot_lr``), ``dense_optimizer`` "sgd",
+the tower's compute dtype, ``evaluate`` (forward only, per-position AUC
+streams merged) and the grad-norm stream (one ``[sum of squares, steps]``
+accumulator per position, summed at the pass end).  As in the reference,
+the multi-chip trainer has no skip or rollback policy and no step
+grouping: ``check_nan_inf`` raises, ``nan_policy`` and ``scan_steps`` are
+not read.
+
 Cut-outs (each raises ``NotImplementedError``): the host plane; the
-watchdog; telemetry;
-``evaluate``; dumps; multi-task models; metric groups; ``slot_mask``;
-``nan_policy`` other than the raise of ``check_nan_inf``.
+watchdog; telemetry; dumps; multi-task models; metric groups.
 """
 
 from __future__ import annotations
@@ -59,9 +67,12 @@ from paddlebox_tpu_torch.metrics.auc import (
     init_auc_state,
     stack_auc_states,
     unstack_auc_state,
-    update_auc_state,
+    update_auc_state_,
 )
-from paddlebox_tpu_torch.models.layers import bce_with_logits, resolve_compute_dtype
+from paddlebox_tpu_torch.models.layers import (
+    apply_compute_dtype_override,
+    bce_with_logits,
+)
 from paddlebox_tpu_torch.ops import sparse_kernels
 from paddlebox_tpu_torch.parallel import collectives
 from paddlebox_tpu_torch.parallel.async_dense import AsyncDenseTable
@@ -72,11 +83,19 @@ from paddlebox_tpu_torch.parallel.sharded_table import (
 )
 from paddlebox_tpu_torch.sparse.optimizer import sparse_adagrad_update
 from paddlebox_tpu_torch.sparse.table import _segment_sum, gather_rows, scatter_add_rows
+from paddlebox_tpu_torch.train.slot_policy import (
+    normalize_slot_mask,
+    resolve_slot_lr_vec,
+    slot_participation_vec,
+)
 from paddlebox_tpu_torch.train.trainer import (
     NonFiniteBatchError,
+    _dense_opt,
     await_feed,
+    pass_norms,
     prefetched,
     stage_feed,
+    sum_squares,
     to_device,
 )
 
@@ -91,6 +110,8 @@ def _stack_group(batches: Sequence[HostBatch], plan: ShardedBatchPlan) -> dict:
     if plan.hot_occ is not None:
         extra["hot_occ"] = plan.hot_occ
         extra["hot_lr"] = plan.hot_lr
+    if plan.serve_lr is not None:
+        extra["uniq_lr"] = plan.serve_lr
     return {
         **extra,
         "serve_rows": plan.serve_rows,
@@ -223,12 +244,14 @@ def sharded_push_and_update(values: torch.Tensor, g2sum: torch.Tensor,
                             occ_flat: torch.Tensor, serve_map: torch.Tensor,
                             serve_uniq: torch.Tensor, key_mask: torch.Tensor,
                             key_clicks: torch.Tensor,
-                            conf: SparseTableConfig) -> None:
+                            conf: SparseTableConfig,
+                            uniq_lr: Optional[torch.Tensor] = None) -> None:
     """The cross-shard push, IN PLACE on values [n, cap, W] and g2sum
     [n, cap]: merge occurrence gradients into per-owner buckets, exchange
     them (the push all_to_all), fold requesters of the same row into one
     segment (serve_map / serve_uniq), and apply the counters and sparse
-    adagrad to exactly the touched rows."""
+    adagrad to exactly the touched rows.  ``uniq_lr`` [n, n*C]: the lr of
+    each served unique row (the LR map), else ``conf.learning_rate``."""
     n, _, C = serve_map.shape
     co = conf.cvm_offset
     cap, W = values.shape[1:]
@@ -244,7 +267,8 @@ def sharded_push_and_update(values: torch.Tensor, g2sum: torch.Tensor,
         acc = _segment_sum(recv[o].view(n * C, W), serve_map[o].view(-1), US)
         uniq = serve_uniq[o]
         w_delta, g2_delta = sparse_adagrad_update(
-            g2sum[o].index_select(0, uniq), acc[:, co:], conf.learning_rate,
+            g2sum[o].index_select(0, uniq), acc[:, co:],
+            conf.learning_rate if uniq_lr is None else uniq_lr[o],
             conf.initial_g2sum, conf.grad_clip,
         )
         delta = torch.cat([acc[:, :co], w_delta], dim=1)
@@ -266,10 +290,10 @@ class MultiChipTrainer:
     def __init__(self, model, table_conf: SparseTableConfig, mesh: Mesh,
                  trainer_conf: Optional[TrainerConfig] = None,
                  metric_group=None, slot_mask: Optional[Iterable[int]] = None):
+        """slot_mask: participating sparse-slot indices (None = all), with
+        the single-chip Trainer's semantics on every position."""
         if metric_group is not None:
             raise not_ported("metric groups", "multi-chip cut-outs, item 3")
-        if slot_mask is not None:
-            raise not_ported("slot_mask", "multi-chip cut-outs, item 3")
         if getattr(model, "n_tasks", 1) > 1:
             raise not_ported("multi-task models", "model zoo, item 5")
         self.model = model
@@ -278,7 +302,13 @@ class MultiChipTrainer:
         self.device = mesh.device
         self.n_dev = mesh.n
         self.conf = trainer_conf or TrainerConfig()
-        resolve_compute_dtype(self.conf.compute_dtype)
+        n_slots = model.n_sparse_slots
+        self.slot_mask = normalize_slot_mask(slot_mask, n_slots)
+        self._part_vec = slot_participation_vec(self.slot_mask, n_slots,
+                                                self.device)
+        # the per-slot LR map, consumed by plan_group -> serve_lr / hot_lr
+        self._slot_lr_vec = resolve_slot_lr_vec(table_conf, n_slots)
+        apply_compute_dtype_override(model, self.conf.compute_dtype)
         for p in model.parameters():
             if p.device.type != self.device.type:
                 raise ValueError(
@@ -286,12 +316,13 @@ class MultiChipTrainer:
                 )
         # one dense copy per position in "kstep" mode (position 0 is the
         # caller's model; the copies start equal), one shared copy else.
-        # torch.optim.Adam's defaults match optax.adam's (trainer.py)
+        # the optimizers match optax's (train/trainer.py:_dense_opt)
         n_copies = self.n_dev if self.conf.sync_dense_mode == "kstep" else 1
         self.models = [model] + [copy.deepcopy(model)
                                  for _ in range(n_copies - 1)]
-        self.optimizers = [torch.optim.Adam(m.parameters(),
-                                            lr=self.conf.dense_lr)
+        self.optimizers = [_dense_opt(self.conf.dense_optimizer,
+                                      m.parameters(), self.conf.dense_lr,
+                                      capturable=False)
                            for m in self.models]
         self.optimizer = self.optimizers[0]
         # the host table of "async" mode, built at the first pass
@@ -411,13 +442,14 @@ class MultiChipTrainer:
 
     # -- the step ----------------------------------------------------------- #
     def _step(self, table: ShardedSparseTable, feed: dict,
-              aucs: list) -> tuple:
+              aucs: list, gn: Optional[torch.Tensor] = None) -> tuple:
         """One step over every position; updates the model copies (or, in
         "async" mode, returns their gradient), the table and the hot block
-        in place and ``aucs`` (one AucState per position).  Returns (loss,
-        per-position instance counts [n], summed dense gradients or None)
-        on the device: the psummed loss, or in "kstep" mode each
-        position's own loss [n]."""
+        in place, ``aucs`` (one AucState per position) and ``gn`` [n, 2]
+        (each position's grad-norm stream).  Returns (loss, per-position
+        instance counts [n], summed dense gradients or None) on the
+        device: the psummed loss, or in "kstep" mode each position's own
+        loss [n]."""
         tconf = self.table_conf
         n = self.n_dev
         mode = self.conf.sync_dense_mode
@@ -438,12 +470,21 @@ class MultiChipTrainer:
             denoms = torch.clamp(cnt, min=1.0)
         else:
             denoms = torch.clamp(collectives.psum(cnt), min=1.0)
+        key_mask, key_clicks = feed["key_mask"], feed["key_clicks"]
+        key_part = None
+        if self._part_vec is not None:
+            # the single-chip gating (train/trainer.py), per position
+            key_part = self._part_vec[
+                feed["key_segments"] % self._part_vec.shape[0]]
+            key_mask = key_mask * key_part
+            key_clicks = key_clicks * key_part
         losses, pgrads, row_grads, preds = [], [], [], []
         for d in range(n):
             model = self.models[d % len(self.models)]
             params = list(model.parameters())
             r = rows[d].detach().requires_grad_(True)
-            logits = model(r, feed["key_segments"][d], feed["dense"][d],
+            pulled = r if key_part is None else r * key_part[d][:, None]
+            logits = model(pulled, feed["key_segments"][d], feed["dense"][d],
                            mask.shape[1])
             per_ins = bce_with_logits(logits, feed["labels"][d]) * mask[d]
             loss = per_ins.sum() / denoms[d]
@@ -461,6 +502,13 @@ class MultiChipTrainer:
                       for g in zip(*pgrads)]
             loss = collectives.psum(torch.stack(losses))[0]
             dense_grads = summed
+        if gn is not None:
+            # per position: the gradient its dense update sees (summed in
+            # "step" and "async", its own in "kstep") and its row gradients
+            for d in range(n):
+                dg = summed if summed is not None else pgrads[d]
+                gsq = sum_squares(list(dg) + [row_grads[d]])
+                gn[d] += torch.stack([gsq, torch.ones_like(gsq)])
         if self.conf.check_nan_inf:
             finite = torch.isfinite(loss).all()
             for g in dense_grads + row_grads:
@@ -481,20 +529,18 @@ class MultiChipTrainer:
                 opt.zero_grad(set_to_none=True)
         sharded_push_and_update(
             table.values, table.g2sum, row_grads, feed["occ_flat"],
-            feed["serve_map"], feed["serve_uniq"], feed["key_mask"],
-            feed["key_clicks"], tconf,
+            feed["serve_map"], feed["serve_uniq"], key_mask, key_clicks,
+            tconf, uniq_lr=feed.get("uniq_lr"),
         )
         if hot:
             # hot occurrences carried the cold sink above, so each gradient
             # reaches exactly one of the two updates
             hybrid_hot_update(
                 table.hot_values, table.hot_g2sum, row_grads,
-                feed["hot_occ"], feed["hot_lr"], feed["key_mask"],
-                feed["key_clicks"], tconf,
+                feed["hot_occ"], feed["hot_lr"], key_mask, key_clicks, tconf,
             )
         for d in range(n):
-            aucs[d] = update_auc_state(aucs[d], preds[d], feed["labels"][d],
-                                       mask[d])
+            update_auc_state_(aucs[d], preds[d], feed["labels"][d], mask[d])
         return loss, cnt, summed if mode == "async" else None
 
     # -- public API --------------------------------------------------------- #
@@ -527,8 +573,14 @@ class MultiChipTrainer:
         hot_cap = table.hot_block_capacity
         if hot_cap:
             self._ensure_hot_block(table, hot_cap)
+        gn = torch.zeros((self.n_dev, 2), device=self.device)
         if isinstance(auc_state, dict):
+            if "gn" in auc_state:
+                gn.copy_(auc_state["gn"])
             auc_state = auc_state["auc"]
+        # the grad-norm stream carries across continued passes: the pass
+        # reads a float64 delta of the positions' sum
+        gn_base = gn.sum(0).double().cpu()
         stacked = auc_state if auc_state is not None else self.init_auc()
         aucs = [AucState(*(t.clone() for t in unstack_auc_state(stacked, d)))
                 for d in range(self.n_dev)]
@@ -547,7 +599,8 @@ class MultiChipTrainer:
             """(device feed, ready event) per group; on the producer thread
             when prefetching."""
             for group in groups:
-                plan = table.plan_group(group)
+                plan = table.plan_group(group, self._slot_lr_vec,
+                                        group[0].n_sparse_slots)
                 if plan.hot_occ is not None:
                     hot_occurrences[0] += int((plan.hot_occ < hot_cap).sum())
                 host = _stack_group(group, plan)
@@ -560,7 +613,7 @@ class MultiChipTrainer:
         try:
             for feed, ready in feed_iter:
                 loss, cnt, grads = self._step(table, await_feed(feed, ready),
-                                              aucs)
+                                              aucs, gn)
                 if grads is not None:
                     pending.append(self._stage_async(grads))
                     if len(pending) > 1:
@@ -605,9 +658,50 @@ class MultiChipTrainer:
         metrics["missing_keys"] = table.missing_key_count
         metrics["capacity_bumps"] = table.capacity_bumps
         metrics["hot_occurrences"] = hot_occurrences[0]
+        metrics.update(pass_norms(gn.sum(0).double().cpu() - gn_base,
+                                  self.model.parameters()))
         self.last_auc_state = merged
-        self.last_metric_state = {"auc": merged}
+        self.last_metric_state = {"auc": merged, "gn": gn}
         return metrics
+
+    # -- evaluation --------------------------------------------------------- #
+    @torch.no_grad()
+    def evaluate(self, dataset, table: ShardedSparseTable,
+                 drop_last: bool = False) -> dict:
+        """Forward-only pass over every position (reference:
+        parallel/trainer.py evaluate): no table, parameter or counter
+        change, one AUC stream per position, merged.  Needs an open
+        pass."""
+        if not table._in_pass:
+            raise RuntimeError("begin_pass before evaluating")
+        tconf = self.table_conf
+        hot_cap = table.hot_block_capacity
+        if hot_cap:
+            self._ensure_hot_block(table, hot_cap)
+        aucs = [init_auc_state(self.conf.auc_buckets, self.device)
+                for _ in range(self.n_dev)]
+        for group in _group_batches(dataset.batches(drop_last=drop_last),
+                                    self.n_dev):
+            feed = self._to_device(_stack_group(group,
+                                                table.plan_group(group)))
+            if "hot_occ" in feed:
+                rows = hybrid_pull(table.values, table.hot_values,
+                                   feed["serve_rows"], feed["occ_flat"],
+                                   feed["hot_occ"], tconf.create_threshold,
+                                   tconf.cvm_offset)
+            else:
+                rows = sharded_pull(table.values, feed["serve_rows"],
+                                    feed["occ_flat"], tconf.create_threshold,
+                                    tconf.cvm_offset)
+            mask = feed["ins_mask"]
+            for d in range(self.n_dev):
+                model = self.models[d % len(self.models)]
+                logits = model(rows[d], feed["key_segments"][d],
+                               feed["dense"][d], mask.shape[1])
+                update_auc_state_(aucs[d], torch.sigmoid(logits),
+                                  feed["labels"][d], mask[d])
+        return compute_metrics(AucState(*(torch.stack(ts)
+                                          for ts in zip(*aucs))))
 
 
 def _group_batches(batches: Iterator[HostBatch],

@@ -1012,6 +1012,8 @@ def push_and_update(
     key_clicks: torch.Tensor,
     conf: SparseTableConfig,
     key_extras: Optional[torch.Tensor] = None,
+    uniq_lr: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
 ):
     """Merge per-occurrence gradients by unique key, then apply sparse
     adagrad and the show/clk counter update.
@@ -1024,6 +1026,12 @@ def push_and_update(
     key_clicks: [K] label of each occurrence's instance (masked).
     key_extras: [K, cvm_offset - 2] extra counter increments per occurrence;
         zeros when absent.
+    uniq_lr: [U] per-unique-key learning rates (the BoxPS LR map, resolved
+        on the host by ``host_feed``); None = ``conf.learning_rate``.
+    gate: a bool device scalar; where False every delta is replaced by zero
+        (``torch.where``, so a NaN delta of a skipped batch cannot leak
+        through as it would through a multiply), leaving the table as it
+        was.  The decision stays on the device.
     """
     U = plan_uniq_idx.shape[0]
     co = conf.cvm_offset
@@ -1032,8 +1040,9 @@ def push_and_update(
     clk_inc = _segment_sum(key_clicks, plan_inverse, U)
     g2_rows = g2sum.index_select(0, plan_uniq_idx)
     w_delta, g2_delta = sparse_adagrad_update(
-        g2_rows, merged[:, co:], conf.learning_rate, conf.initial_g2sum,
-        conf.grad_clip,
+        g2_rows, merged[:, co:],
+        conf.learning_rate if uniq_lr is None else uniq_lr,
+        conf.initial_g2sum, conf.grad_clip,
     )
     counter_delta = torch.stack([show_inc, clk_inc], dim=1)
     if co > 2:
@@ -1049,9 +1058,15 @@ def push_and_update(
     # add zero and the scatter stays exact under any order
     dead = values.shape[0] - 1
     ok = (plan_uniq_idx != dead).to(delta.dtype)
-    scatter_add_rows(values, plan_uniq_idx, (delta * ok[:, None]).contiguous())
-    g2sum.index_add_(0, plan_uniq_idx, g2_delta * ok)
-    # the dead row must stay zero (pulls read it as the zero row)
-    values[dead] = 0.0
-    g2sum[dead] = 0.0
+    delta, g2_delta = delta * ok[:, None], g2_delta * ok
+    if gate is not None:
+        delta = torch.where(gate, delta, 0.0)
+        g2_delta = torch.where(gate, g2_delta, 0.0)
+    scatter_add_rows(values, plan_uniq_idx, delta.contiguous())
+    g2sum.index_add_(0, plan_uniq_idx, g2_delta)
+    # the dead row must stay zero (pulls read it as the zero row); zero_()
+    # on a slice, since a scalar store copies from the host, which a CUDA
+    # graph capture refuses
+    values.narrow(0, dead, 1).zero_()
+    g2sum.narrow(0, dead, 1).zero_()
     return values, g2sum

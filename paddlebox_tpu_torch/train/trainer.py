@@ -18,13 +18,41 @@ launch stays on the step's thread and stream.  0 runs the feed serially.
 ``next_pass_keys`` hands the next pass's census to ``table.prepare_pass``
 once the feed is exhausted (the overlapped pass boundary, sparse/table.py).
 
-Scan grouping, the skip/rollback NaN policies, evaluation, dumping, the
-watchdog and telemetry are later slices.
+The step policies of the reference:
+  * ``TrainerConfig.scan_steps`` = k > 1 groups k steps into one body
+    (``Trainer._group_body``), the reference's ``lax.scan`` of k steps.  On
+    the card the body is captured once a pass as a CUDA graph (its first
+    group runs eagerly on a side stream as the warm-up) and replayed, the
+    group's k prefetched feeds copied into the graph's static feed slots
+    first; a capture that fails raises, nothing falls back to eager steps.
+    On the CPU the same body runs eagerly.  A ragged tail runs single
+    steps.
+  * ``check_nan_inf`` and ``nan_policy``: the finite flag of every step is
+    decided on the device, and ``torch.where`` on it picks the pre- or
+    post-step dense parameters and optimizer state, and whether the
+    push's deltas, the AUC and the grad-norm updates apply ("skip_batch":
+    a non-finite step drops only itself; "raise" and "rollback": it and
+    every later step of its group leave all state untouched, and the host,
+    reading the group's flags once, raises ``NonFiniteBatchError`` or
+    rolls back to the attached checkpointer's last pass,
+    ``PassRolledBack``).  The reference applies the poisoned step itself
+    before it raises; the port applies nothing of it.
+  * ``slot_mask`` (excluded slots read zero and neither train nor count),
+    the per-slot LR map (``SparseTableConfig.slot_learning_rates``, the
+    feed's ``uniq_lr``), ``dense_optimizer`` "sgd", the compute dtype of
+    the tower (models/layers.py), and the grad-norm stream ``"gn"`` (summed
+    squared global gradient norm and a step count, read as a delta per
+    pass: ``grad_norm`` and ``weight_norm`` in the pass metrics).
+  * ``evaluate``: forward only, streaming AUC, no table, parameter or
+    counter change.
+
+Dumping, the watchdog and telemetry are later slices.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import queue
 import threading
 import time
@@ -39,10 +67,19 @@ from paddlebox_tpu_torch.metrics.auc import (
     AucState,
     compute_metrics,
     init_auc_state,
-    update_auc_state,
+    update_auc_state_,
 )
-from paddlebox_tpu_torch.models.layers import bce_with_logits, resolve_compute_dtype
+from paddlebox_tpu_torch.models.layers import (
+    apply_compute_dtype_override,
+    bce_with_logits,
+)
 from paddlebox_tpu_torch.sparse.table import BatchPlan, SparseTable, pull_rows, push_and_update
+from paddlebox_tpu_torch.train.slot_policy import (
+    normalize_slot_mask,
+    resolve_slot_lr_vec,
+    slot_participation_vec,
+)
+from paddlebox_tpu_torch.utils import faults
 from paddlebox_tpu_torch.utils.device import resolve_device
 from paddlebox_tpu_torch.utils.monitor import stats
 from paddlebox_tpu_torch.utils.queues import bounded_put
@@ -51,15 +88,36 @@ logger = logging.getLogger(__name__)
 
 
 class NonFiniteBatchError(FloatingPointError):
-    """A batch produced a non-finite loss or gradient (check_nan_inf)."""
+    """A batch produced a non-finite loss or gradient and the nan_policy
+    did not absorb it ("raise", or "rollback" without a checkpoint)."""
 
 
-def host_feed(batch: HostBatch, plan: BatchPlan) -> dict:
-    """The static-shape feed of one step, as numpy arrays."""
-    ins = np.minimum(
-        batch.key_segments // batch.n_sparse_slots, batch.batch_size - 1
-    )
-    return {
+class PassRolledBack(RuntimeError):
+    """nan_policy="rollback" fired: the in-flight pass was aborted and the
+    table and dense state restored to the last completed pass through the
+    attached AutoCheckpointer.  ``status`` is the restored status dict: the
+    caller re-runs from ``status["next_pass"]`` and does NOT call
+    ``table.end_pass()`` for the aborted pass."""
+
+    def __init__(self, status: dict):
+        super().__init__(
+            f"pass rolled back to checkpoint tag {status['tag']!r}; "
+            f"re-run from pass {status['next_pass']}"
+        )
+        self.status = status
+
+
+def host_feed(batch: HostBatch, plan: BatchPlan,
+              slot_lr_vec: Optional[np.ndarray] = None) -> dict:
+    """The static-shape feed of one step, as numpy arrays.
+
+    ``slot_lr_vec``: [S] per-slot learning rates; the feed then carries
+    ``uniq_lr`` [K], each unique key's lr from the slot of its occurrences
+    (the last assignment wins; the padding tail gets the mean), as the
+    reference's ``_host_batch_dict`` builds it."""
+    n_slots = batch.n_sparse_slots
+    ins = np.minimum(batch.key_segments // n_slots, batch.batch_size - 1)
+    feed = {
         "idx": plan.idx,
         "uniq_idx": plan.uniq_idx,
         "inverse": plan.inverse,
@@ -70,6 +128,16 @@ def host_feed(batch: HostBatch, plan: BatchPlan) -> dict:
         "labels": batch.labels,
         "ins_mask": batch.ins_mask,
     }
+    if slot_lr_vec is not None:
+        uniq_lr = np.full(batch.key_segments.shape[0], slot_lr_vec.mean(),
+                          np.float32)
+        n_real = batch.n_keys
+        if n_real:
+            uniq_lr[plan.inverse[:n_real]] = slot_lr_vec[
+                batch.key_segments[:n_real] % n_slots
+            ]
+        feed["uniq_lr"] = uniq_lr
+    return feed
 
 
 def to_device(host: dict, device: torch.device) -> dict:
@@ -202,6 +270,100 @@ def prefetched(feeds: Iterator, depth: int):
     return p, p
 
 
+def _dense_opt(kind: str, params, lr: float, capturable: bool):
+    """The dense optimizer.  torch.optim.Adam's defaults (betas 0.9/0.999,
+    eps 1e-8 added to sqrt(v_hat)) match optax.adam's (eps outside the
+    root, eps_root 0); torch.optim.SGD without momentum is optax.sgd.
+    ``capturable`` keeps Adam's step count on the device, which a CUDA
+    graph needs and a where-gated step reads without a host sync."""
+    if kind == "sgd":
+        return torch.optim.SGD(params, lr=lr)
+    return torch.optim.Adam(params, lr=lr, capturable=capturable)
+
+
+def init_opt_state(optimizer) -> None:
+    """Create Adam's per-parameter state now, as its first step would (step
+    0, zero moments), so a graph capture or a where-gated first step finds
+    it in place.  SGD without momentum keeps no state."""
+    if not isinstance(optimizer, torch.optim.Adam):
+        return
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            st = optimizer.state[p]
+            if st:
+                continue
+            st["step"] = torch.zeros(
+                (), dtype=torch.float32,
+                device=p.device if group["capturable"] else "cpu")
+            st["exp_avg"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+            st["exp_avg_sq"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+
+
+def opt_state_tensors(optimizer) -> list:
+    """Every tensor of the optimizer's state, in parameter order."""
+    out = []
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            out += [t for t in optimizer.state[p].values() if torch.is_tensor(t)]
+    return out
+
+
+def sum_squares(tensors) -> torch.Tensor:
+    """float32 sum of the squares of every element of ``tensors``."""
+    total = None
+    for t in tensors:
+        sq = t.float().square().sum()
+        total = sq if total is None else total + sq
+    return total
+
+
+class _StepGraph:
+    """One captured group of k steps: the static feed slots the body reads,
+    the static loss and flag outputs, and the tensors whose addresses the
+    capture baked in (the table's, which begin_pass reallocates)."""
+
+    def __init__(self, trainer: "Trainer", table, feeds: list, auc, gn):
+        self.values, self.g2sum = table.values, table.g2sum
+        self.auc, self.gn = auc, gn
+        self.shapes = _feed_shapes(feeds)
+        self.slots = [{k: torch.empty_like(v) for k, v in f.items()}
+                      for f in feeds]
+        self.losses = torch.zeros(len(feeds), device=table.values.device)
+        self.flags = torch.ones(len(feeds), dtype=torch.bool,
+                                device=table.values.device)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the prefetch producer keeps pinning and copying
+        # feeds on its own thread and stream while this thread captures;
+        # the default ("global") mode would count its calls against the
+        # capture and invalidate it
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            trainer._group_body(self.values, self.g2sum, self.slots, auc, gn,
+                                self.losses, self.flags)
+
+    def matches(self, table, feeds: list, auc, gn) -> bool:
+        return (self.values is table.values and self.g2sum is table.g2sum
+                and self.gn is gn
+                and all(a is b for a, b in zip(self.auc, auc))
+                and self.shapes == _feed_shapes(feeds))
+
+    def replay(self, feeds: list) -> tuple:
+        """Copy the group's feeds into the slots and replay; returns the
+        losses and flags as fresh tensors (the next replay overwrites the
+        static ones)."""
+        for slot, feed in zip(self.slots, feeds):
+            for k, v in feed.items():
+                slot[k].copy_(v)
+        self.graph.replay()
+        return self.losses.clone(), self.flags.clone()
+
+
+def _feed_shapes(feeds: list) -> tuple:
+    return tuple(tuple(sorted((k, tuple(v.shape), v.dtype)
+                              for k, v in f.items())) for f in feeds)
+
+
 class Trainer:
     """Drives a model + SparseTable over a dataset's batches."""
 
@@ -211,64 +373,218 @@ class Trainer:
         table_conf: SparseTableConfig,
         trainer_conf: Optional[TrainerConfig] = None,
         device="cuda",
+        slot_mask: Optional[Iterable[int]] = None,
     ):
+        """slot_mask: participating sparse-slot indices (None = all).
+        Excluded slots read zero pooled features, receive no gradient and
+        increment no show/clk counter (the reference's per-phase slot
+        participation, box_wrapper.h:627-630)."""
         self.device = resolve_device(device)
         self.model = model
         self.table_conf = table_conf
         self.conf = trainer_conf or TrainerConfig()
-        resolve_compute_dtype(self.conf.compute_dtype)
+        n_slots = model.n_sparse_slots
+        self.slot_mask = normalize_slot_mask(slot_mask, n_slots)
+        apply_compute_dtype_override(model, self.conf.compute_dtype)
         for p in model.parameters():
             if p.device.type != self.device.type:
                 raise ValueError(
                     f"model parameters on {p.device}, trainer on {self.device}"
                 )
-        # torch.optim.Adam's defaults (betas 0.9/0.999, eps 1e-8 added to
-        # sqrt(v_hat)) match optax.adam's (eps outside the root, eps_root 0)
-        self.optimizer = torch.optim.Adam(model.parameters(),
-                                          lr=self.conf.dense_lr)
+        self._part_vec = slot_participation_vec(self.slot_mask, n_slots,
+                                                self.device)
+        # the host half of the per-slot LR map; the feed carries uniq_lr
+        self._slot_lr_vec = resolve_slot_lr_vec(table_conf, n_slots)
+        self.optimizer = _dense_opt(self.conf.dense_optimizer,
+                                    model.parameters(), self.conf.dense_lr,
+                                    capturable=self.device.type == "cuda")
+        # AutoCheckpointer for nan_policy="rollback" (assign after
+        # construction); without one, rollback raises as "raise" does
+        self.checkpointer = None
         self.global_step = 0
+        self._graph: Optional[_StepGraph] = None
+        # the table values whose warm-up group ran: the next full group on
+        # them captures
+        self._warmed = None
+        # captures and replays of the k-step CUDA graph, over the trainer's
+        # life (a kernel wrapper's launch count counts captures only)
+        self.graph_captures = 0
+        self.graph_replays = 0
         self.last_auc_state: Optional[AucState] = None
+        self.last_metric_state: Optional[dict] = None
+
+    @property
+    def _check_nan(self) -> bool:
+        """Per-step finiteness check: the flag, or any policy that acts on
+        it."""
+        return self.conf.check_nan_inf or self.conf.nan_policy != "raise"
+
+    @property
+    def _skip_batches(self) -> bool:
+        return self._check_nan and self.conf.nan_policy == "skip_batch"
 
     def _to_device(self, host: dict) -> dict:
         return to_device(host, self.device)
 
-    def _step(self, table: SparseTable, dev: dict, auc: AucState):
-        """One training step; updates the model, the table and returns
-        (loss, auc) with loss a device scalar."""
+    # -- the step ----------------------------------------------------------- #
+    def _tick(self, values, g2sum, feed: dict, auc: AucState,
+              gn: torch.Tensor, ok: Optional[torch.Tensor]):
+        """One training step, every update in place.  ``ok``: with the
+        check on, a bool device scalar, False when an earlier step of the
+        group failed under a raising policy.  Returns (loss, gate): gate
+        is None without the check, else the device flag that decided
+        whether this step's updates applied."""
         tconf = self.table_conf
-        if table.values.device.type != self.device.type:
-            raise RuntimeError(
-                f"table on {table.values.device}, trainer on {self.device}"
-            )
         rows = pull_rows(
-            table.values, dev["idx"],
+            values, feed["idx"],
             create_threshold=tconf.create_threshold,
             cvm_offset=tconf.cvm_offset,
             pull_embedx_scale=tconf.pull_embedx_scale,
         ).requires_grad_(True)
-        labels, mask = dev["labels"], dev["ins_mask"]
-        logits = self.model(rows, dev["key_segments"], dev["dense"],
+        key_part = None
+        pulled = rows
+        if self._part_vec is not None:
+            # occurrence-level participation (segment = ins * S + slot):
+            # gating inside the loss zeroes the excluded slots' pooled
+            # features and, through the chain rule, their row gradients
+            key_part = self._part_vec[
+                feed["key_segments"] % self._part_vec.shape[0]]
+            pulled = rows * key_part[:, None]
+        labels, mask = feed["labels"], feed["ins_mask"]
+        logits = self.model(pulled, feed["key_segments"], feed["dense"],
                             labels.shape[0])
         denom = torch.clamp(mask.sum(), min=1.0)
         loss = (bce_with_logits(logits, labels) * mask).sum() / denom
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         row_grads = rows.grad
-        if self.conf.check_nan_inf:
+        params = list(self.model.parameters())
+        grads = [p.grad for p in params]
+        gate = None
+        if self._check_nan:
+            init_opt_state(self.optimizer)  # a no-op once the state exists
             finite = torch.isfinite(loss) & torch.isfinite(row_grads).all()
-            for p in self.model.parameters():
-                finite &= torch.isfinite(p.grad).all()
-            if not bool(finite):
-                raise NonFiniteBatchError(
-                    f"non-finite loss/grad at step {self.global_step}"
-                )
-        self.optimizer.step()
+            for g in grads:
+                finite = finite & torch.isfinite(g).all()
+            gate = finite if ok is None else ok & finite
+        gsq = sum_squares(grads + [row_grads])
+        if gate is None:
+            self.optimizer.step()
+        else:
+            # the decision stays on the device: where, never a multiply
+            # (NaN * 0 is NaN)
+            dense = params + opt_state_tensors(self.optimizer)
+            before = [t.detach().clone() for t in dense]
+            self.optimizer.step()
+            with torch.no_grad():
+                for t, b in zip(dense, before):
+                    t.copy_(torch.where(gate, t, b))
+        key_mask, key_clicks = feed["key_mask"], feed["key_clicks"]
+        if key_part is not None:
+            # excluded slots increment no show/clk counter either
+            key_mask = key_mask * key_part
+            key_clicks = key_clicks * key_part
         push_and_update(
-            table.values, table.g2sum, row_grads, dev["uniq_idx"],
-            dev["inverse"], dev["key_mask"], dev["key_clicks"], tconf,
+            values, g2sum, row_grads, feed["uniq_idx"], feed["inverse"],
+            key_mask, key_clicks, tconf, uniq_lr=feed.get("uniq_lr"),
+            gate=gate,
         )
-        auc = update_auc_state(auc, torch.sigmoid(logits.detach()), labels, mask)
-        return loss.detach(), auc
+        update_auc_state_(auc, torch.sigmoid(logits.detach()), labels, mask,
+                          gate)
+        inc = torch.stack([gsq, torch.ones_like(gsq)])
+        gn.add_(inc if gate is None else torch.where(gate, inc, 0.0))
+        return loss.detach(), gate
+
+    def _group_body(self, values, g2sum, feeds: list, auc: AucState,
+                    gn: torch.Tensor, losses: torch.Tensor,
+                    flags: torch.Tensor) -> None:
+        """k steps in one body (the reference's scan tick): the CPU runs
+        it eagerly, the card captures it.  No host sync: each step's loss
+        and flag land in ``losses`` / ``flags`` [k].  Under "skip_batch" a
+        non-finite step drops only itself; under a raising policy every
+        later step of the group leaves all state untouched."""
+        skip = self._skip_batches
+        ok = None
+        if self._check_nan and not skip:
+            ok = torch.ones((), dtype=torch.bool, device=values.device)
+        for j, feed in enumerate(feeds):
+            loss, gate = self._tick(values, g2sum, feed, auc, gn, ok)
+            losses[j] = loss
+            if gate is not None:
+                flags[j] = gate
+                if not skip:
+                    ok = gate
+
+    def _check_table(self, table) -> None:
+        if table.values.device.type != self.device.type:
+            raise RuntimeError(
+                f"table on {table.values.device}, trainer on {self.device}"
+            )
+
+    def _run_group(self, table, feeds: list, auc: AucState,
+                   gn: torch.Tensor) -> tuple:
+        """Run one group: replayed as the captured graph when it is a full
+        group of scan_steps > 1 on the card, else eagerly.  Returns (losses
+        [k], flags [k]) on the device."""
+        self._check_table(table)
+        k = len(feeds)
+        if self.device.type == "cuda" and k > 1:
+            graph = self._graph
+            if graph is None or not graph.matches(table, feeds, auc, gn):
+                self._graph = None
+                if self._warmed is not table.values:
+                    # the warm-up of a new table: this group runs eagerly
+                    # on a side stream (autograd, cuBLAS and the allocator
+                    # settle), the next one captures
+                    self._warmed = table.values
+                    return self._warm_up(table, feeds, auc, gn)
+                # a failed capture raises; nothing runs these steps eagerly
+                graph = _StepGraph(self, table, feeds, auc, gn)
+                self._graph = graph
+                self.graph_captures += 1
+                stats.add("trainer.graph_captures")
+            self.graph_replays += 1
+            stats.add("trainer.graph_replays")
+            return graph.replay(feeds)
+        losses = torch.zeros(k, device=table.values.device)
+        flags = torch.ones(k, dtype=torch.bool, device=table.values.device)
+        self._group_body(table.values, table.g2sum, feeds, auc, gn, losses,
+                         flags)
+        return losses, flags
+
+    def _warm_up(self, table, feeds, auc, gn) -> tuple:
+        """The group eagerly on a side stream, ordered after and before the
+        current stream's work, as torch.cuda.graphs' whole-network example
+        warms up before a capture; the optimizer's state is created here,
+        so the capture finds it."""
+        init_opt_state(self.optimizer)
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        k = len(feeds)
+        with torch.cuda.stream(side):
+            losses = torch.zeros(k, device=self.device)
+            flags = torch.ones(k, dtype=torch.bool, device=self.device)
+            self._group_body(table.values, table.g2sum, feeds, auc, gn,
+                             losses, flags)
+        cur.wait_stream(side)
+        # for the caching allocator: the feeds were read on the side
+        # stream, the outputs will be on the current one
+        for t in (v for f in feeds for v in f.values()):
+            t.record_stream(side)
+        for t in (losses, flags):
+            t.record_stream(cur)
+        return losses, flags
+
+    def _step(self, table: SparseTable, dev: dict, auc: AucState):
+        """One eager training step on a device feed, ``auc`` updated in
+        place; returns (loss, auc) with loss a device scalar."""
+        gn = torch.zeros(2, device=self.device)
+        losses, flags = self._run_group(table, [dev], auc, gn)
+        if self._check_nan and not bool(flags[0]):
+            raise NonFiniteBatchError(
+                f"non-finite loss/grad at step {self.global_step}")
+        return losses[0], auc
 
     # -- dense persistence -------------------------------------------------- #
     def dense_state(self) -> tuple:
@@ -281,24 +597,50 @@ class Trainer:
             self.model.load_state_dict(params)
         if opt_state is not None:
             self.optimizer.load_state_dict(opt_state)
+        # a loaded optimizer state holds new tensors: the captured graph's
+        # addresses are stale
+        self._graph = None
 
     def init_auc(self) -> AucState:
         """A fresh AUC stream on the trainer's device (the template of a
         saved metric state)."""
         return init_auc_state(self.conf.auc_buckets, self.device)
 
+    def _rollback_to_checkpoint(self, table) -> None:
+        """nan_policy="rollback": abort the poisoned pass, restore the last
+        completed pass from the attached AutoCheckpointer and raise
+        PassRolledBack.  Returns (the caller re-raises the
+        NonFiniteBatchError) when no checkpointer is attached or no pass
+        completed."""
+        acp = self.checkpointer
+        if acp is None:
+            logger.warning("nan_policy='rollback' but no checkpointer "
+                           "attached (set trainer.checkpointer); raising")
+            return
+        if acp.status() is None:
+            logger.warning("nan_policy='rollback' but no completed pass "
+                           "recorded; raising")
+            return
+        table.abort_pass()
+        status, _ = acp.resume(table, self)
+        stats.add("train.nan_rollback")
+        raise PassRolledBack(status)
+
     # -- public API --------------------------------------------------------- #
     def train_from_dataset(
         self,
         dataset,
         table: SparseTable,
-        auc_state: Optional[AucState] = None,
+        auc_state=None,
         drop_last: bool = False,
         next_pass_keys=None,
     ) -> dict:
         """Run one pass over the dataset's batches.  The caller owns the
-        pass lifecycle: table.begin_pass() before, table.end_pass() after.
-        ``auc_state`` continues an earlier pass's metric stream.
+        pass lifecycle: table.begin_pass() before, table.end_pass() after
+        (except after PassRolledBack, which aborted the pass).
+        ``auc_state`` continues an earlier pass's metric streams: an
+        AucState, or ``last_metric_state`` (which carries the grad-norm
+        stream too).
 
         ``next_pass_keys``: the NEXT pass's census (an array, or a
         zero-argument callable returning one, called on the table's staging
@@ -309,42 +651,92 @@ class Trainer:
                                 auc_state, next_pass_keys=next_pass_keys)
 
     def train_steps(self, table: SparseTable, batches: Iterable[HostBatch],
-                    auc_state: Optional[AucState] = None,
-                    next_pass_keys=None) -> dict:
+                    auc_state=None, next_pass_keys=None) -> dict:
         """Lower-level entry: train over an explicit batch iterable."""
         if not table._in_pass:
             raise RuntimeError("begin_pass before training")
         t0 = time.monotonic()
+        gn = torch.zeros(2, device=self.device)
+        if isinstance(auc_state, dict):
+            if "gn" in auc_state:
+                gn.copy_(auc_state["gn"])
+            auc_state = auc_state["auc"]
         auc = (
             AucState(*(t.clone() for t in auc_state))
             if auc_state is not None
             else self.init_auc()
         )
+        # the stream carries across continued passes: the pass reads a
+        # delta, in float64 on the host as the reference reads it
+        gn_base = gn.double().cpu()
         losses = []
         n_samples = [0.0]
+        n_steps = 0
         depth = self.conf.prefetch_batches
+        k = max(1, self.conf.scan_steps)
+        check_nan, skip = self._check_nan, self._skip_batches
 
         def feeds():
-            """(device feed, ready event) per batch: batch assembly, key
-            planning and the copy; on the producer thread when prefetching."""
+            """Groups of k (device feed, ready event, instances), the ragged
+            tail as single steps: batch assembly, key planning, the chaos
+            site and the copy; on the producer thread when prefetching."""
+            group = []
             for batch in batches:
                 plan = table.plan_batch(batch)
-                host = host_feed(batch, plan)
-                n_samples[0] += float(batch.ins_mask.sum())
+                host = host_feed(batch, plan, self._slot_lr_vec)
+                if faults.fire("train.nan"):
+                    # chaos: poison the labels, so the loss and gradients
+                    # really go non-finite on the device
+                    host["labels"] = np.full_like(host["labels"], np.nan)
+                ins = float(batch.ins_mask.sum())
+                n_samples[0] += ins
                 if depth > 0:
-                    yield stage_feed(host, self.device)
+                    item = (*stage_feed(host, self.device), ins)
                 else:
-                    yield self._to_device(host), None
+                    item = (self._to_device(host), None, ins)
+                group.append(item)
+                if len(group) == k:
+                    yield group
+                    group = []
+            for item in group:
+                yield [item]
 
-        feed_iter, prefetcher = prefetched(feeds(), depth)
+        # queue slots hold groups: the depth shrinks so the staged device
+        # memory stays about prefetch_batches batches either way
+        feed_iter, prefetcher = prefetched(
+            feeds(), max(1, depth // k) if depth > 0 else 0)
         try:
-            for dev, ready in feed_iter:
-                loss, auc = self._step(table, await_feed(dev, ready), auc)
-                losses.append(loss)
-                self.global_step += 1
-        finally:
-            if prefetcher is not None:
-                prefetcher.close()
+            try:
+                for group in feed_iter:
+                    devs = [await_feed(d, r) for d, r, _ in group]
+                    loss_k, flags = self._run_group(table, devs, auc, gn)
+                    n = len(group)
+                    if check_nan:
+                        fin = flags.cpu().numpy()  # one readback a group
+                        if not fin.all():
+                            if not skip:
+                                raise NonFiniteBatchError(
+                                    f"non-finite loss/grad within steps "
+                                    f"{self.global_step}.."
+                                    f"{self.global_step + n - 1}")
+                            bad = np.nonzero(~fin)[0]
+                            stats.add("train.nan_skipped_steps", bad.shape[0])
+                            stats.add("train.nan_skipped_ins",
+                                      sum(group[j][2] for j in bad))
+                            good = np.nonzero(fin)[0]
+                            loss_k = loss_k[torch.from_numpy(good).to(
+                                loss_k.device)]
+                            n = good.shape[0]
+                    losses.append(loss_k)
+                    n_steps += n
+                    self.global_step += n
+            finally:
+                if prefetcher is not None:
+                    prefetcher.close()
+        except NonFiniteBatchError:
+            if self.conf.nan_policy == "rollback":
+                self._rollback_to_checkpoint(table)  # raises PassRolledBack
+            raise
         # the feed is done (the producer closed) while the card still runs
         # the last steps: the window the next pass's staging hides in,
         # before the metric readback below waits for the card
@@ -352,10 +744,54 @@ class Trainer:
             table.prepare_pass(next_pass_keys)
         metrics = compute_metrics(auc)
         metrics["loss"] = (
-            float(torch.stack(losses).mean()) if losses else 0.0
+            float(torch.cat(losses).mean()) if n_steps else 0.0
         )
-        metrics["steps"] = len(losses)
+        metrics["steps"] = n_steps
         metrics["samples"] = n_samples[0]
         metrics["duration_s"] = time.monotonic() - t0
+        metrics.update(pass_norms(gn.double().cpu() - gn_base,
+                                  self.model.parameters()))
         self.last_auc_state = auc
+        self.last_metric_state = {"auc": auc, "gn": gn}
         return metrics
+
+    # -- evaluation --------------------------------------------------------- #
+    @torch.no_grad()
+    def evaluate(self, dataset, table: SparseTable,
+                 drop_last: bool = False) -> dict:
+        """Forward-only pass: no table, parameter or counter change, a
+        streaming AUC only (reference: infer_from_dataset).  Needs an open
+        pass."""
+        if not table._in_pass:
+            raise RuntimeError("begin_pass before evaluating")
+        self._check_table(table)
+        tconf = self.table_conf
+        auc = self.init_auc()
+        for batch in dataset.batches(drop_last=drop_last):
+            dev = self._to_device(host_feed(batch, table.plan_batch(batch)))
+            rows = pull_rows(
+                table.values, dev["idx"],
+                create_threshold=tconf.create_threshold,
+                cvm_offset=tconf.cvm_offset,
+                pull_embedx_scale=tconf.pull_embedx_scale,
+            )
+            logits = self.model(rows, dev["key_segments"], dev["dense"],
+                                dev["labels"].shape[0])
+            update_auc_state_(auc, torch.sigmoid(logits), dev["labels"],
+                              dev["ins_mask"])
+        return compute_metrics(auc)
+
+
+def pass_norms(gn_delta: torch.Tensor, params) -> dict:
+    """The pass metrics of the grad-norm stream: ``grad_norm``, the RMS
+    over the pass's steps of the global gradient norm (dense and sparse),
+    from a float64 "gn" delta [sum of squares, steps] (absent when the pass
+    counted no step), and ``weight_norm``, the L2 norm of ``params`` at the
+    pass end."""
+    out = {}
+    d_sq, d_n = (float(x) for x in gn_delta)
+    if d_n > 0:
+        out["grad_norm"] = math.sqrt(d_sq / d_n) if d_sq >= 0 else float("nan")
+    wsq = sum(float(p.detach().float().square().sum()) for p in params)
+    out["weight_norm"] = math.sqrt(wsq) if wsq >= 0 else float("nan")
+    return out

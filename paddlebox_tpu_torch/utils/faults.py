@@ -64,6 +64,10 @@ KNOWN_SITES = {
     "ckpt.save", "ckpt.load", "ckpt.delta_save",
     # the filesystem surface of utils/fs.py's LocalFS
     "fs.ls", "fs.cat",
+    # the single-chip trainer's feed (train/trainer.py): a fired hit
+    # poisons the batch's labels with NaN, so the loss and gradients go
+    # non-finite on the device and the configured nan_policy acts
+    "train.nan",
 }
 
 

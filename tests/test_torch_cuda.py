@@ -790,3 +790,140 @@ def test_prefetched_runs_are_bit_equal_to_serial(cuda, tmp_path):
     finally:
         torch.use_deterministic_algorithms(False)
         ds.close()
+
+
+# --------------------------------------------------------------------------- #
+# scan_steps as a CUDA graph
+# --------------------------------------------------------------------------- #
+def _graph_world(tmp_path, scan_steps, model_cls=None, **trkw):
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.train import Trainer
+
+    files = write_synth_files(str(tmp_path / f"g{scan_steps}"), n_files=1,
+                              ins_per_file=640, n_sparse_slots=4,
+                              vocab_per_slot=80, dense_dim=3, seed=4)
+    ds = PadBoxSlotDataset(make_synth_config(4, 3, 32, 16), read_threads=1)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    tconf = SparseTableConfig(embedding_dim=4)
+    table = SparseTable(tconf, seed=5)
+    model = (model_cls or CtrDnn)(4, tconf.row_width, dense_dim=3,
+                                  hidden=(16, 8))
+    tr = Trainer(model, tconf, TrainerConfig(auc_buckets=1 << 10,
+                                             scan_steps=scan_steps, **trkw))
+    return ds, table, tr
+
+
+def _graph_passes(ds, table, tr, passes=2):
+    out = []
+    for p in range(passes):
+        ds.local_shuffle(seed=p)
+        table.begin_pass(ds.unique_keys())
+        out.append(tr.train_from_dataset(ds, table,
+                                         auc_state=tr.last_metric_state))
+        table.end_pass()
+    torch.cuda.synchronize()
+    return out, table.state_dict()
+
+
+def test_captured_steps_equal_eager_steps(cuda, tmp_path):
+    """20 batches a pass in groups of 4 (an eager warm-up group, then four
+    replays, the first right after the capture), two passes: the same
+    losses, AUC, grad_norm and table as one eager step at a time, under
+    deterministic algorithms; one capture a pass (the table is
+    reallocated at each begin_pass)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for k in (1, 4):
+            ds, table, tr = _graph_world(tmp_path, k)
+            runs[k] = _graph_passes(ds, table, tr) + (tr,)
+            table.close()
+            ds.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (m1, s1, _), (m4, s4, tr4) = runs[1], runs[4]
+    assert tr4.graph_captures == 2 and tr4.graph_replays == 2 * 4
+    for a, b in zip(m1, m4):
+        assert a["steps"] == b["steps"] == 20
+        for key in ("loss", "auc", "count", "grad_norm", "weight_norm"):
+            assert a[key] == b[key], key
+    np.testing.assert_array_equal(s1["keys"], s4["keys"])
+    np.testing.assert_array_equal(s1["values"], s4["values"])
+
+
+def test_graph_recaptured_after_table_reallocation(cuda, tmp_path):
+    """Within a pass the graph replays; a new begin_pass reallocates the
+    table's tensors and the next full group after the warm-up recaptures;
+    a load_dense_state (new optimizer tensors) drops the graph too."""
+    ds, table, tr = _graph_world(tmp_path, 4)
+    _graph_passes(ds, table, tr, passes=1)
+    assert (tr.graph_captures, tr.graph_replays) == (1, 4)
+    old = tr._graph
+    _graph_passes(ds, table, tr, passes=1)
+    assert (tr.graph_captures, tr.graph_replays) == (2, 8)
+    assert tr._graph is not old and tr._graph.values is not old.values
+    tr.load_dense_state(*tr.dense_state())
+    assert tr._graph is None
+    _graph_passes(ds, table, tr, passes=1)
+    assert tr.graph_captures == 3
+    table.close()
+    ds.close()
+
+
+def test_skip_batch_under_the_graph_drops_only_the_poisoned_batch(cuda,
+                                                                   tmp_path):
+    """A train.nan-poisoned batch in a replayed group under skip_batch
+    leaves the state of the same pass without that batch, deterministic."""
+    from paddlebox_tpu_torch.utils import faults
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ds, table, tr = _graph_world(tmp_path, 4, nan_policy="skip_batch")
+        batches = list(ds.batches())
+        table.begin_pass(ds.unique_keys())
+        with faults.fault_plan({"train.nan": "at:13"}):
+            ma = tr.train_steps(table, batches)
+        table.end_pass()
+        sa = table.state_dict()
+        table.close()
+        ds2, table2, tr2 = _graph_world(tmp_path, 4)
+        table2.begin_pass(ds.unique_keys())
+        mb = tr2.train_steps(table2, batches[:13] + batches[14:])
+        table2.end_pass()
+        sb = table2.state_dict()
+        table2.close()
+        ds.close()
+        ds2.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert tr.graph_replays > 0 and ma["steps"] == mb["steps"] == 19
+    assert (ma["loss"], ma["auc"]) == (mb["loss"], mb["auc"])
+    np.testing.assert_array_equal(sa["values"], sb["values"])
+
+
+def test_a_capture_that_cannot_succeed_raises(cuda, tmp_path):
+    """A model whose forward reads a value on the host cannot be captured:
+    the trainer raises, and no group runs eagerly in its place."""
+    from paddlebox_tpu_torch.models import CtrDnn
+
+    class HostReading(CtrDnn):
+        def forward(self, *args):
+            logits = super().forward(*args)
+            if float(logits.sum()) > 1e30:  # a host sync
+                return logits * 2
+            return logits
+
+    ds, table, tr = _graph_world(tmp_path, 4, model_cls=HostReading)
+    table.begin_pass(ds.unique_keys())
+    with pytest.raises(RuntimeError):
+        tr.train_from_dataset(ds, table)
+    assert tr.graph_captures == 0 and tr.graph_replays == 0
+    torch.cuda.synchronize()
+    table.abort_pass()
+    table.close()
+    ds.close()

@@ -660,8 +660,6 @@ def test_cut_outs_raise():
         TrainerConfig(sync_dense_mode="bogus")
     model = CtrDnn(S, 6, dense_dim=DENSE, hidden=(8,), device="cpu")
     with pytest.raises(NotImplementedError):
-        MultiChipTrainer(model, SparseTableConfig(), mesh, slot_mask=[0])
-    with pytest.raises(NotImplementedError):
         MultiChipTrainer(model, SparseTableConfig(), mesh,
                          metric_group=object())
     table.begin_pass(np.arange(1, 30, dtype=np.uint64))

@@ -576,3 +576,77 @@ def test_fetch_fault_simple_lifecycle_values_survive():
         # the degraded pass took its census out of the cache
         assert t._caches()[0].resident == 0
         t.close()
+
+
+# --------------------------------------------------------------------------- #
+# the hot set changing twice (ROADMAP C2): cached = uncached over every pass
+# --------------------------------------------------------------------------- #
+def _two_change_run(datasets, cache_rows):
+    """Four passes of the hybrid path at n = 4 (hot capacity 16, update
+    interval 1), each over its own Zipf set, the next census staged: per
+    pass the metrics, the hot rows moved at begin_pass, the cache hits and
+    the working set (cold and hot rows) right before end_pass."""
+    conf = SparseTableConfig(embedding_dim=4, placement="loopback",
+                             placement_update_interval=1,
+                             placement_hot_capacity=16,
+                             hbm_cache_rows=cache_rows)
+    mesh = make_mesh(4, device="cpu")
+    model = CtrDnn(S, conf.row_width, dense_dim=DENSE, hidden=(8,),
+                   seed=3, device="cpu")
+    tr = MultiChipTrainer(model, conf, mesh, TrainerConfig(auc_buckets=1 << 10))
+    table = ShardedSparseTable(conf, mesh, seed=5, bucket_slack=8.0)
+    out, auc = [], None
+    try:
+        for p, ds in enumerate(datasets):
+            table.begin_pass(ds.unique_keys())
+            moved, hits = table.last_hot_moved_rows, table.last_cache_hits
+            nxt = datasets[p + 1].unique_keys if p + 1 < len(datasets) else None
+            m = tr.train_from_dataset(ds, table, auc_state=auc,
+                                      drop_last=True, next_pass_keys=nxt)
+            auc = tr.last_metric_state
+            out.append(dict(m=m, moved=moved, hits=hits,
+                            hot=table.hot_resident_keys().copy(),
+                            live=table.pass_state_dict()))
+            table.end_pass()
+        return table.state_dict(), out
+    finally:
+        table.close()
+
+
+def test_cached_equals_uncached_over_two_hot_set_changes(tmp_path):
+    """The case ROADMAP C2 asked for: four Zipf passes whose hot set
+    realizes at the third begin_pass and changes again at the fourth (rows
+    promoted and demoted while the caches hold rows).  The per-shard
+    cached run equals the uncached one bit for bit in every pass's
+    working set, loss and AUC, and in the final store."""
+    datasets = []
+    with pytest.MonkeyPatch.context() as mp:
+        for k in NATIVE_FLAGS:
+            mp.setenv(k, "0")
+        for p in range(4):
+            fs = write_synth_files(str(tmp_path / f"z{p}"), n_files=1,
+                                   ins_per_file=128, n_sparse_slots=S,
+                                   vocab_per_slot=VOCAB, dense_dim=DENSE,
+                                   seed=40 + p, zipf_a=1.3)
+            ds = PadBoxSlotDataset(make_synth_config(S, DENSE, BSZ, 16),
+                                   read_threads=1)
+            ds.set_filelist(fs)
+            ds.load_into_memory()
+            datasets.append(ds)
+        try:
+            sd_u, unc = _two_change_run(datasets, 0)
+            sd_c, cac = _two_change_run(datasets, 32)
+        finally:
+            for ds in datasets:
+                ds.close()
+    assert [r["moved"] for r in unc][:2] == [0, 0]
+    assert unc[2]["moved"] > 0 and unc[3]["moved"] > 0  # two changes
+    assert not np.array_equal(unc[2]["hot"], unc[3]["hot"])
+    assert all(r["hits"] > 0 for r in cac[1:])
+    for p, (a, b) in enumerate(zip(unc, cac)):
+        assert a["moved"] == b["moved"], p
+        np.testing.assert_array_equal(a["hot"], b["hot"])
+        _assert_state_equal(a["live"], b["live"])
+        assert a["m"]["loss"] == b["m"]["loss"], p
+        assert a["m"]["auc"] == b["m"]["auc"], p
+    _assert_state_equal(sd_u, sd_c)

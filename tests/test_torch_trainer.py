@@ -267,17 +267,22 @@ def _unsupported(case):
         make_synth_config(SLOTS, DENSE, BATCH, sequence_slot="slot0")
     elif case == "multi_task":
         DataFeedConfig(task_label_slots=("task0",))
-    elif case == "nan_policy":
-        TrainerConfig(nan_policy="skip_batch")
-    elif case == "sgd":
-        TrainerConfig(dense_optimizer="sgd")
-    elif case == "compute_dtype":
-        CtrDnn(SLOTS, row, compute_dtype="bfloat16", device="cpu")
+    elif case == "pipe_command":
+        DataFeedConfig(pipe_command="gzip -d")
+    elif case == "parse_logkey":
+        DataFeedConfig(parse_logkey=True)
+    elif case == "pv_merge":
+        DataFeedConfig(enable_pv_merge=True)
+    elif case == "counter_label_tasks":
+        TrainerConfig(counter_label_tasks=(1,))
+    elif case == "slot_embed_dims":
+        CtrDnn(SLOTS, row, slot_embed_dims=((0, 2),), device="cpu")
 
 
 @pytest.mark.parametrize("case", [
     "expand_dim", "layout_conv", "rank_offset", "sequence_slot", "multi_task",
-    "nan_policy", "sgd", "compute_dtype",
+    "pipe_command", "parse_logkey", "pv_merge", "counter_label_tasks",
+    "slot_embed_dims",
 ])
 def test_unsupported_options_raise_not_implemented(case):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
