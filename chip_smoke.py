@@ -101,10 +101,10 @@ Phases, each fatal on failure:
                and agree with the same passes on the CPU.
      reshard — under deterministic algorithms, that table resharded live
                from POSITIONS to 2 shard positions at the pass boundary
-               and trained one more pass, then back to POSITIONS: each pass
-               bit-equal to a table rebuilt from state_dict at the new
-               count, no kernel built after a cutover; rows moved and
-               seconds printed.
+               and trained RESHARD_BATCHES more batches, then back to
+               POSITIONS: each pass bit-equal to a table rebuilt from
+               state_dict at the new count, no kernel built after a
+               cutover; rows moved and seconds printed.
      check   — the small hybrid run again with the per-shard caches on,
                card against CPU, hits included.
      dense   — the "kstep" (sync_weight_step 4) and "async" dense sync, two
@@ -124,7 +124,13 @@ Phases, each fatal on failure:
      slots   — the hybrid world with a slot mask and a per-slot LR map over
                three passes (hot block realized): excluded slots untouched,
                card against CPU.
-  7. times   — the CUDA kernels one call of each wrapper launches (from
+  7. data    — the data half (data_half): logkey and ins_id data at the
+               slice's width through the native parser's preload, a
+               4-dataset shuffle group, a pass with a 4-spec metric group,
+               a dumped pass, the group under the step graph, the disk
+               spill, PV merge and the 4-position world with the group,
+               each checked as its docstring says.
+  8. times   — the CUDA kernels one call of each wrapper launches (from
                torch.profiler; one each, two for scatter_rows), and the
                median time of each kernel, its twin and the equivalent
                PyTorch library call at the main paths' shapes with the L2
@@ -192,6 +198,10 @@ ZIPF_SETS = max(CACHED_PASSES, HYBRID_PASSES)
 # of three Zipf sets (2 step groups of the 4 positions a pass).
 GRAPH_K, GRAPH_PASSES, STEP_MS_BATCHES = 8, 2, 48
 POLICY_BATCHES, POLICY_CPU_BATCHES, SLOT_BATCHES = 16, 2, 8
+# Depth cut to keep the run's phases near 350 s since the data half: the
+# passes after a live reshard train the first RESHARD_BATCHES batches of
+# their Zipf set (of 32)
+RESHARD_BATCHES = 16
 
 # H100 SXM device memory rate and float32 rate outside the tensor cores
 # (NVIDIA data sheet): the bytes and operations bounds.
@@ -230,25 +240,42 @@ def card_line() -> str:
 
 
 def _write_part(args) -> str:
-    out_dir, ins, seed, zipf_a = args
+    out_dir, ins, seed, zipf_a, logkey = args
     from paddlebox_tpu_torch.data.synth import write_synth_files
 
-    return write_synth_files(
+    extra = {}
+    if logkey:
+        extra = dict(with_logkey=True, max_ads_per_pv=4,
+                     cmatch_values=(222, 223, 1), n_task_labels=1)
+    path = write_synth_files(
         out_dir, n_files=1, ins_per_file=ins, n_sparse_slots=N_SLOTS,
         vocab_per_slot=VOCAB, dense_dim=DENSE, seed=seed, zipf_a=zipf_a,
+        **extra,
     )[0]
+    if logkey:
+        # the ins_id prefix: "<set>-<line>"
+        with open(path) as f:
+            lines = f.read().splitlines()
+        name = os.path.basename(out_dir)
+        with open(path, "w") as f:
+            f.writelines(f"{name}-{i} {line}\n" for i, line in enumerate(lines))
+    return path
 
 
 def write_data() -> tuple:
     """Synthetic files, one writer process per file (spawned, so no child
-    inherits a CUDA context): the uncached path's N_FILES, and CACHED_FILES
-    per Zipf file set.  Returns (files, [files of each set])."""
-    jobs = [(os.path.join(WORK_DIR, f"w{i}"), INS_PER_FILE, 7 + i, 0.0)
+    inherits a CUDA context): the uncached path's N_FILES, CACHED_FILES per
+    Zipf file set, and the data half's N_FILES with the ins_id and logkey
+    prefixes and a task label.  Returns (files, [files of each set],
+    logkey files)."""
+    jobs = [(os.path.join(WORK_DIR, f"w{i}"), INS_PER_FILE, 7 + i, 0.0, False)
             for i in range(N_FILES)]
     for p in range(ZIPF_SETS):
         jobs += [(os.path.join(WORK_DIR, f"z{p}-{i}"), CACHED_INS_PER_FILE,
-                  100 + CACHED_FILES * p + i, ZIPF_A)
+                  100 + CACHED_FILES * p + i, ZIPF_A, False)
                  for i in range(CACHED_FILES)]
+    jobs += [(os.path.join(WORK_DIR, f"l{i}"), INS_PER_FILE, 300 + i, 0.0,
+              True) for i in range(N_FILES)]
     ctx = multiprocessing.get_context("spawn")
     workers = min(len(jobs), os.cpu_count() or 1)
     with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as ex:
@@ -256,7 +283,7 @@ def write_data() -> tuple:
     per_pass = [paths[N_FILES + CACHED_FILES * p:
                       N_FILES + CACHED_FILES * (p + 1)]
                 for p in range(ZIPF_SETS)]
-    return paths[:N_FILES], per_pass
+    return paths[:N_FILES], per_pass, paths[-N_FILES:]
 
 
 def based4(t):
@@ -1371,11 +1398,12 @@ def make_hybrid_world(device, placement="loopback", n_slots=N_SLOTS,
                       dense=DENSE, emb=EMB, hidden=HIDDEN,
                       positions=POSITIONS, hot_capacity=HOT_CAPACITY,
                       cache_rows=0, table_kw=None, slot_mask=None,
-                      **trainer_kw):
+                      metric_group=None, **trainer_kw):
     """The hybrid arm's table and trainer; ``cache_rows`` > 0 gives the
     per-shard caches (CACHE_ROWS: the reference's default), ``table_kw``
-    go to SparseTableConfig (the LR map), ``slot_mask`` to the trainer and
-    ``trainer_kw`` to TrainerConfig (the dense-sync modes)."""
+    go to SparseTableConfig (the LR map), ``slot_mask`` and
+    ``metric_group`` to the trainer and ``trainer_kw`` to TrainerConfig
+    (the dense-sync modes)."""
     from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
     from paddlebox_tpu_torch.models import CtrDnn
     from paddlebox_tpu_torch.parallel import (
@@ -1395,7 +1423,8 @@ def make_hybrid_world(device, placement="loopback", n_slots=N_SLOTS,
                    seed=0, device=device)
     return table, MultiChipTrainer(model, tconf, mesh,
                                    TrainerConfig(**trainer_kw),
-                                   slot_mask=slot_mask)
+                                   slot_mask=slot_mask,
+                                   metric_group=metric_group)
 
 
 def drive_hybrid(datasets, table, trainer) -> list:
@@ -1896,12 +1925,14 @@ def cpu_agreement(datasets, card_pass, card_state, card_hot) -> None:
 def reshard_check(sharded: dict) -> None:
     """Under deterministic algorithms, the trained deterministic sharded
     cached table of POSITIONS shards reshards live to 2 at the pass
-    boundary and trains the fourth Zipf set on 2 positions; a table
-    rebuilt at 2 shards from its state_dict trains the same pass from the
-    same dense state.  Both must be bit-equal (state, loss, AUC).  Then
-    2 -> POSITIONS the same way over the first set.  No kernel builds
-    after a cutover.  Prints the rows moved and the reshard seconds."""
+    boundary and trains the first RESHARD_BATCHES batches of the fourth
+    Zipf set on 2 positions; a table rebuilt at 2 shards from its
+    state_dict trains the same batches from the same dense state.  Both
+    must be bit-equal (state, loss, AUC).  Then 2 -> POSITIONS the same
+    way over the first set's.  No kernel builds after a cutover.  Prints
+    the rows moved and the reshard seconds."""
     import copy
+    import itertools
 
     import numpy as np
     import torch
@@ -1930,7 +1961,8 @@ def reshard_check(sharded: dict) -> None:
 
     torch.use_deterministic_algorithms(True)
     try:
-        for n_new, ds in ((2, datasets[3]), (POSITIONS, datasets[0])):
+        for n_new, full in ((2, datasets[3]), (POSITIONS, datasets[0])):
+            ds = _Batches(itertools.islice(full.batches(), RESHARD_BATCHES))
             n_old = live.n_shards
             mesh = make_mesh(n_new, device="cuda")
             dense = copy.deepcopy(trainer.dense_state())
@@ -2510,6 +2542,517 @@ def slot_policy(hybrid: dict) -> None:
         f"equal, rows max abs diff {err!r}")
 
 
+# --------------------------------------------------------------------------- #
+# the data half: logkey/ins_id parsing, preload, the shuffle group, metric
+# groups, field dumps, graph steps with a group, PV merge and the disk spill
+# --------------------------------------------------------------------------- #
+# the data half's PV batches: at most PV_BATCH page-views a batch (capped by
+# BATCH instances); the CPU agreement reruns its first DH_CPU_BATCHES
+# batches; the step and batch-assembly times take DH_MS_BATCHES batches
+PV_BATCH, DH_CPU_BATCHES, DH_MS_BATCHES = 1024, 8, 24
+# the dumped pass's deterministic rerun covers its first DH_RERUN_BATCHES;
+# the 4-position pass with the group trains the first DH_HYBRID_BATCHES (8
+# step groups)
+DH_RERUN_BATCHES, DH_HYBRID_BATCHES = 16, 32
+DH_FIELDS = ("cmatch", "rank", "task_labels")
+
+
+def data_conf(**kw):
+    """The data half's feed: the slice's width, the ins_id and logkey
+    prefixes, one task label, PV merge with rank_offset."""
+    from paddlebox_tpu_torch.data.synth import make_synth_config
+
+    return make_synth_config(
+        n_sparse_slots=N_SLOTS, dense_dim=DENSE, batch_size=BATCH,
+        max_feasigns_per_ins=64, batch_key_capacity=KEY_CAPACITY,
+        parse_ins_id=True, parse_logkey=True, n_task_labels=1,
+        enable_pv_merge=True, pv_batch_size=PV_BATCH,
+        rank_offset="rank_offset", **kw)
+
+
+def data_group():
+    from paddlebox_tpu_torch.metrics import MetricGroup, MetricSpec
+
+    return MetricGroup([MetricSpec("all"),
+                        MetricSpec("cm222", cmatch_values=(222,)),
+                        MetricSpec("rank1", rank_values=(1,)),
+                        MetricSpec("none", cmatch_values=(999,))])
+
+
+def data_world(device, group=True, **trainer_kw):
+    """The slice's model on the default table (HBM cache on, overlapped
+    boundary), with the 4-spec metric group."""
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.train import Trainer
+
+    tconf = SparseTableConfig(embedding_dim=EMB)
+    table = SparseTable(tconf, seed=0, device=device)
+    model = CtrDnn(N_SLOTS, tconf.row_width, dense_dim=DENSE, hidden=HIDDEN,
+                   seed=0, device=device)
+    trainer = Trainer(model, tconf, TrainerConfig(**trainer_kw), device=device,
+                      metric_group=data_group() if group else None)
+    return table, trainer
+
+
+def data_pass(ds, det: bool, warm_boundary: bool = False,
+              **trainer_kw) -> tuple:
+    """One pass of a fresh data_world over ``ds`` on the card: (metrics,
+    state_dict, trainer).  ``warm_boundary``: then one more begin_pass and
+    end_pass of the same census, untrained: a cached boundary that finds
+    the cache warm (hits searched and filled, victims admitted)."""
+    import torch
+
+    table, trainer = data_world("cuda", **trainer_kw)
+    torch.use_deterministic_algorithms(det)
+    try:
+        table.begin_pass(ds.unique_keys())
+        m = trainer.train_from_dataset(ds, table)
+        torch.cuda.synchronize()
+        table.end_pass()
+        if warm_boundary:
+            table.begin_pass(ds.unique_keys())
+            if not table.last_cache_hits:
+                raise AssertionError("the second boundary found no hit")
+            table.end_pass()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    state = table.state_dict()
+    table.close()
+    return m, state, trainer
+
+
+def check_group_metrics(label: str, m: dict) -> None:
+    """``all`` is the primary stream bit for bit; ``none`` counts
+    nothing; the filtered streams count strict subsets."""
+    if not (m["all/auc"] == m["auc"] and m["all/count"] == m["count"]
+            and m["none/count"] == 0.0
+            and 0 < m["cm222/count"] < m["count"]
+            and 0 < m["rank1/count"] < m["count"]):
+        raise AssertionError(f"{label}: metric group {m}")
+
+
+def _metric_tuple(m: dict) -> tuple:
+    return tuple(m[k] for k in ("loss", "auc", "count", "all/auc", "cm222/auc",
+                                "rank1/auc", "cm222/count", "grad_norm"))
+
+
+def _block_meta_equal(a, b) -> bool:
+    import numpy as np
+
+    return a.ins_ids == b.ins_ids and all(
+        getattr(a, f).dtype == getattr(b, f).dtype
+        and np.array_equal(getattr(a, f), getattr(b, f))
+        for f in ("keys", "key_offsets", "dense", "labels", "search_ids",
+                  "ranks", "cmatches", "task_labels"))
+
+
+def data_load(files) -> tuple:
+    """Preload into memory through the native parser (seconds), and the
+    first file with the Python parser, bit-equal."""
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.slot_parser import SlotParser
+
+    ds = PadBoxSlotDataset(data_conf(), read_threads=len(files))
+    ds.set_filelist(files)
+    t0 = time.perf_counter()
+    ds.preload_into_memory()
+    ds.wait_preload_done()
+    load_s = time.perf_counter() - t0
+    if ds.parser._native is None:
+        raise AssertionError("the data half loaded without the native parser")
+    os.environ["PADDLEBOX_TORCH_USE_NATIVE_PARSER"] = "0"
+    try:
+        py = SlotParser(data_conf())
+        py_block = py.parse_file(files[0])
+    finally:
+        del os.environ["PADDLEBOX_TORCH_USE_NATIVE_PARSER"]
+    native_block = ds.parser.parse_file(files[0])
+    if py._native is not None or not _block_meta_equal(native_block, py_block):
+        raise AssertionError("native and Python parsers gave different "
+                             "logkey blocks")
+    return ds, load_s
+
+
+class _TimedShuffler:
+    """A shuffler that adds the seconds its exchange took to ``spent``."""
+
+    def __init__(self, inner, spent: list):
+        self.inner, self.spent = inner, spent
+
+    def exchange(self, block):
+        t0 = time.perf_counter()
+        try:
+            return self.inner.exchange(block)
+        finally:
+            self.spent.append(time.perf_counter() - t0)
+
+
+def data_shuffle(files, whole) -> tuple:
+    """Four datasets of disjoint file pairs exchange their records through
+    an InProcessShuffleGroup while they preload: each record lands where
+    route_ids says, and the union is the input.  Returns (seconds of the
+    group load, the slowest worker's exchange seconds)."""
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.shuffle import InProcessShuffleGroup, route_ids
+
+    group = InProcessShuffleGroup(4)
+    spent: list = []
+    dss = []
+    t0 = time.perf_counter()
+    for w in range(4):
+        d = PadBoxSlotDataset(data_conf(), read_threads=2)
+        d.set_filelist(files[2 * w:2 * w + 2])
+        d.shuffler = _TimedShuffler(group.shuffler(w), spent)
+        d.preload_into_memory()
+        dss.append(d)
+    for d in dss:
+        d.wait_preload_done()
+    group_s = time.perf_counter() - t0
+    dest = dict(zip(whole.ins_ids, route_ids(whole, 4).tolist()))
+    seen = []
+    for w, d in enumerate(dss):
+        ids = d._block.ins_ids
+        if any(dest[i] != w for i in ids):
+            raise AssertionError(f"shuffle worker {w} holds foreign records")
+        seen += ids
+        d.close()
+    if sorted(seen) != sorted(whole.ins_ids):
+        raise AssertionError("the shuffle group lost or duplicated records")
+    return group_s, max(spent), [len(d._block.ins_ids) for d in dss]
+
+
+def _data_step_ms(ds) -> dict:
+    """Median synchronized ms of one eager step (Trainer._run_group) over
+    DH_MS_BATCHES batches, every feed on the card beforehand, in turns
+    without and with the metric group's update (one world, the same
+    feeds)."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.train.trainer import host_feed
+
+    table, trainer = data_world("cuda")
+    batches = _Batches(itertools.islice(ds.batches(), DH_MS_BATCHES))
+    table.begin_pass(batches.unique_keys())
+    feeds = [trainer._to_device(host_feed(b, table.plan_batch(b), None,
+                                          trainer.metric_group))
+             for b in batches.batches()]
+    auc, gn = trainer.init_auc(), torch.zeros(2, device=trainer.device)
+    gstate = trainer.metric_group.init_state(trainer.device)
+    torch.cuda.synchronize()
+    out = {}
+    for label, group in (("no group", None), ("group", gstate),
+                         ("no group 2", None), ("group 2", gstate)):
+        times = []
+        for f in feeds:
+            t0 = time.perf_counter()
+            trainer._run_group(table, [f], auc, gn, group)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[label] = float(np.median(times[2:])) * 1e3
+    table.end_pass()
+    table.close()
+    return out
+
+
+def _batch_ms(ds) -> tuple:
+    """Median ms of BatchBuilder.build of DH_MS_BATCHES batches of the
+    logkey block, with its ins_id, logkey and task columns and without
+    them."""
+    import dataclasses
+
+    import numpy as np
+
+    from paddlebox_tpu_torch.data.feed import BatchBuilder
+
+    block = ds._block
+    bare = dataclasses.replace(block, ins_ids=None, search_ids=None,
+                               ranks=None, cmatches=None, task_labels=None)
+    builder = BatchBuilder(ds.conf)
+    out = {}
+    for label, b in (("fields", block), ("bare", bare), ("fields2", block),
+                     ("bare2", bare)):
+        times = []
+        for i in range(DH_MS_BATCHES):
+            ids = np.arange(i * BATCH, (i + 1) * BATCH)
+            t0 = time.perf_counter()
+            builder.build(b, ids)
+            times.append(time.perf_counter() - t0)
+        out[label] = float(np.median(times)) * 1e3
+    return out
+
+
+def data_half(files, plain_load_s: float) -> None:
+    """The data half at the slice's width on the default table (HBM cache
+    on, overlapped boundary), over N_FILES x INS_PER_FILE instances with
+    the ins_id and logkey prefixes and a task label:
+      * load: preload_into_memory through the native parser (seconds beside
+        the uncached set's load without the prefixes), the first file with
+        the Python parser bit-equal;
+      * shuffle: four datasets of disjoint file pairs through an
+        InProcessShuffleGroup: placement by route_ids, the union the input;
+      * one pass with the 4-spec metric group (all, cm222, rank1, none) under
+        deterministic algorithms; then the same pass with a field dump of
+        cmatch, rank and task_labels (scan_steps GRAPH_K set, single steps
+        run): one line per instance, the training bit-equal to the
+        undumped pass, and a deterministic rerun of its first
+        DH_RERUN_BATCHES batches dumps the same first lines;
+      * the same pass with scan_steps GRAPH_K (a CUDA graph holding the
+        group's masks), bit-equal to the eager pass;
+      * the disk spill: preload_into_disk, a pass bit-equal to the
+        in-memory one, the spill files gone after release_memory;
+      * PV merge: preprocess_instance and a pass of PV batches (pv_batch_size
+        PV_BATCH), then one more cached boundary that finds the cache warm;
+        the rank_offset the feed carried to the card equals the same
+        batches built on a second dataset on the host, and a loop over
+        their page-views;
+      * the 4-position hybrid world, one pass with the group over the first
+        DH_HYBRID_BATCHES batches: ``all`` is the primary stream;
+      * the first DH_CPU_BATCHES batches with the group on the card and on
+        the CPU, at cpu_agreement's tolerances.
+    Launch counters reset before the first card pass and read after the
+    hybrid pass: pull_rows and scatter_add_rows launch every eager step,
+    gather_slots, scatter_rows and sorted_search at the cached
+    boundaries, hot_cold_select on the hybrid pass.  Also the step's
+    synchronized ms with and without the group and the batch-assembly ms
+    with and without the new columns."""
+    import itertools
+
+    import numpy as np
+
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.train import trainer as trainer_mod
+
+    marks = [("start", time.perf_counter())]
+
+    def mark(label):
+        marks.append((label, time.perf_counter()))
+
+    ds, load_s = data_load(files)
+    n_ins = ds.get_memory_data_size()
+    log(f"data_half load: {n_ins} instances with ins_id, logkey and a task "
+        f"label, preload_into_memory (native parser) {load_s!r} s; the "
+        f"uncached set without the prefixes {plain_load_s!r} s; Python "
+        f"parser bit-equal on {files[0]}")
+    group_s, exchange_s, sizes = data_shuffle(files, ds._block)
+    log(f"data_half shuffle: 4 datasets of 2 files each exchanged by "
+        f"search_id, group preload {group_s!r} s, exchange {exchange_s!r} s "
+        f"(slowest worker); worker sizes {sizes}, placement and union "
+        f"checked")
+    mark("load, shuffle")
+    batch_ms = _batch_ms(ds)
+    log(f"data_half batch assembly, ms a batch (median of {DH_MS_BATCHES}, "
+        f"two turns): " + ", ".join(f"{k} {v!r}" for k, v in batch_ms.items()))
+
+    sk.reset_launches()
+    m_eager, s_eager, _ = data_pass(ds, det=True)
+    check_group_metrics("group pass", m_eager)
+    dump_dir = os.path.join(WORK_DIR, "dumps")
+    dumps = []
+    # the pass, then a rerun over its first DH_RERUN_BATCHES batches
+    for i, source in enumerate((ds, _Batches(itertools.islice(
+            ds.batches(), DH_RERUN_BATCHES)))):
+        path = os.path.join(dump_dir, str(i))
+        # scan_steps is set: a dumped pass runs one step at a time anyway
+        m, s, tr = data_pass(source, det=True, need_dump_field=True,
+                             dump_fields_path=path, dump_fields=DH_FIELDS,
+                             scan_steps=GRAPH_K)
+        if tr.graph_captures:
+            raise AssertionError("a dumped pass ran grouped steps")
+        with open(os.path.join(path, "dump-0.txt")) as f:
+            dumps.append(f.read())
+        if i == 0:
+            m_dump = m
+            _sync_equal("the dumped pass against the undumped pass", s,
+                        s_eager, [_metric_tuple(m)], [_metric_tuple(m_eager)])
+    n_rerun = dumps[1].count("\n")
+    if (dumps[0].count("\n") != n_ins or n_rerun != DH_RERUN_BATCHES * BATCH
+            or not dumps[0].startswith(dumps[1])):
+        raise AssertionError(
+            f"dumps: {dumps[0].count(chr(10))} lines for {n_ins} instances; "
+            f"the rerun's {n_rerun} lines are not the pass's first ones")
+    first = dumps[0].split("\n", 1)[0].split("\t")
+    if not (first[0] == ds._block.ins_ids[0] and first[3].startswith("cmatch:")
+            and first[5].startswith("task_labels:")):
+        raise AssertionError(f"dump line {first}")
+    mark("group and dumped passes")
+    m_graph, s_graph, tr_graph = data_pass(ds, det=True, scan_steps=GRAPH_K)
+    _sync_equal("graph steps with the group against eager", s_graph, s_eager,
+                [_metric_tuple(m_graph)], [_metric_tuple(m_eager)])
+    if tr_graph.graph_captures != 1 or tr_graph.graph_replays < 1:
+        raise AssertionError(f"graph pass: {tr_graph.graph_captures} captures")
+    mark("graph pass")
+    spill_dir = os.path.join(WORK_DIR, "spill")
+    disk = PadBoxSlotDataset(data_conf(), read_threads=len(files))
+    disk.set_filelist(files)
+    t0 = time.perf_counter()
+    disk.preload_into_disk(spill_dir)
+    disk.wait_preload_done()
+    spill_s = time.perf_counter() - t0
+    m_disk, s_disk, _ = data_pass(disk, det=True)
+    _sync_equal("spilled pass against the in-memory pass", s_disk, s_eager,
+                [_metric_tuple(m_disk)], [_metric_tuple(m_eager)])
+    disk.release_memory()
+    if os.listdir(spill_dir):
+        raise AssertionError("spill files left after release_memory")
+    disk.close()
+
+    mark("spill")
+    # PV merge: record the rank_offset each staged feed carried to the card
+    carried = []
+    stage = trainer_mod.stage_feed
+
+    def recording_stage(host, device):
+        dev, ready = stage(host, device)
+        if "rank_offset" in dev:
+            carried.append(dev["rank_offset"])
+        return dev, ready
+
+    ds.preprocess_instance()
+    ds.local_shuffle(seed=1)
+    trainer_mod.stage_feed = recording_stage
+    try:
+        # a boundary after the pass searches the warm cache
+        m_pv, _, _ = data_pass(ds, det=False, warm_boundary=True)
+    finally:
+        trainer_mod.stage_feed = stage
+    check_group_metrics("PV pass", m_pv)
+    host = PadBoxSlotDataset(data_conf(), read_threads=len(files))
+    host.set_filelist(files)
+    host.load_into_memory()
+    host.preprocess_instance()
+    host.local_shuffle(seed=1)
+    host_batches = list(host.batches())
+    if len(carried) != len(host_batches) or m_pv["count"] != n_ins:
+        raise AssertionError(f"PV pass: {len(carried)} feeds with rank_offset "
+                             f"for {len(host_batches)} batches")
+    for b, dev in zip(host_batches, carried):
+        if not np.array_equal(dev.cpu().numpy(), b.rank_offset):
+            raise AssertionError("a PV feed's rank_offset differs on the card")
+    ranked = _pv_loop_check(host, host_batches[:2])
+    n_pvs = ds.get_pv_data_size()
+    ds.postprocess_instance()
+    host.close()
+
+    mark("PV passes")
+    table, trainer = make_hybrid_world("cuda", metric_group=data_group())
+    (hyb,) = drive_hybrid(
+        [_Batches(itertools.islice(ds.batches(), DH_HYBRID_BATCHES))], table,
+        trainer)
+    table.close()
+    launches = dict(sk.launches)
+    check_group_metrics("hybrid pass", hyb["metrics"])
+    eager_steps = (m_eager["steps"] + m_dump["steps"] + DH_RERUN_BATCHES
+                   + m_disk["steps"] + m_pv["steps"])
+    if launches["pull_rows"] < eager_steps or \
+            launches["scatter_add_rows"] < eager_steps:
+        raise AssertionError(f"fewer launches than the {eager_steps} eager "
+                             f"steps: {launches}")
+    for name in sk.KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the data "
+                                 "half's paths")
+    mark("hybrid pass")
+    step_ms = _data_step_ms(ds)
+    mark("step ms")
+    cpu = data_cpu_agreement(ds)
+    mark("CPU agreement")
+
+    sps = lambda m: m["samples"] / m["duration_s"]
+    log(f"data_half passes (deterministic, {m_eager['steps']} steps): group "
+        f"pass loss {m_eager['loss']!r} auc {m_eager['auc']!r}, cm222 "
+        f"{m_eager['cm222/auc']!r} ({m_eager['cm222/count']!r}), rank1 "
+        f"{m_eager['rank1/auc']!r} ({m_eager['rank1/count']!r}); bit-equal: "
+        f"the dumped pass, the graph pass ({tr_graph.graph_replays} "
+        f"replays), the spilled pass")
+    log(f"data_half samples/s (deterministic): undumped {sps(m_eager)!r}, "
+        f"dumped {sps(m_dump)!r} ({n_ins} lines; a rerun of its first "
+        f"{n_rerun} lines equal), graph {sps(m_graph)!r}, spilled "
+        f"{sps(m_disk)!r} "
+        f"(preload_into_disk {spill_s!r} s); PV pass {sps(m_pv)!r} over "
+        f"{n_pvs} page-views in {m_pv['steps']} batches, {ranked} ranked ads "
+        f"checked by loop; hybrid pass {hyb['samples_per_s']!r}, all/auc "
+        f"{hyb['metrics']['all/auc']!r}")
+    log("data_half step, synchronized ms (median of "
+        f"{DH_MS_BATCHES - 2}): " + ", ".join(f"{k} {v!r}"
+                                              for k, v in step_ms.items()))
+    log(f"data_half launches: {launches}; CPU agreement: {cpu}")
+    log("data_half seconds: " + ", ".join(
+        f"{label} {t - t0!r}" for (_, t0), (label, t) in zip(marks, marks[1:])))
+    ds.close()
+
+
+def _pv_loop_check(ds, batches) -> int:
+    """rank_offset of ``batches`` against a plain loop over each batch's
+    page-views (an ad sees every ranked ad of its PV, itself included);
+    returns the ranked ads checked."""
+    import numpy as np
+
+    conf = ds.conf
+    block = ds._block
+    sid_of = dict(zip(block.ins_ids, block.search_ids.tolist()))
+    ranked = 0
+    for b in batches:
+        n = b.n_real_ins
+        sids = [sid_of[i] for i in b.ins_ids]
+        want = np.full_like(b.rank_offset, -1)
+        ok = [(0 < r <= conf.max_rank) and c in conf.rank_cmatch_filter
+              for r, c in zip(b.ranks[:n].tolist(), b.cmatches[:n].tolist())]
+        members: dict = {}  # page-view -> its ranked rows, in batch order
+        for k in range(n):
+            if ok[k]:
+                members.setdefault(sids[k], []).append(k)
+        for j in range(n):
+            want[j, 0] = b.ranks[j] if ok[j] else -1
+            if not ok[j]:
+                continue
+            ranked += 1
+            for k in members[sids[j]]:
+                m = b.ranks[k] - 1
+                want[j, 2 * m + 1] = b.ranks[k]
+                want[j, 2 * m + 2] = k
+        if not np.array_equal(want, b.rank_offset):
+            raise AssertionError("rank_offset differs from the page-view loop")
+    return ranked
+
+
+def data_cpu_agreement(ds) -> str:
+    """The first DH_CPU_BATCHES batches with the group, card against CPU
+    from the same seeds: loss within 1e-4 relative and every AUC within
+    1e-3 (cpu_agreement's tolerances), counts equal."""
+    import itertools
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    batches = _Batches(itertools.islice(ds.batches(), DH_CPU_BATCHES))
+    out = {}
+    saved = dict(sk.launches)
+    for device in ("cuda", "cpu"):
+        table, trainer = data_world(device)
+        table.begin_pass(batches.unique_keys())
+        out[device] = trainer.train_steps(table, batches.batches())
+        table.end_pass()
+        table.close()
+    sk.launches.update(saved)  # the CPU runs the twins
+    g, c = out["cuda"], out["cpu"]
+    for name in ("", "all/", "cm222/", "rank1/"):
+        if g[f"{name}count"] != c[f"{name}count"] or abs(
+                g[f"{name}auc"] - c[f"{name}auc"]) > 1e-3:
+            raise AssertionError(f"data half card/CPU {name}auc "
+                                 f"{g[name + 'auc']} vs {c[name + 'auc']}")
+    if not math.isclose(g["loss"], c["loss"], rel_tol=1e-4):
+        raise AssertionError(f"data half card/CPU loss {g['loss']} vs "
+                             f"{c['loss']}")
+    return (f"loss {g['loss']!r} vs {c['loss']!r}, auc {g['auc']!r} vs "
+            f"{c['auc']!r}, cm222/auc {g['cm222/auc']!r} vs "
+            f"{c['cm222/auc']!r}")
+
+
 def hybrid_specs(hybrid: dict) -> dict:
     """Timing inputs of hot_cold_select at the hybrid path's shapes: the
     trained table's hot block and position 0's hot slots and cold rows of a
@@ -2914,7 +3457,7 @@ def main(argv=None) -> int:
                 f"{k}: {v['log']}" for k, v in _native.build_log.items()))
 
         t0 = time.perf_counter()
-        files, cached_files = write_data()
+        files, cached_files, logkey_files = write_data()
         write_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         ds = load(files, N_FILES)
@@ -2964,6 +3507,7 @@ def main(argv=None) -> int:
         phase(graph_steps, ds, cached_ds[:GRAPH_PASSES])
         phase(step_policies, ds)
         phase(slot_policy, hybrid)
+        phase(data_half, logkey_files, load_s)
         rows = phase(kernel_times, res, ds, cached,
                      censuses[CACHED_PASSES - 1], hybrid, errs)
         ds.close()

@@ -239,9 +239,11 @@ _KIND_CODE = {"skip": 0, "label": 1, "task": 2, "dense": 3, "sparse": 4}
 
 class NativeParser:
     """ctypes front end bound to one SlotParser's walk layout: a list of
-    (kind, width, sparse index or dense column) per slot in line order."""
+    (kind, width, sparse index or dense/task column) per slot in line
+    order, with the task-label count and the ins_id / logkey prefixes."""
 
-    def __init__(self, walk, n_sparse: int, dense_width: int):
+    def __init__(self, walk, n_sparse: int, dense_width: int, n_tasks: int,
+                 parse_ins_id: bool, parse_logkey: bool):
         self.lib = get_lib()
         if self.lib is None:
             raise RuntimeError("native parser unavailable")
@@ -253,6 +255,9 @@ class NativeParser:
                                 dtype=np.int32)
         self.n_sparse = n_sparse
         self.dense_width = dense_width
+        self.n_tasks = n_tasks
+        self.parse_ins_id = parse_ins_id
+        self.parse_logkey = parse_logkey
 
     def parse_bytes(self, data: bytes, path: str = "<buffer>"):
         """Parse a whole buffer of lines into one RecordBlock; a malformed
@@ -261,14 +266,12 @@ class NativeParser:
 
         lib = self.lib
         err = ctypes.create_string_buffer(256)
-        # no task labels, ins_id or logkey: the port's DataFeedConfig
-        # refuses them
         handle = lib.pbx_parse_buffer(
             data, len(data),
             self._kinds.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
             _i32p(self._widths), _i32p(self._cols),
-            len(self._kinds), self.n_sparse, self.dense_width, 0, 0, 0,
-            err, 256,
+            len(self._kinds), self.n_sparse, self.dense_width, self.n_tasks,
+            int(self.parse_ins_id), int(self.parse_logkey), err, 256,
         )
         if not handle:
             raise ValueError(
@@ -280,14 +283,34 @@ class NativeParser:
             offsets = np.empty(n * self.n_sparse + 1, dtype=np.int64)
             dense = np.zeros((n, self.dense_width), dtype=np.float32)
             labels = np.empty(n, dtype=np.float32)
-            ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+            tasks = (np.empty((n, self.n_tasks), dtype=np.float32)
+                     if self.n_tasks else None)
+            sids = ranks = cmatches = None
+            if self.parse_logkey:
+                sids = np.empty(n, dtype=np.uint64)
+                ranks = np.empty(n, dtype=np.int32)
+                cmatches = np.empty(n, dtype=np.int32)
+            id_buf = id_offs = None
+            if self.parse_ins_id:
+                id_buf = np.empty(lib.pbx_ins_id_bytes(handle), dtype=np.uint8)
+                id_offs = np.empty(n + 1, dtype=np.int64)
+            ptr = lambda a: (None if a is None
+                             else a.ctypes.data_as(ctypes.c_void_p))
             lib.pbx_fill(handle, ptr(keys), ptr(offsets), ptr(dense),
-                         ptr(labels), None, None, None, None, None, None)
+                         ptr(labels), ptr(tasks), ptr(sids), ptr(ranks),
+                         ptr(cmatches), ptr(id_buf), ptr(id_offs))
         finally:
             lib.pbx_free(handle)
+        ins_ids = None
+        if self.parse_ins_id:
+            raw = id_buf.tobytes()
+            ins_ids = [raw[id_offs[i]:id_offs[i + 1]].decode()
+                       for i in range(n)]
         return RecordBlock(
             n_ins=int(n), n_sparse_slots=self.n_sparse, keys=keys,
-            key_offsets=offsets, dense=dense, labels=labels,
+            key_offsets=offsets, dense=dense, labels=labels, ins_ids=ins_ids,
+            search_ids=sids, ranks=ranks, cmatches=cmatches,
+            task_labels=tasks,
         )
 
 

@@ -17,9 +17,8 @@
 // Walk kinds: 0=skip, 1=label, 2=task, 3=dense, 4=sparse.
 //
 // The same source as the JAX package's _native/slot_parser.cpp, so the two
-// packages' RecordBlocks are bit-exact.  The port's DataFeedConfig does not
-// take ins_id, logkey or task-label parsing yet, so its SlotParser passes
-// none of them; the walk and the ABI keep them.
+// packages' RecordBlocks are bit-exact, the ins_id, logkey and task-label
+// columns included.
 
 #include <cstdint>
 #include <cstdio>

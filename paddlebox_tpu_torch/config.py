@@ -67,6 +67,11 @@ class _Flags:
         # process-wide kill switch of the durable log: 0 leaves
         # SparseTableConfig.store_log_dir unused (reference default: on)
         "durable_store": True,
+        # utils/retry.py's default policy: attempts per call, and the
+        # backoff's first and largest delay in seconds
+        "retry_max_attempts": 3,
+        "retry_base_delay_s": 1.0,
+        "retry_max_delay_s": 5.0,
         # chaos plan of utils/faults.py: "site=spec;site=spec", and its seed
         "fault_plan": "",
         "fault_seed": 0,
@@ -116,14 +121,28 @@ class DataFeedConfig:
 
     slots: Sequence[SlotConfig] = ()
     batch_size: int = 64
+    # a shell command each file is piped through before parsing
     pipe_command: str = ""
+    # PV merge: at most this many page-views in one batch
+    pv_batch_size: int = 32
     enable_pv_merge: bool = False
+    # name of the rank-offset tensor; its [B, rank_offset_cols] matrix
+    # holds each ad's rank and its page-view peers' ranks and rows
     rank_offset: str = ""
+    rank_offset_cols: int = 7  # max_rank 3 -> 7 columns
+    # cmatch codes whose instances take part in PV ranking; None = all.
+    # The default is the reference kernel's hard-coded ad channels
+    rank_cmatch_filter: Optional[Sequence[int]] = (222, 223)
+    # the line prefixes: "<ins_id>" and "<search_id>:<rank>:<cmatch>"
     parse_ins_id: bool = False
     parse_logkey: bool = False
     label_slot: str = "click"
+    # extra per-task label slots (a batch's task_labels column 1..)
     task_label_slots: Sequence[str] = ()
+    # a sparse slot whose keys the batch also exposes in order:
+    # HostBatch.seq_pos [B, max_seq_len] (padding = the key capacity)
     sequence_slot: str = ""
+    max_seq_len: int = 64
     # "raise": a malformed line aborts the read; "skip": drop and count it
     malformed_policy: str = "raise"
     quarantine_abort_frac: float = 0.01
@@ -140,27 +159,69 @@ class DataFeedConfig:
         ]
 
     def dense_slots(self) -> list[SlotConfig]:
-        """Used dense float slots excluding the label slot, in file order."""
+        """Used dense float slots excluding the label and task-label slots,
+        in file order (the RecordBlock's dense columns)."""
+        excluded = {self.label_slot, *self.task_label_slots}
         return [
             s
             for s in self.slots
-            if s.is_used and s.is_dense and s.name != self.label_slot
+            if s.is_used and s.is_dense and s.name not in excluded
         ]
 
     def dense_width(self) -> int:
         return sum(int(math.prod(s.shape)) for s in self.dense_slots())
 
+    @property
+    def max_rank(self) -> int:
+        return (self.rank_offset_cols - 1) // 2
+
+    def to_dict(self) -> dict:
+        """JSON-ready form, version-stamped, tuples as lists (the
+        reference's feed.json); from_dict is the exact inverse."""
+        d = dataclasses.asdict(self)
+        d["slots"] = [{**sd, "shape": list(sd["shape"])} for sd in d["slots"]]
+        for k, v in list(d.items()):
+            if isinstance(v, tuple):
+                d[k] = list(v)
+        d["feed_format_version"] = 1
+        return d
+
+    @staticmethod
+    def from_dict(d: dict) -> "DataFeedConfig":
+        """Inverse of to_dict.  Keys this version does not know (a newer
+        writer's fields) are dropped with a warning; tuple fields come back
+        as tuples, read from the dataclass defaults."""
+        import warnings
+
+        d = dict(d)
+        ver = d.pop("feed_format_version", 1)
+        if ver > 1:
+            warnings.warn(
+                f"feed.json format version {ver} is newer than this reader "
+                "understands (1): existing fields may have changed meaning",
+                RuntimeWarning, stacklevel=2,
+            )
+        known = {f.name: f for f in dataclasses.fields(DataFeedConfig)}
+        for k in [k for k in d if k not in known]:
+            warnings.warn(f"feed.json key {k!r} unknown to this version — "
+                          "ignored", RuntimeWarning, stacklevel=2)
+            d.pop(k)
+        slot_known = {f.name for f in dataclasses.fields(SlotConfig)}
+        slots = []
+        for sd in d.get("slots", []):
+            for k in [k for k in sd if k not in slot_known]:
+                warnings.warn(f"feed.json slot key {k!r} unknown — ignored",
+                              RuntimeWarning, stacklevel=2)
+            sd = {k: v for k, v in sd.items() if k in slot_known}
+            slots.append(SlotConfig(**{**sd, "shape": tuple(sd["shape"])}))
+        d["slots"] = slots
+        for name, f in known.items():
+            if name != "slots" and name in d and isinstance(
+                    f.default, tuple) and isinstance(d[name], list):
+                d[name] = tuple(d[name])
+        return DataFeedConfig(**d)
+
     def __post_init__(self):
-        if self.pipe_command:
-            raise not_ported("pipe_command", "data cut-outs, item 3")
-        if self.enable_pv_merge or self.rank_offset:
-            raise not_ported("PV merge / rank_offset", "data cut-outs, item 3")
-        if self.parse_ins_id or self.parse_logkey:
-            raise not_ported("ins_id / logkey parsing", "data cut-outs, item 3")
-        if self.task_label_slots:
-            raise not_ported("multi-task labels", "data cut-outs, item 3")
-        if self.sequence_slot:
-            raise not_ported("sequence_slot / seq_pos", "data cut-outs, item 3")
         if self.malformed_policy not in ("raise", "skip"):
             raise ValueError(
                 f"malformed_policy must be 'raise' or 'skip', "
@@ -186,6 +247,22 @@ class DataFeedConfig:
                 f"label slot {self.label_slot!r} is not among the configured "
                 "slots; every instance must carry a label"
             )
+        if len(set(self.task_label_slots)) != len(self.task_label_slots):
+            raise ValueError("task_label_slots contains duplicates")
+        by_name = {s.name: s for s in self.slots}
+        for t in self.task_label_slots:
+            if self.slots and t not in seen:
+                raise ValueError(f"task label slot {t!r} is not configured")
+            if self.slots and by_name[t].type != "float":
+                raise ValueError(
+                    f"task label slot {t!r} must be a float slot, "
+                    f"got type={by_name[t].type!r}"
+                )
+            if t == self.label_slot:
+                raise ValueError(
+                    "task_label_slots must not repeat the primary label slot "
+                    "(task 0 is the primary label implicitly)"
+                )
 
 
 @dataclasses.dataclass
@@ -287,6 +364,18 @@ class TrainerConfig:
     dense_lr: float = 1e-3
     dense_optimizer: str = "adam"
     auc_buckets: int = 1 << 20
+    # dumps (train/dump.py): with need_dump_field and a dump_fields_path,
+    # every pass writes one text line per instance to
+    # <dump_fields_path>/dump-<global step>.txt, with the extra columns
+    # dump_fields names ("task_labels", "cmatch", "rank", "dense"); with
+    # need_dump_param, the pass end writes the dense parameters (filtered
+    # by the name substrings of dump_param) and the table's rows to
+    # <dump_fields_path>/param-<global step>.{dense,sparse}.npz
+    dump_fields: Sequence[str] = ()
+    dump_fields_path: str = ""
+    dump_param: Sequence[str] = ()
+    need_dump_field: bool = False
+    need_dump_param: bool = False
     counter_label_tasks: Sequence[int] = ()
     compute_dtype: str = ""  # "" -> flags.compute_dtype
     check_nan_inf: bool = False
@@ -302,7 +391,7 @@ class TrainerConfig:
     # group body eagerly.  A tail shorter than k runs single steps.  1 =
     # one step at a time.  With check_nan_inf the host reads the group's
     # flags once a replay, and ticks after a non-finite one leave every
-    # state untouched.
+    # state untouched.  A pass that dumps fields runs one step at a time.
     scan_steps: int = 1
 
     def __post_init__(self):

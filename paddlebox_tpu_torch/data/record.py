@@ -1,17 +1,21 @@
 """Columnar instance storage (reference: paddlebox_tpu/data/record.py).
 
 A whole file of instances parses into one CSR block, so batch assembly is
-array slicing.  The per-instance metadata the reference carries for PV
-merge and field dumps (ins_id, search_id, rank, cmatch, task labels) is not
-part of this slice.
+array slicing.  The optional per-instance metadata (ins_id, search_id,
+rank, cmatch, task labels) feeds PV merge, shuffle routing, metric groups
+and field dumps; a column is None unless the parser was told to read it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
+
+
+# the optional per-instance columns, in the reference's field order
+_META = ("ins_ids", "search_ids", "ranks", "cmatches", "task_labels")
 
 
 @dataclasses.dataclass
@@ -28,6 +32,12 @@ class RecordBlock:
     key_offsets: np.ndarray  # int64 [n_ins * n_sparse_slots + 1]
     dense: np.ndarray  # float32 [n_ins, dense_width]
     labels: np.ndarray  # float32 [n_ins]
+    # optional per-instance metadata (PV merge, shuffle routing, dumps)
+    ins_ids: Optional[list] = None  # str [n_ins]
+    search_ids: Optional[np.ndarray] = None  # uint64 [n_ins]
+    ranks: Optional[np.ndarray] = None  # int32 [n_ins]
+    cmatches: Optional[np.ndarray] = None  # int32 [n_ins]
+    task_labels: Optional[np.ndarray] = None  # float32 [n_ins, n_tasks]
 
     def __post_init__(self):
         if (self.key_offsets.shape[0] != self.n_ins * self.n_sparse_slots + 1
@@ -59,6 +69,16 @@ class RecordBlock:
         for b in nonempty[1:]:
             offs.append(b.key_offsets[1:] + base)
             base = base + b.key_offsets[-1]
+
+        def cat_opt(field):
+            # a column survives only when every block carries it
+            vals = [getattr(b, field) for b in nonempty]
+            if any(v is None for v in vals):
+                return None
+            if field == "ins_ids":
+                return [i for v in vals for i in v]
+            return np.concatenate(vals)
+
         return RecordBlock(
             n_ins=sum(b.n_ins for b in nonempty),
             n_sparse_slots=nonempty[0].n_sparse_slots,
@@ -66,6 +86,41 @@ class RecordBlock:
             key_offsets=np.concatenate(offs),
             dense=np.concatenate([b.dense for b in nonempty]),
             labels=np.concatenate([b.labels for b in nonempty]),
+            **{f: cat_opt(f) for f in _META},
+        )
+
+    def select(self, order: np.ndarray) -> "RecordBlock":
+        """Gather instances by index (shuffle, shuffle routing, PV
+        regrouping, the spill's chunking)."""
+        s = self.n_sparse_slots
+        order = np.asarray(order, dtype=np.int64)
+        lens = np.diff(self.key_offsets)
+        sel_rows = (order[:, None] * s + np.arange(s)[None, :]).reshape(-1)
+        new_lens = lens[sel_rows]
+        new_offsets = np.zeros(order.shape[0] * s + 1, dtype=np.int64)
+        np.cumsum(new_lens, out=new_offsets[1:])
+        total = int(new_offsets[-1])
+        # vectorized ragged ranges: row r reads starts[r] + arange(len[r])
+        pos = np.arange(total, dtype=np.int64) - np.repeat(new_offsets[:-1],
+                                                           new_lens)
+        src_idx = np.repeat(self.key_offsets[sel_rows], new_lens) + pos
+        meta = {}
+        for f in _META:
+            v = getattr(self, f)
+            if v is None:
+                meta[f] = None
+            elif f == "ins_ids":
+                meta[f] = [v[i] for i in order]
+            else:
+                meta[f] = v[order]
+        return RecordBlock(
+            n_ins=int(order.shape[0]),
+            n_sparse_slots=s,
+            keys=self.keys[src_idx],
+            key_offsets=new_offsets,
+            dense=self.dense[order],
+            labels=self.labels[order],
+            **meta,
         )
 
     def unique_keys(self) -> np.ndarray:

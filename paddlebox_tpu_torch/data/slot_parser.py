@@ -3,11 +3,14 @@ paddlebox_tpu/data/slot_parser.py).
 
 One instance per line, slots in config order:
 
-    <n> v1 ... vn  <n> v1 ... vn  ...
+    [ins_id] [search_id:rank:cmatch] <n> v1 ... vn  <n> v1 ... vn  ...
 
-uint64 slots hold feature signs, float slots hold floats.  The slot named
-``label_slot`` supplies the label (its first value) and never enters the
-dense matrix.
+The ``ins_id`` prefix is read with ``parse_ins_id``, the logkey prefix with
+``parse_logkey``.  uint64 slots hold feature signs, float slots hold floats.
+The slot named ``label_slot`` supplies the label (its first value) and a
+slot of ``task_label_slots`` a task label (its first value); neither enters
+the dense matrix.  ``pipe_command`` runs a shell command over each file
+and parses its output (a non-zero exit raises the retryable ``FsError``).
 
 Two implementations share one walk layout: the pure-Python ``parse_lines``
 and the native C++ parser (``_native/slot_parser.cpp``) that ``parse_file``
@@ -18,14 +21,18 @@ reference.  PADDLEBOX_TORCH_USE_NATIVE_PARSER=0 turns the native one off.
 from __future__ import annotations
 
 import gzip
+import io
 import logging
+import subprocess
 import threading
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 
 from paddlebox_tpu_torch.config import DataFeedConfig, flags
 from paddlebox_tpu_torch.data.record import RecordBlock
+from paddlebox_tpu_torch.utils import faults
+from paddlebox_tpu_torch.utils.fs import FsError
 from paddlebox_tpu_torch.utils.monitor import stats
 
 logger = logging.getLogger(__name__)
@@ -44,11 +51,16 @@ class SlotParser:
         for s in conf.dense_slots():
             dense_cols[s.name] = col
             col += int(np.prod(s.shape))
+        task_cols = {name: i for i, name in enumerate(conf.task_label_slots)}
         # walk order over every slot present in a line (used or not)
-        self._walk = []  # (kind, width, sparse_idx_or_dense_col)
+        self._walk = []  # (kind, width, sparse index or dense/task column)
         for s in conf.slots:
             if s.name == conf.label_slot:
                 self._walk.append(("label", int(np.prod(s.shape)), -1))
+            elif s.name in task_cols:
+                self._walk.append(
+                    ("task", int(np.prod(s.shape)), task_cols[s.name])
+                )
             elif s.name in sparse_names:
                 self._walk.append(("sparse", -1, sparse_names[s.name]))
             elif s.name in dense_cols:
@@ -58,6 +70,7 @@ class SlotParser:
             else:
                 self._walk.append(("skip", -1, -1))
         self._dense_width = col
+        self.n_task_labels = len(task_cols)
         self.n_sparse = len(self.sparse_slots)
         self._native = None
         self._native_tried = False
@@ -87,8 +100,11 @@ class SlotParser:
             from paddlebox_tpu_torch._native import NativeParser
 
             try:
-                self._native = NativeParser(self._walk, self.n_sparse,
-                                            self._dense_width)
+                self._native = NativeParser(
+                    self._walk, self.n_sparse, self._dense_width,
+                    self.n_task_labels, self.conf.parse_ins_id,
+                    self.conf.parse_logkey,
+                )
             except (RuntimeError, OSError):
                 self._native = None  # unavailable: the Python parser
             return self._native
@@ -117,12 +133,20 @@ class SlotParser:
         return RecordBlock.concat(blocks)
 
     def parse_lines(self, lines: Iterable[str], path: str = "<lines>") -> RecordBlock:
+        conf = self.conf
         keys: list[int] = []
         offsets: list[int] = [0]
         dense_rows: list[list[float]] = []
         labels: list[float] = []
-        acc = (keys, offsets, dense_rows, labels)
-        skip_malformed = self.conf.malformed_policy == "skip"
+        task_rows: Optional[list] = [] if self.n_task_labels else None
+        ins_ids: Optional[list] = [] if conf.parse_ins_id else None
+        search_ids: Optional[list] = [] if conf.parse_logkey else None
+        ranks: Optional[list] = [] if conf.parse_logkey else None
+        cmatches: Optional[list] = [] if conf.parse_logkey else None
+        acc = [a for a in (keys, offsets, dense_rows, labels, task_rows,
+                           ins_ids, search_ids, ranks, cmatches)
+               if a is not None]
+        skip_malformed = conf.malformed_policy == "skip"
         n_ins = 0
         n_skipped = 0
         first_bad = None
@@ -132,7 +156,9 @@ class SlotParser:
                 continue
             marks = [len(a) for a in acc]
             try:
-                self._parse_one(toks, keys, offsets, dense_rows, labels)
+                self._parse_one(toks, keys, offsets, dense_rows, labels,
+                                task_rows, ins_ids, search_ids, ranks,
+                                cmatches)
             except (IndexError, ValueError) as e:
                 if not skip_malformed:
                     raise ValueError(
@@ -159,6 +185,7 @@ class SlotParser:
                 "quarantined %d malformed line(s) in %s (first: %s)",
                 n_skipped, path, first_bad,
             )
+        opt = lambda v, dt: None if v is None else np.asarray(v, dtype=dt)
         return RecordBlock(
             n_ins=n_ins,
             n_sparse_slots=self.n_sparse,
@@ -168,12 +195,29 @@ class SlotParser:
                 n_ins, self._dense_width
             ),
             labels=np.asarray(labels, dtype=np.float32),
+            ins_ids=ins_ids,
+            search_ids=opt(search_ids, np.uint64),
+            ranks=opt(ranks, np.int32),
+            cmatches=opt(cmatches, np.int32),
+            task_labels=None if task_rows is None else np.asarray(
+                task_rows, dtype=np.float32).reshape(n_ins, self.n_task_labels),
         )
 
-    def _parse_one(self, toks, keys, offsets, dense_rows, labels) -> None:
+    def _parse_one(self, toks, keys, offsets, dense_rows, labels, task_rows,
+                   ins_ids, search_ids, ranks, cmatches) -> None:
         """Parse one tokenized instance into the accumulator lists."""
         p = 0
+        if ins_ids is not None:
+            ins_ids.append(toks[p])
+            p += 1
+        if search_ids is not None:
+            sid, rk, cm = toks[p].split(":")
+            search_ids.append(int(sid))
+            ranks.append(int(rk))
+            cmatches.append(int(cm))
+            p += 1
         drow = [0.0] * self._dense_width
+        trow = [0.0] * self.n_task_labels
         label = 0.0
         per_slot_counts = []
         for kind, width, col in self._walk:
@@ -181,12 +225,16 @@ class SlotParser:
             p += 1
             if kind == "skip":
                 p += n
-            elif kind == "label":
+            elif kind in ("label", "task"):
                 if n != width:
                     raise ValueError(
-                        f"label slot expected {width} values, got {n}"
+                        f"{'label' if kind == 'label' else 'task label'} "
+                        f"slot expected {width} values, got {n}"
                     )
-                label = float(toks[p])
+                if kind == "label":
+                    label = float(toks[p])
+                else:
+                    trow[col] = float(toks[p])  # its first value
                 p += n
             elif kind == "dense":
                 if n != width:
@@ -206,13 +254,20 @@ class SlotParser:
         for c in per_slot_counts:
             offsets.append(offsets[-1] + c)
         dense_rows.append(drow)
+        if task_rows is not None:
+            task_rows.append(trow)
         labels.append(label)
 
     def parse_file(self, path: str) -> RecordBlock:
-        """Read one plain or .gz file and parse it: natively when the
-        native parser is available (a plain file in one read, a .gz one in
-        line-aligned chunks), else line by line in Python."""
+        """Read one plain or .gz file, or ``pipe_command``'s output over it,
+        and parse it: natively when the native parser is available (a plain
+        file in one read, a stream in line-aligned chunks), else line by
+        line in Python.  The fault site ``data.read``; a failed pipe raises
+        the retryable ``FsError`` (the dataset retries the read)."""
+        faults.inject("data.read")
         native = self._native_parser()
+        if self.conf.pipe_command:
+            return self._parse_pipe(native, path)
         if path.endswith(".gz"):
             if native is not None:
                 with gzip.open(path, "rb") as f:
@@ -224,3 +279,25 @@ class SlotParser:
                 return native.parse_bytes(f.read(), path=path)
         with open(path, "r") as f:
             return self.parse_lines(f, path=path)
+
+    def _parse_pipe(self, native, path: str) -> RecordBlock:
+        """``pipe_command`` over the file, its output streamed to the parser
+        (reference: LoadIntoMemoryByLine forks the command over the file)."""
+        with open(path, "rb") as src:
+            proc = subprocess.Popen(self.conf.pipe_command, shell=True,
+                                    stdin=src, stdout=subprocess.PIPE)
+            try:
+                if native is not None:
+                    block = self._native_parse_stream(native, proc.stdout, path)
+                else:
+                    text = io.TextIOWrapper(proc.stdout, encoding="utf-8")
+                    block = self.parse_lines(text, path=path)
+            finally:
+                proc.stdout.close()
+                ret = proc.wait()
+        if ret != 0:
+            raise FsError(
+                f"pipe_command {self.conf.pipe_command!r} on {path} "
+                f"exited {ret}"
+            )
+        return block

@@ -96,9 +96,48 @@ def update_auc_state_(state: AucState, preds: torch.Tensor,
     return state
 
 
+@torch.no_grad()
+def update_auc_states_(state: AucState, preds: torch.Tensor,
+                       labels: torch.Tensor, masks: torch.Tensor,
+                       gate: Optional[torch.Tensor] = None) -> AucState:
+    """``update_auc_state_`` of M stacked streams at once, IN PLACE: the
+    streams share ``preds`` and ``labels`` [B] and each has its mask row of
+    ``masks`` [M, B] (a metric group's specs).  One scatter-add per bucket
+    table over the [M, B] weights, as the reference vmaps the update over
+    the metric axis; the integer counts equal M separate updates bit for
+    bit."""
+    m, nb = state.pos.shape
+    idx = torch.clamp((preds * nb).to(torch.int32), 0, nb - 1)
+    flat = (torch.arange(m, device=idx.device)[:, None] * nb
+            + idx[None, :].to(torch.int64)).reshape(-1)
+    pos_w = (masks * labels).to(torch.int64)
+    neg_w = (masks * (1.0 - labels)).to(torch.int64)
+    err = (preds - labels) * masks
+    label_inc = (masks * labels).sum(1).to(torch.int64)
+    count_inc = masks.sum(1).to(torch.int64)
+    sums = [(state.abserr, err.abs().sum(1)), (state.sqrerr, (err * err).sum(1)),
+            (state.pred_sum, (preds * masks).sum(1))]
+    if gate is not None:
+        pos_w, neg_w = torch.where(gate, pos_w, 0), torch.where(gate, neg_w, 0)
+        label_inc = torch.where(gate, label_inc, 0)
+        count_inc = torch.where(gate, count_inc, 0)
+    state.pos.view(-1).index_add_(0, flat, pos_w.reshape(-1))
+    state.neg.view(-1).index_add_(0, flat, neg_w.reshape(-1))
+    for acc, x in sums:
+        # the Kahan step of _kahan_add, one pair per stream
+        s, c = acc[:, 0], acc[:, 1]
+        y = x - c
+        t = s + y
+        new = torch.stack([t, (t - s) - y], dim=1)
+        acc.copy_(new if gate is None else torch.where(gate, new, acc))
+    state.label_sum.add_(label_inc)
+    state.count.add_(count_inc)
+    return state
+
+
 def stack_auc_states(base: AucState, n: int) -> AucState:
     """n copies stacked along a new leading axis: one stream per shard
-    position of the multi-chip trainer."""
+    position of the multi-chip trainer, or per spec of a metric group."""
     return AucState(*(torch.stack([t] * n) for t in base))
 
 
@@ -113,6 +152,16 @@ def merge_auc_states(*states: AucState) -> AucState:
     Kahan pairs add as pairs, so ``kahan_value`` of the merge is the sum of
     the values)."""
     return AucState(*(sum(xs[1:], start=xs[0]) for xs in zip(*states)))
+
+
+def compute_metrics_stacked(state: AucState, names) -> dict:
+    """compute_metrics of each stream of a stacked state, keys
+    ``<name>/<metric>``."""
+    out = {}
+    for i, name in enumerate(names):
+        for k, v in compute_metrics(unstack_auc_state(state, i)).items():
+            out[f"{name}/{k}"] = v
+    return out
 
 
 def compute_metrics(state: AucState) -> dict:

@@ -93,9 +93,17 @@ class LoopbackTransport:
         return [payload]
 
 
+# how long a rank waits at the group's barrier for the others (module
+# level, so tests can shrink it)
+BARRIER_TIMEOUT_S = 300.0
+
+
 class InProcessCensusGroup:
     """N simulated ranks (threads) exchanging census payloads through a
-    barrier-coordinated mailbox, for tests."""
+    barrier-coordinated mailbox, for tests.  Each barrier wait is bounded
+    by BARRIER_TIMEOUT_S: a rank that never arrives (one that raised
+    before its exchange) breaks the barrier, and the waiting ranks raise
+    ``threading.BrokenBarrierError`` instead of hanging."""
 
     def __init__(self, n_ranks: int):
         if n_ranks < 1:
@@ -103,7 +111,7 @@ class InProcessCensusGroup:
         self.n_ranks = n_ranks
         self._box: List[Optional[bytes]] = [None] * n_ranks
         self._lock = threading.Lock()
-        self._barrier = threading.Barrier(n_ranks)
+        self._barrier = threading.Barrier(n_ranks, timeout=BARRIER_TIMEOUT_S)
 
     def transport(self, rank: int) -> "_GroupTransport":
         if not 0 <= rank < self.n_ranks:

@@ -46,13 +46,23 @@ the multi-chip trainer has no skip or rollback policy and no step
 grouping: ``check_nan_inf`` raises, ``nan_policy`` and ``scan_steps`` are
 not read.
 
+The data half, as in the reference: a ``metric_group`` keeps one stacked
+group state per position ([n, n_specs, ...]), updated in the step from the
+feed's per-position mask matrices and merged over the positions at the
+pass end; ``rank_offset``, ``seq_pos`` and ``task_labels`` ride the feed
+when the batches have them; with ``need_dump_field`` the step also
+returns the positions' predictions and each position's real instances are
+dumped (a padding batch dumps nothing); ``need_dump_param`` dumps the
+dense tower and the table's rows at the pass end.
+
 Cut-outs (each raises ``NotImplementedError``): the host plane; the
-watchdog; telemetry; dumps; multi-task models; metric groups.
+watchdog; telemetry; multi-task models.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 import time
 from typing import Iterable, Iterator, Optional, Sequence
 
@@ -65,10 +75,12 @@ from paddlebox_tpu_torch.metrics.auc import (
     AucState,
     compute_metrics,
     init_auc_state,
+    merge_auc_states,
     stack_auc_states,
     unstack_auc_state,
     update_auc_state_,
 )
+from paddlebox_tpu_torch.metrics.variants import MetricGroup
 from paddlebox_tpu_torch.models.layers import (
     apply_compute_dtype_override,
     bce_with_logits,
@@ -92,6 +104,7 @@ from paddlebox_tpu_torch.train.trainer import (
     NonFiniteBatchError,
     _dense_opt,
     await_feed,
+    check_model_inputs,
     pass_norms,
     prefetched,
     stage_feed,
@@ -100,13 +113,20 @@ from paddlebox_tpu_torch.train.trainer import (
 )
 
 
-def _stack_group(batches: Sequence[HostBatch], plan: ShardedBatchPlan) -> dict:
+def _stack_group(batches: Sequence[HostBatch], plan: ShardedBatchPlan,
+                 metric_group: Optional[MetricGroup] = None) -> dict:
     """Stack per-position batches and the plan into [n, ...] numpy arrays."""
     key_clicks = []
     for b, m in zip(batches, plan.key_mask):
         ins = np.minimum(b.key_segments // b.n_sparse_slots, b.batch_size - 1)
         key_clicks.append(b.labels[ins] * m)
     extra = {}
+    for name in ("rank_offset", "seq_pos", "task_labels"):
+        if getattr(batches[0], name) is not None:
+            extra[name] = np.stack([getattr(b, name) for b in batches])
+    if metric_group is not None:
+        extra["metric_masks"] = np.stack(
+            [metric_group.masks(b) for b in batches])
     if plan.hot_occ is not None:
         extra["hot_occ"] = plan.hot_occ
         extra["hot_lr"] = plan.hot_lr
@@ -292,8 +312,6 @@ class MultiChipTrainer:
                  metric_group=None, slot_mask: Optional[Iterable[int]] = None):
         """slot_mask: participating sparse-slot indices (None = all), with
         the single-chip Trainer's semantics on every position."""
-        if metric_group is not None:
-            raise not_ported("metric groups", "multi-chip cut-outs, item 3")
         if getattr(model, "n_tasks", 1) > 1:
             raise not_ported("multi-task models", "model zoo, item 5")
         self.model = model
@@ -302,6 +320,7 @@ class MultiChipTrainer:
         self.device = mesh.device
         self.n_dev = mesh.n
         self.conf = trainer_conf or TrainerConfig()
+        self.metric_group = metric_group
         n_slots = model.n_sparse_slots
         self.slot_mask = normalize_slot_mask(slot_mask, n_slots)
         self._part_vec = slot_participation_vec(self.slot_mask, n_slots,
@@ -442,14 +461,16 @@ class MultiChipTrainer:
 
     # -- the step ----------------------------------------------------------- #
     def _step(self, table: ShardedSparseTable, feed: dict,
-              aucs: list, gn: Optional[torch.Tensor] = None) -> tuple:
+              aucs: list, gn: Optional[torch.Tensor] = None,
+              groups: Optional[list] = None) -> tuple:
         """One step over every position; updates the model copies (or, in
         "async" mode, returns their gradient), the table and the hot block
-        in place, ``aucs`` (one AucState per position) and ``gn`` [n, 2]
-        (each position's grad-norm stream).  Returns (loss, per-position
-        instance counts [n], summed dense gradients or None) on the
-        device: the psummed loss, or in "kstep" mode each position's own
-        loss [n]."""
+        in place, ``aucs`` (one AucState per position), ``groups`` (one
+        stacked metric-group state per position) and ``gn`` [n, 2] (each
+        position's grad-norm stream).  Returns (loss, per-position
+        instance counts [n], summed dense gradients or None, the
+        positions' predictions [n, B]) on the device: the psummed loss, or
+        in "kstep" mode each position's own loss [n]."""
         tconf = self.table_conf
         n = self.n_dev
         mode = self.conf.sync_dense_mode
@@ -541,7 +562,10 @@ class MultiChipTrainer:
             )
         for d in range(n):
             update_auc_state_(aucs[d], preds[d], feed["labels"][d], mask[d])
-        return loss, cnt, summed if mode == "async" else None
+            if groups is not None:
+                MetricGroup.update(groups[d], preds[d], feed["labels"][d],
+                                   feed["metric_masks"][d])
+        return loss, cnt, summed if mode == "async" else None, preds
 
     # -- public API --------------------------------------------------------- #
     def train_from_dataset(self, dataset, table: ShardedSparseTable,
@@ -574,10 +598,27 @@ class MultiChipTrainer:
         if hot_cap:
             self._ensure_hot_block(table, hot_cap)
         gn = torch.zeros((self.n_dev, 2), device=self.device)
+        group_state = None
+        if self.metric_group is not None:
+            group_state = stack_auc_states(
+                self.metric_group.init_state(self.device), self.n_dev)
         if isinstance(auc_state, dict):
             if "gn" in auc_state:
                 gn.copy_(auc_state["gn"])
+            if group_state is not None and "group" in auc_state:
+                group_state = AucState(*(t.clone()
+                                         for t in auc_state["group"]))
             auc_state = auc_state["auc"]
+        elif auc_state is not None and group_state is not None:
+            raise ValueError(
+                "pass trainer.last_metric_state (dict) to continue metrics "
+                "across passes: a bare AucState would reset the metric "
+                "group's streams while continuing the primary one"
+            )
+        # per-position views of the stacked group state, updated in place
+        group_views = (None if group_state is None else
+                       [unstack_auc_state(group_state, d)
+                        for d in range(self.n_dev)])
         # the grad-norm stream carries across continued passes: the pass
         # reads a float64 delta of the positions' sum
         gn_base = gn.sum(0).double().cpu()
@@ -594,26 +635,41 @@ class MultiChipTrainer:
                 optimizer=self.conf.dense_optimizer, lr=self.conf.dense_lr)
         pull_every = max(self.conf.sync_weight_step, 1)
         pending: list = []  # "async": gradients pushed one step late
+        dumper = None
+        if self.conf.need_dump_field and self.conf.dump_fields_path:
+            from paddlebox_tpu_torch.train.dump import FieldDumper
+
+            dumper = FieldDumper(
+                os.path.join(self.conf.dump_fields_path,
+                             f"dump-{self.global_step}.txt"),
+                self.conf.dump_fields,
+            )
 
         def feeds():
-            """(device feed, ready event) per group; on the producer thread
-            when prefetching."""
-            for group in groups:
-                plan = table.plan_group(group, self._slot_lr_vec,
-                                        group[0].n_sparse_slots)
+            """(device feed, ready event, the batches when dumping) per
+            group; on the producer thread when prefetching."""
+            for batches in groups:
+                check_model_inputs(self.model, batches[0])
+                plan = table.plan_group(batches, self._slot_lr_vec,
+                                        batches[0].n_sparse_slots)
                 if plan.hot_occ is not None:
                     hot_occurrences[0] += int((plan.hot_occ < hot_cap).sum())
-                host = _stack_group(group, plan)
+                host = _stack_group(batches, plan, self.metric_group)
+                keep = batches if dumper is not None else None
                 if depth > 0:
-                    yield stage_feed(host, self.device)
+                    yield (*stage_feed(host, self.device), keep)
                 else:
-                    yield self._to_device(host), None
+                    yield self._to_device(host), None, keep
 
         feed_iter, prefetcher = prefetched(feeds(), depth)
         try:
-            for feed, ready in feed_iter:
-                loss, cnt, grads = self._step(table, await_feed(feed, ready),
-                                              aucs, gn)
+            for feed, ready, batches in feed_iter:
+                loss, cnt, grads, preds = self._step(
+                    table, await_feed(feed, ready), aucs, gn, group_views)
+                if dumper is not None:
+                    # a padding batch has no real instance: it dumps nothing
+                    for b, p in zip(batches, preds):
+                        dumper.dump_batch(b, p.cpu().numpy())
                 if grads is not None:
                     pending.append(self._stage_async(grads))
                     if len(pending) > 1:
@@ -636,11 +692,26 @@ class MultiChipTrainer:
         finally:
             if prefetcher is not None:
                 prefetcher.close()
+            if dumper is not None:
+                dumper.close()
         # the staging window, as in the single-chip Trainer
         if next_pass_keys is not None:
             table.prepare_pass(next_pass_keys)
+        if self.conf.need_dump_param and self.conf.dump_fields_path:
+            from paddlebox_tpu_torch.train.dump import dump_params
+
+            dump_params(
+                os.path.join(self.conf.dump_fields_path,
+                             f"param-{self.global_step}"),
+                self.model.state_dict(), table=table,
+                select=self.conf.dump_param,
+            )
         merged = AucState(*(torch.stack(ts) for ts in zip(*aucs)))
         metrics = compute_metrics(merged)
+        if group_state is not None:
+            # the positions' streams summed in ascending order, per spec
+            metrics.update(self.metric_group.compute(
+                merge_auc_states(*group_views)))
         metrics["loss"] = 0.0
         if losses and mode == "kstep":
             # local means, recombined weighted by the real instance counts
@@ -662,6 +733,8 @@ class MultiChipTrainer:
                                   self.model.parameters()))
         self.last_auc_state = merged
         self.last_metric_state = {"auc": merged, "gn": gn}
+        if group_state is not None:
+            self.last_metric_state["group"] = group_state
         return metrics
 
     # -- evaluation --------------------------------------------------------- #
@@ -682,6 +755,7 @@ class MultiChipTrainer:
                 for _ in range(self.n_dev)]
         for group in _group_batches(dataset.batches(drop_last=drop_last),
                                     self.n_dev):
+            check_model_inputs(self.model, group[0])
             feed = self._to_device(_stack_group(group,
                                                 table.plan_group(group)))
             if "hot_occ" in feed:

@@ -46,13 +46,28 @@ The step policies of the reference:
   * ``evaluate``: forward only, streaming AUC, no table, parameter or
     counter change.
 
-Dumping, the watchdog and telemetry are later slices.
+The data half (reference: train/trainer.py):
+  * ``metric_group`` (metrics/variants.py): the feed carries the group's
+    [n_specs, B] mask matrix, and every step updates the group's stacked
+    AUC streams in the same body as the primary stream, so a captured
+    graph holds the masks as one more static feed slot.
+  * The feed also carries ``rank_offset``, ``seq_pos`` and ``task_labels``
+    when the batch has them; a model that reads rank_offset or seq_pos
+    (``uses_rank_offset`` / ``uses_seq_pos``) gets a RuntimeError for a
+    batch without them.
+  * Field dumps (``TrainerConfig.need_dump_field``, train/dump.py): each
+    step's predictions go to a FieldDumper, and the pass runs one step at
+    a time whatever ``scan_steps`` says.  ``need_dump_param`` dumps the
+    dense tower and the table's rows at the pass end.
+
+The watchdog and telemetry are later slices.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import queue
 import threading
 import time
@@ -69,6 +84,7 @@ from paddlebox_tpu_torch.metrics.auc import (
     init_auc_state,
     update_auc_state_,
 )
+from paddlebox_tpu_torch.metrics.variants import MetricGroup
 from paddlebox_tpu_torch.models.layers import (
     apply_compute_dtype_override,
     bce_with_logits,
@@ -108,13 +124,17 @@ class PassRolledBack(RuntimeError):
 
 
 def host_feed(batch: HostBatch, plan: BatchPlan,
-              slot_lr_vec: Optional[np.ndarray] = None) -> dict:
+              slot_lr_vec: Optional[np.ndarray] = None,
+              metric_group: Optional[MetricGroup] = None) -> dict:
     """The static-shape feed of one step, as numpy arrays.
 
     ``slot_lr_vec``: [S] per-slot learning rates; the feed then carries
     ``uniq_lr`` [K], each unique key's lr from the slot of its occurrences
     (the last assignment wins; the padding tail gets the mean), as the
-    reference's ``_host_batch_dict`` builds it."""
+    reference's ``_host_batch_dict`` builds it.  ``metric_group``: the
+    feed carries its ``metric_masks`` [n_specs, B].  The batch's
+    ``rank_offset``, ``seq_pos`` and ``task_labels`` ride along when it has
+    them."""
     n_slots = batch.n_sparse_slots
     ins = np.minimum(batch.key_segments // n_slots, batch.batch_size - 1)
     feed = {
@@ -128,6 +148,12 @@ def host_feed(batch: HostBatch, plan: BatchPlan,
         "labels": batch.labels,
         "ins_mask": batch.ins_mask,
     }
+    for name in ("rank_offset", "seq_pos", "task_labels"):
+        v = getattr(batch, name)
+        if v is not None:
+            feed[name] = v
+    if metric_group is not None:
+        feed["metric_masks"] = metric_group.masks(batch)
     if slot_lr_vec is not None:
         uniq_lr = np.full(batch.key_segments.shape[0], slot_lr_vec.mean(),
                           np.float32)
@@ -138,6 +164,23 @@ def host_feed(batch: HostBatch, plan: BatchPlan,
             ]
         feed["uniq_lr"] = uniq_lr
     return feed
+
+
+def check_model_inputs(model, batch: HostBatch) -> None:
+    """The reference's errors for a model whose extra inputs the batch
+    lacks: rank_offset (``uses_rank_offset``) or seq_pos
+    (``uses_seq_pos``)."""
+    if getattr(model, "uses_rank_offset", False) and batch.rank_offset is None:
+        raise RuntimeError(
+            "model requires PV-merged batches with rank_offset: "
+            "set enable_pv_merge and call dataset.preprocess_instance()"
+        )
+    if getattr(model, "uses_seq_pos", False) and batch.seq_pos is None:
+        raise RuntimeError(
+            "model consumes an ordered behavior sequence: set "
+            "DataFeedConfig.sequence_slot (and max_seq_len) so "
+            "batches carry seq_pos"
+        )
 
 
 def to_device(host: dict, device: torch.device) -> dict:
@@ -232,7 +275,13 @@ class _FeedPrefetcher:
                 item = self._q.get(timeout=0.2)
                 break
             except queue.Empty:
-                continue
+                # the producer always ends with a sentinel or an error; a
+                # dead one with an empty queue would leave this loop
+                # waiting forever
+                if not self._thread.is_alive() and self._q.empty():
+                    self._done = True
+                    raise RuntimeError(
+                        "the feed-prefetch producer exited without a result")
         if item is self._SENTINEL:
             self._done = True
             raise StopIteration
@@ -322,11 +371,13 @@ def sum_squares(tensors) -> torch.Tensor:
 class _StepGraph:
     """One captured group of k steps: the static feed slots the body reads,
     the static loss and flag outputs, and the tensors whose addresses the
-    capture baked in (the table's, which begin_pass reallocates)."""
+    capture baked in (the table's, which begin_pass reallocates, and the
+    metric streams')."""
 
-    def __init__(self, trainer: "Trainer", table, feeds: list, auc, gn):
+    def __init__(self, trainer: "Trainer", table, feeds: list, auc, gn,
+                 group=None):
         self.values, self.g2sum = table.values, table.g2sum
-        self.auc, self.gn = auc, gn
+        self.auc, self.gn, self.group = auc, gn, group
         self.shapes = _feed_shapes(feeds)
         self.slots = [{k: torch.empty_like(v) for k, v in f.items()}
                       for f in feeds]
@@ -340,12 +391,13 @@ class _StepGraph:
         # capture and invalidate it
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             trainer._group_body(self.values, self.g2sum, self.slots, auc, gn,
-                                self.losses, self.flags)
+                                self.losses, self.flags, group)
 
-    def matches(self, table, feeds: list, auc, gn) -> bool:
+    def matches(self, table, feeds: list, auc, gn, group=None) -> bool:
         return (self.values is table.values and self.g2sum is table.g2sum
                 and self.gn is gn
                 and all(a is b for a, b in zip(self.auc, auc))
+                and _same_tensors(self.group, group)
                 and self.shapes == _feed_shapes(feeds))
 
     def replay(self, feeds: list) -> tuple:
@@ -357,6 +409,13 @@ class _StepGraph:
                 slot[k].copy_(v)
         self.graph.replay()
         return self.losses.clone(), self.flags.clone()
+
+
+def _same_tensors(a, b) -> bool:
+    """The same metric-group state (or both absent)."""
+    if a is None or b is None:
+        return a is b
+    return all(x is y for x, y in zip(a, b))
 
 
 def _feed_shapes(feeds: list) -> tuple:
@@ -374,15 +433,19 @@ class Trainer:
         trainer_conf: Optional[TrainerConfig] = None,
         device="cuda",
         slot_mask: Optional[Iterable[int]] = None,
+        metric_group: Optional[MetricGroup] = None,
     ):
         """slot_mask: participating sparse-slot indices (None = all).
         Excluded slots read zero pooled features, receive no gradient and
         increment no show/clk counter (the reference's per-phase slot
-        participation, box_wrapper.h:627-630)."""
+        participation, box_wrapper.h:627-630).  metric_group: filtered AUC
+        streams beside the primary one, in the pass metrics as
+        ``<spec>/<metric>``."""
         self.device = resolve_device(device)
         self.model = model
         self.table_conf = table_conf
         self.conf = trainer_conf or TrainerConfig()
+        self.metric_group = metric_group
         n_slots = model.n_sparse_slots
         self.slot_mask = normalize_slot_mask(slot_mask, n_slots)
         apply_compute_dtype_override(model, self.conf.compute_dtype)
@@ -428,12 +491,14 @@ class Trainer:
 
     # -- the step ----------------------------------------------------------- #
     def _tick(self, values, g2sum, feed: dict, auc: AucState,
-              gn: torch.Tensor, ok: Optional[torch.Tensor]):
+              gn: torch.Tensor, ok: Optional[torch.Tensor],
+              group: Optional[AucState] = None):
         """One training step, every update in place.  ``ok``: with the
         check on, a bool device scalar, False when an earlier step of the
-        group failed under a raising policy.  Returns (loss, gate): gate
-        is None without the check, else the device flag that decided
-        whether this step's updates applied."""
+        group failed under a raising policy.  ``group``: the metric group's
+        stacked streams, updated from the feed's metric_masks.  Returns
+        (loss, gate, preds): gate is None without the check, else the
+        device flag that decided whether this step's updates applied."""
         tconf = self.table_conf
         rows = pull_rows(
             values, feed["idx"],
@@ -489,26 +554,34 @@ class Trainer:
             key_mask, key_clicks, tconf, uniq_lr=feed.get("uniq_lr"),
             gate=gate,
         )
-        update_auc_state_(auc, torch.sigmoid(logits.detach()), labels, mask,
-                          gate)
+        preds = torch.sigmoid(logits.detach())
+        update_auc_state_(auc, preds, labels, mask, gate)
+        if group is not None:
+            MetricGroup.update(group, preds, labels, feed["metric_masks"],
+                               gate)
         inc = torch.stack([gsq, torch.ones_like(gsq)])
         gn.add_(inc if gate is None else torch.where(gate, inc, 0.0))
-        return loss.detach(), gate
+        return loss.detach(), gate, preds
 
     def _group_body(self, values, g2sum, feeds: list, auc: AucState,
                     gn: torch.Tensor, losses: torch.Tensor,
-                    flags: torch.Tensor) -> None:
+                    flags: torch.Tensor, group: Optional[AucState] = None,
+                    preds: Optional[list] = None) -> None:
         """k steps in one body (the reference's scan tick): the CPU runs
         it eagerly, the card captures it.  No host sync: each step's loss
         and flag land in ``losses`` / ``flags`` [k].  Under "skip_batch" a
         non-finite step drops only itself; under a raising policy every
-        later step of the group leaves all state untouched."""
+        later step of the group leaves all state untouched.  ``preds``: a
+        list that receives each step's predictions (the field dump)."""
         skip = self._skip_batches
         ok = None
         if self._check_nan and not skip:
             ok = torch.ones((), dtype=torch.bool, device=values.device)
         for j, feed in enumerate(feeds):
-            loss, gate = self._tick(values, g2sum, feed, auc, gn, ok)
+            loss, gate, p = self._tick(values, g2sum, feed, auc, gn, ok,
+                                       group)
+            if preds is not None:
+                preds.append(p)
             losses[j] = loss
             if gate is not None:
                 flags[j] = gate
@@ -522,24 +595,27 @@ class Trainer:
             )
 
     def _run_group(self, table, feeds: list, auc: AucState,
-                   gn: torch.Tensor) -> tuple:
+                   gn: torch.Tensor, group: Optional[AucState] = None,
+                   preds: Optional[list] = None) -> tuple:
         """Run one group: replayed as the captured graph when it is a full
         group of scan_steps > 1 on the card, else eagerly.  Returns (losses
-        [k], flags [k]) on the device."""
+        [k], flags [k]) on the device.  ``preds`` (a list, eager groups
+        only) receives each step's predictions."""
         self._check_table(table)
         k = len(feeds)
         if self.device.type == "cuda" and k > 1:
             graph = self._graph
-            if graph is None or not graph.matches(table, feeds, auc, gn):
+            if graph is None or not graph.matches(table, feeds, auc, gn,
+                                                  group):
                 self._graph = None
                 if self._warmed is not table.values:
                     # the warm-up of a new table: this group runs eagerly
                     # on a side stream (autograd, cuBLAS and the allocator
                     # settle), the next one captures
                     self._warmed = table.values
-                    return self._warm_up(table, feeds, auc, gn)
+                    return self._warm_up(table, feeds, auc, gn, group)
                 # a failed capture raises; nothing runs these steps eagerly
-                graph = _StepGraph(self, table, feeds, auc, gn)
+                graph = _StepGraph(self, table, feeds, auc, gn, group)
                 self._graph = graph
                 self.graph_captures += 1
                 stats.add("trainer.graph_captures")
@@ -549,10 +625,10 @@ class Trainer:
         losses = torch.zeros(k, device=table.values.device)
         flags = torch.ones(k, dtype=torch.bool, device=table.values.device)
         self._group_body(table.values, table.g2sum, feeds, auc, gn, losses,
-                         flags)
+                         flags, group, preds)
         return losses, flags
 
-    def _warm_up(self, table, feeds, auc, gn) -> tuple:
+    def _warm_up(self, table, feeds, auc, gn, group=None) -> tuple:
         """The group eagerly on a side stream, ordered after and before the
         current stream's work, as torch.cuda.graphs' whole-network example
         warms up before a capture; the optimizer's state is created here,
@@ -566,7 +642,7 @@ class Trainer:
             losses = torch.zeros(k, device=self.device)
             flags = torch.ones(k, dtype=torch.bool, device=self.device)
             self._group_body(table.values, table.g2sum, feeds, auc, gn,
-                             losses, flags)
+                             losses, flags, group)
         cur.wait_stream(side)
         # for the caching allocator: the feeds were read on the side
         # stream, the outputs will be on the current one
@@ -650,22 +726,39 @@ class Trainer:
         return self.train_steps(table, dataset.batches(drop_last=drop_last),
                                 auc_state, next_pass_keys=next_pass_keys)
 
+    def _metric_state(self, auc_state) -> tuple:
+        """(auc, gn, group) of a pass: fresh, or continued from an
+        AucState (the primary stream only) or from ``last_metric_state``
+        (every stream).  A bare AucState with a metric group is refused:
+        it would reset the group's streams while continuing the primary
+        one."""
+        gn = torch.zeros(2, device=self.device)
+        group = None
+        if self.metric_group is not None:
+            group = self.metric_group.init_state(self.device)
+        if isinstance(auc_state, dict):
+            if "gn" in auc_state:
+                gn.copy_(auc_state["gn"])
+            if group is not None and "group" in auc_state:
+                group = AucState(*(t.clone() for t in auc_state["group"]))
+            auc_state = auc_state["auc"]
+        elif auc_state is not None and group is not None:
+            raise ValueError(
+                "pass trainer.last_metric_state (dict) to continue metrics "
+                "across passes: a bare AucState would reset the metric "
+                "group's streams while continuing the primary one"
+            )
+        auc = (AucState(*(t.clone() for t in auc_state))
+               if auc_state is not None else self.init_auc())
+        return auc, gn, group
+
     def train_steps(self, table: SparseTable, batches: Iterable[HostBatch],
                     auc_state=None, next_pass_keys=None) -> dict:
         """Lower-level entry: train over an explicit batch iterable."""
         if not table._in_pass:
             raise RuntimeError("begin_pass before training")
         t0 = time.monotonic()
-        gn = torch.zeros(2, device=self.device)
-        if isinstance(auc_state, dict):
-            if "gn" in auc_state:
-                gn.copy_(auc_state["gn"])
-            auc_state = auc_state["auc"]
-        auc = (
-            AucState(*(t.clone() for t in auc_state))
-            if auc_state is not None
-            else self.init_auc()
-        )
+        auc, gn, group = self._metric_state(auc_state)
         # the stream carries across continued passes: the pass reads a
         # delta, in float64 on the host as the reference reads it
         gn_base = gn.double().cpu()
@@ -673,17 +766,30 @@ class Trainer:
         n_samples = [0.0]
         n_steps = 0
         depth = self.conf.prefetch_batches
-        k = max(1, self.conf.scan_steps)
+        dumper = None
+        if self.conf.need_dump_field and self.conf.dump_fields_path:
+            from paddlebox_tpu_torch.train.dump import FieldDumper
+
+            dumper = FieldDumper(
+                os.path.join(self.conf.dump_fields_path,
+                             f"dump-{self.global_step}.txt"),
+                self.conf.dump_fields,
+            )
+        # a dumped pass reads every step's predictions: one step at a time
+        k = 1 if dumper is not None else max(1, self.conf.scan_steps)
         check_nan, skip = self._check_nan, self._skip_batches
 
         def feeds():
-            """Groups of k (device feed, ready event, instances), the ragged
-            tail as single steps: batch assembly, key planning, the chaos
-            site and the copy; on the producer thread when prefetching."""
-            group = []
+            """Groups of k (device feed, ready event, instances, batch), the
+            ragged tail as single steps: batch assembly, key planning, the
+            chaos site and the copy; on the producer thread when
+            prefetching.  The batch rides along only for the dump."""
+            group_items = []
             for batch in batches:
+                check_model_inputs(self.model, batch)
                 plan = table.plan_batch(batch)
-                host = host_feed(batch, plan, self._slot_lr_vec)
+                host = host_feed(batch, plan, self._slot_lr_vec,
+                                 self.metric_group)
                 if faults.fire("train.nan"):
                     # chaos: poison the labels, so the loss and gradients
                     # really go non-finite on the device
@@ -691,14 +797,15 @@ class Trainer:
                 ins = float(batch.ins_mask.sum())
                 n_samples[0] += ins
                 if depth > 0:
-                    item = (*stage_feed(host, self.device), ins)
+                    dev, ready = stage_feed(host, self.device)
                 else:
-                    item = (self._to_device(host), None, ins)
-                group.append(item)
-                if len(group) == k:
-                    yield group
-                    group = []
-            for item in group:
+                    dev, ready = self._to_device(host), None
+                group_items.append(
+                    (dev, ready, ins, batch if dumper is not None else None))
+                if len(group_items) == k:
+                    yield group_items
+                    group_items = []
+            for item in group_items:
                 yield [item]
 
         # queue slots hold groups: the depth shrinks so the staged device
@@ -707,10 +814,13 @@ class Trainer:
             feeds(), max(1, depth // k) if depth > 0 else 0)
         try:
             try:
-                for group in feed_iter:
-                    devs = [await_feed(d, r) for d, r, _ in group]
-                    loss_k, flags = self._run_group(table, devs, auc, gn)
-                    n = len(group)
+                for items in feed_iter:
+                    devs = [await_feed(d, r) for d, r, _, _ in items]
+                    preds = [] if dumper is not None else None
+                    loss_k, flags = self._run_group(table, devs, auc, gn,
+                                                    group, preds)
+                    n = len(items)
+                    good = None
                     if check_nan:
                         fin = flags.cpu().numpy()  # one readback a group
                         if not fin.all():
@@ -722,17 +832,25 @@ class Trainer:
                             bad = np.nonzero(~fin)[0]
                             stats.add("train.nan_skipped_steps", bad.shape[0])
                             stats.add("train.nan_skipped_ins",
-                                      sum(group[j][2] for j in bad))
+                                      sum(items[j][2] for j in bad))
                             good = np.nonzero(fin)[0]
                             loss_k = loss_k[torch.from_numpy(good).to(
                                 loss_k.device)]
                             n = good.shape[0]
+                    if dumper is not None:
+                        # a skipped batch dumps nothing, as it trains nothing
+                        for j, (_, _, _, batch) in enumerate(items):
+                            if good is None or j in good:
+                                dumper.dump_batch(batch,
+                                                  preds[j].cpu().numpy())
                     losses.append(loss_k)
                     n_steps += n
                     self.global_step += n
             finally:
                 if prefetcher is not None:
                     prefetcher.close()
+                if dumper is not None:
+                    dumper.close()
         except NonFiniteBatchError:
             if self.conf.nan_policy == "rollback":
                 self._rollback_to_checkpoint(table)  # raises PassRolledBack
@@ -742,7 +860,18 @@ class Trainer:
         # before the metric readback below waits for the card
         if next_pass_keys is not None:
             table.prepare_pass(next_pass_keys)
+        if self.conf.need_dump_param and self.conf.dump_fields_path:
+            from paddlebox_tpu_torch.train.dump import dump_params
+
+            dump_params(
+                os.path.join(self.conf.dump_fields_path,
+                             f"param-{self.global_step}"),
+                self.model.state_dict(), table=table,
+                select=self.conf.dump_param,
+            )
         metrics = compute_metrics(auc)
+        if group is not None:
+            metrics.update(self.metric_group.compute(group))
         metrics["loss"] = (
             float(torch.cat(losses).mean()) if n_steps else 0.0
         )
@@ -753,6 +882,8 @@ class Trainer:
                                   self.model.parameters()))
         self.last_auc_state = auc
         self.last_metric_state = {"auc": auc, "gn": gn}
+        if group is not None:
+            self.last_metric_state["group"] = group
         return metrics
 
     # -- evaluation --------------------------------------------------------- #
@@ -761,13 +892,14 @@ class Trainer:
                  drop_last: bool = False) -> dict:
         """Forward-only pass: no table, parameter or counter change, a
         streaming AUC only (reference: infer_from_dataset).  Needs an open
-        pass."""
+        pass.  Takes any dataset mode: in memory, PV-merged or spilled."""
         if not table._in_pass:
             raise RuntimeError("begin_pass before evaluating")
         self._check_table(table)
         tconf = self.table_conf
         auc = self.init_auc()
         for batch in dataset.batches(drop_last=drop_last):
+            check_model_inputs(self.model, batch)
             dev = self._to_device(host_feed(batch, table.plan_batch(batch)))
             rows = pull_rows(
                 table.values, dev["idx"],

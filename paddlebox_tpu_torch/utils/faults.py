@@ -36,10 +36,15 @@ import zlib
 from typing import Dict, Optional, Union
 
 from paddlebox_tpu_torch.utils.monitor import stats
+from paddlebox_tpu_torch.utils.retry import register_retryable
 
 
 class FaultInjected(RuntimeError):
     """Raised by an injection site the active plan told to fail."""
+
+
+# an injected fault is transient by construction: retry_call retries it
+register_retryable(FaultInjected)
 
 
 # the site catalog: a plan naming an unknown non-wildcard site logs a
@@ -64,6 +69,9 @@ KNOWN_SITES = {
     "ckpt.save", "ckpt.load", "ckpt.delta_save",
     # the filesystem surface of utils/fs.py's LocalFS
     "fs.ls", "fs.cat",
+    # one input file's read (data/slot_parser.py parse_file), retried by
+    # the dataset through utils/retry.py
+    "data.read",
     # the single-chip trainer's feed (train/trainer.py): a fired hit
     # poisons the batch's labels with NaN, so the loss and gradients go
     # non-finite on the device and the configured nan_policy acts

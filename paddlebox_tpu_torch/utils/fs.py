@@ -11,10 +11,15 @@ from __future__ import annotations
 import os
 
 from paddlebox_tpu_torch.utils import faults
+from paddlebox_tpu_torch.utils.retry import register_retryable
 
 
 class FsError(RuntimeError):
-    pass
+    """A filesystem operation failed: a missing path, or a failed pipe
+    (usually a remote cat).  The transient class: retry_call retries it."""
+
+
+register_retryable(FsError)
 
 
 class LocalFS:

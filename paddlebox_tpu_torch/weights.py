@@ -92,3 +92,23 @@ def params_to_jax(state: dict) -> dict:
                       "b": np.array(b, np.float32)})
         i += 1
     return {"tower": tower}
+
+
+def jax_key_paths(tree) -> dict:
+    """A nested dict / list of arrays flattened to {jax key path: array},
+    the names ``jax.tree_util.keystr`` gives (``['tower'][0]['w']``), as the
+    reference's parameter files are keyed."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}[{k!r}]")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+        else:
+            out[path] = np.asarray(node)
+
+    walk(tree, "")
+    return out

@@ -39,6 +39,7 @@ from paddlebox_tpu_torch.sparse.store import BucketStore
 from paddlebox_tpu_torch.sparse.table import SparseTable
 from paddlebox_tpu_torch.train import Trainer
 from paddlebox_tpu_torch.weights import params_from_jax
+from paddlebox_tpu_torch.testing import time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from paddlebox_tpu_torch.ops import sparse_kernels as sk
+from paddlebox_tpu_torch.testing import time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -904,6 +905,85 @@ def test_skip_batch_under_the_graph_drops_only_the_poisoned_batch(cuda,
     assert tr.graph_replays > 0 and ma["steps"] == mb["steps"] == 19
     assert (ma["loss"], ma["auc"]) == (mb["loss"], mb["auc"])
     np.testing.assert_array_equal(sa["values"], sb["values"])
+
+
+def _group_world(tmp_path, scan_steps, **trkw):
+    """_graph_world on logkey data with a 4-spec metric group."""
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.metrics import MetricGroup, MetricSpec
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.train import Trainer
+
+    files = write_synth_files(str(tmp_path / f"mg{scan_steps}"), n_files=1,
+                              ins_per_file=640, n_sparse_slots=4,
+                              vocab_per_slot=80, dense_dim=3, seed=4,
+                              with_logkey=True, cmatch_values=(222, 223, 1))
+    ds = PadBoxSlotDataset(make_synth_config(4, 3, 32, 16, parse_logkey=True),
+                           read_threads=1)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    group = MetricGroup([MetricSpec("all"), MetricSpec("cm222", (222,)),
+                         MetricSpec("rank1", rank_values=(1,)),
+                         MetricSpec("none", (999,))], n_buckets=1 << 10)
+    tconf = SparseTableConfig(embedding_dim=4)
+    table = SparseTable(tconf, seed=5)
+    tr = Trainer(CtrDnn(4, tconf.row_width, dense_dim=3, hidden=(16, 8)),
+                 tconf, TrainerConfig(auc_buckets=1 << 10,
+                                      scan_steps=scan_steps, **trkw),
+                 metric_group=group)
+    return ds, table, tr
+
+
+def test_captured_steps_with_a_metric_group_equal_eager(cuda, tmp_path):
+    """The group's masks ride the captured graph as one more static feed
+    slot: two passes in groups of 4 equal eager steps bit for bit, every
+    spec's streams included, under deterministic algorithms."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for k in (1, 4):
+            ds, table, tr = _group_world(tmp_path, k)
+            runs[k] = _graph_passes(ds, table, tr) + (tr,)
+            table.close()
+            ds.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (m1, s1, tr1), (m4, s4, tr4) = runs[1], runs[4]
+    assert tr4.graph_captures == 2 and tr4.graph_replays == 2 * 4
+    for a, b in zip(m1, m4):
+        assert a == {**b, "duration_s": a["duration_s"]}
+        assert b["all/auc"] == b["auc"] and b["none/count"] == 0
+        assert 0 < b["cm222/count"] < b["count"]
+    for a, b in zip(tr1.last_metric_state["group"],
+                    tr4.last_metric_state["group"]):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(s1["values"], s4["values"])
+
+
+def test_dumped_pass_with_scan_steps_runs_single_steps(cuda, tmp_path):
+    """need_dump_field with scan_steps 8: no graph is captured, every step
+    dumps its instances, and the dump equals that of scan_steps 1 under
+    deterministic algorithms."""
+    dumps = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for k in (1, 8):
+            path = tmp_path / f"dump{k}"
+            ds, table, tr = _group_world(
+                tmp_path, k, need_dump_field=True,
+                dump_fields_path=str(path), dump_fields=("cmatch", "rank"))
+            out, _ = _graph_passes(ds, table, tr, passes=1)
+            assert tr.graph_captures == 0 and out[0]["steps"] == 20
+            with open(path / "dump-0.txt") as f:
+                dumps.append(f.read())
+            table.close()
+            ds.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert dumps[0] == dumps[1] and dumps[0].count("\n") == 640
 
 
 def test_a_capture_that_cannot_succeed_raises(cuda, tmp_path):

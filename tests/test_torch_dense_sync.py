@@ -37,6 +37,7 @@ from paddlebox_tpu_torch.parallel import (
 )
 from paddlebox_tpu_torch.parallel.async_dense import AsyncDenseTable
 from paddlebox_tpu_torch.weights import params_from_jax_stacked
+from paddlebox_tpu_torch.testing import time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

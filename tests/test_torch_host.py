@@ -31,6 +31,7 @@ from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
 from paddlebox_tpu_torch.sparse.store import BucketStore, splitmix64
 from paddlebox_tpu_torch.sparse.table import SparseTable, _key_uniform
 from paddlebox_tpu_torch.utils.monitor import stats
+from paddlebox_tpu_torch.testing import time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

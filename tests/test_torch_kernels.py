@@ -17,6 +17,7 @@ from paddlebox_tpu.config import flags as ref_flags
 from paddlebox_tpu.ops.pallas_sparse import pallas_pull_rows, pallas_scatter_add
 from paddlebox_tpu.sparse import table as ref_table
 from paddlebox_tpu_torch.ops import sparse_kernels as sk
+from paddlebox_tpu_torch.testing import time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

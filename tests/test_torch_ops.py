@@ -30,6 +30,7 @@ from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
 from paddlebox_tpu_torch.sparse.optimizer import sparse_adagrad_update
 from paddlebox_tpu_torch.sparse.table import SparseTable, pull_rows, push_and_update
 from paddlebox_tpu_torch.weights import params_from_jax, table_state_from_jax
+from paddlebox_tpu_torch.testing import time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -60,6 +60,7 @@ from paddlebox_tpu_torch.utils import faults
 from paddlebox_tpu_torch.utils.faults import fault_plan
 from paddlebox_tpu_torch.utils.monitor import stats
 from paddlebox_tpu_torch.weights import params_from_jax, params_to_jax
+from paddlebox_tpu_torch.testing import time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

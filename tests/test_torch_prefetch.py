@@ -36,6 +36,7 @@ from paddlebox_tpu_torch.train import Trainer
 from paddlebox_tpu_torch.train import trainer as trainer_mod
 from paddlebox_tpu_torch.utils.monitor import stats
 from paddlebox_tpu_torch.weights import params_from_jax
+from paddlebox_tpu_torch.testing import time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -188,6 +189,22 @@ def test_producer_exception_reaches_train_steps(files):
     assert threading.active_count() == before
     table.end_pass()
     ds.close()
+
+
+def test_a_producer_that_dies_without_a_result_fails_the_consumer(
+        monkeypatch):
+    """A producer thread that exits without its sentinel or an error ends
+    the consumer's wait with an error instead of an endless poll."""
+    monkeypatch.setattr(trainer_mod._FeedPrefetcher, "_run",
+                        lambda self, gen: None)
+    pf = trainer_mod._FeedPrefetcher(iter(range(3)), depth=2)
+    pf._thread.join(5.0)
+    assert not pf._thread.is_alive()
+    with pytest.raises(RuntimeError, match="without a result"):
+        next(pf)
+    with pytest.raises(StopIteration):
+        next(pf)
+    pf.close()
 
 
 def test_close_unblocks_full_queue():

@@ -45,6 +45,7 @@ from paddlebox_tpu_torch.parallel.sharded_table import (
 from paddlebox_tpu_torch.utils.faults import FaultInjected, fault_plan
 from paddlebox_tpu_torch.utils.monitor import stats
 from paddlebox_tpu_torch.weights import params_from_jax
+from paddlebox_tpu_torch.testing import time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -53,6 +53,7 @@ from paddlebox_tpu_torch.train import Trainer
 from paddlebox_tpu_torch.utils import faults
 from paddlebox_tpu_torch.utils.monitor import stats
 from paddlebox_tpu_torch.weights import params_from_jax
+from paddlebox_tpu_torch.testing import time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -529,6 +530,9 @@ def _single_chip(datasets, cache_rows):
                                                  drop_last=True,
                                                  next_pass_keys=nxt))
             auc = tr.last_auc_state
+            # the stage completes before end_pass, however late its thread
+            # ran: the fault plans count cache.fetch hits in this order
+            table.staged_pass_keys()
             table.end_pass()
         return table.state_dict(), table.pop_delta(), metrics
     finally:

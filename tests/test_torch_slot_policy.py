@@ -48,6 +48,7 @@ from paddlebox_tpu_torch.train.slot_policy import (
 )
 from paddlebox_tpu_torch.train.trainer import host_feed
 from paddlebox_tpu_torch.weights import params_from_jax, params_from_jax_stacked
+from paddlebox_tpu_torch.testing import time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -30,6 +30,7 @@ from paddlebox_tpu_torch.models import CtrDnn
 from paddlebox_tpu_torch.sparse.table import SparseTable
 from paddlebox_tpu_torch.train import Trainer
 from paddlebox_tpu_torch.weights import params_from_jax
+from paddlebox_tpu_torch.testing import time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -261,18 +262,6 @@ def _unsupported(case):
         SparseTableConfig(expand_dim=4)
     elif case == "layout_conv":
         CtrDnn(SLOTS, row, layout="conv", device="cpu")
-    elif case == "rank_offset":
-        make_synth_config(SLOTS, DENSE, BATCH, rank_offset="rank_offset")
-    elif case == "sequence_slot":
-        make_synth_config(SLOTS, DENSE, BATCH, sequence_slot="slot0")
-    elif case == "multi_task":
-        DataFeedConfig(task_label_slots=("task0",))
-    elif case == "pipe_command":
-        DataFeedConfig(pipe_command="gzip -d")
-    elif case == "parse_logkey":
-        DataFeedConfig(parse_logkey=True)
-    elif case == "pv_merge":
-        DataFeedConfig(enable_pv_merge=True)
     elif case == "counter_label_tasks":
         TrainerConfig(counter_label_tasks=(1,))
     elif case == "slot_embed_dims":
@@ -280,13 +269,33 @@ def _unsupported(case):
 
 
 @pytest.mark.parametrize("case", [
-    "expand_dim", "layout_conv", "rank_offset", "sequence_slot", "multi_task",
-    "pipe_command", "parse_logkey", "pv_merge", "counter_label_tasks",
-    "slot_embed_dims",
+    "expand_dim", "layout_conv", "counter_label_tasks", "slot_embed_dims",
 ])
 def test_unsupported_options_raise_not_implemented(case):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _unsupported(case)
+
+
+@pytest.mark.parametrize("case", [
+    "rank_offset", "sequence_slot", "multi_task", "pipe_command",
+    "parse_logkey", "pv_merge", "parse_ins_id",
+])
+def test_data_options_construct(case):
+    """The data options refused until the data half of item 3 construct,
+    each as a reference config names it, and the reference's own config
+    with the same field takes it too."""
+    kw = {
+        "rank_offset": dict(rank_offset="rank_offset", enable_pv_merge=True),
+        "sequence_slot": dict(sequence_slot="slot0", max_seq_len=8),
+        "multi_task": dict(n_task_labels=1),
+        "pipe_command": dict(pipe_command="gzip -d"),
+        "parse_logkey": dict(parse_logkey=True),
+        "pv_merge": dict(enable_pv_merge=True, pv_batch_size=4),
+        "parse_ins_id": dict(parse_ins_id=True),
+    }[case]
+    conf = make_synth_config(SLOTS, DENSE, BATCH, **kw)
+    ref = ref_synth_config(SLOTS, DENSE, BATCH, **kw)
+    assert conf.to_dict() == ref.to_dict()
 
 
 def test_reference_flags_do_not_steer_the_port(monkeypatch):
