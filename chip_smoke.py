@@ -47,7 +47,7 @@ Phases, each fatal on failure:
                from identical initial weights must agree.
      stages  — one more pass, serial (as the reference profiles) and
                synchronized after each host stage and step, for the per-step
-               breakdown (--profile adds a profiler window); then the same
+               breakdown; then the same
                batches planned alone with the native and the numpy planner,
                ms per step of each, and every native plan must agree with
                the numpy one under the reference's order-free equivalence.
@@ -98,7 +98,9 @@ Phases, each fatal on failure:
                moved, begin_pass / end_pass seconds with the begin_pass
                phases, and samples/s.  Under deterministic algorithms all
                its passes must be bit-equal to the uncached hybrid run's,
-               and agree with the same passes on the CPU.
+               and agree with the same passes on the CPU; that run writes
+               an events file whose pass_end records must carry the
+               cache, placement and census metrics.
      reshard — under deterministic algorithms, that table resharded live
                from POSITIONS to 2 shard positions at the pass boundary
                and trained RESHARD_BATCHES more batches, then back to
@@ -143,6 +145,20 @@ Phases, each fatal on failure:
                and for those two the same bytes moved without the gather or
                the search), and the time the cold and the warm method give
                a launch that does almost nothing.
+  9. telemetry — the telemetry plane on the default table (telemetry_path):
+               two traced passes with an events path and a /metrics
+               listener (trace spans, a scrape during the second pass,
+               one pass_end record a pass, no health alert, no compile
+               event in the second pass), bit-equal to the same passes
+               without telemetry (their step groups CUDA graphs, one
+               train.scan compile a pass); a profiled pass whose
+               torch.profiler trace names the pull_rows and
+               scatter_add_rows kernels, and the device's busy share in
+               it and in a prefetched default pass; samples/s of default
+               and telemetry passes in turns; tools/pbox_doctor.py on the
+               phase's trace, event and flight files.
+               It runs last: a torch.profiler window opened after its
+               device traces listed no CUDA kernel among its events.
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1207,11 +1223,11 @@ def lifecycle_check(censuses) -> None:
         f"({a['keys'].shape[0]} rows)")
 
 
-def stage_breakdown(ds, table, trainer, profile: bool) -> None:
+def stage_breakdown(ds, table, trainer) -> None:
     """One more pass driven stage by stage with a synchronize after each,
-    so the host stages and the device step can be told apart.  With
-    ``profile``, torch.profiler records steps 10-29 and the script prints
-    the device time by kernel and the device's busy share of that window."""
+    so the host stages and the device step can be told apart (the device's
+    busy share and its time by kernel come from telemetry_path's device
+    traces)."""
     import torch
 
     from paddlebox_tpu_torch.metrics.auc import init_auc_state
@@ -1226,16 +1242,8 @@ def stage_breakdown(ds, table, trainer, profile: bool) -> None:
     auc = init_auc_state(trainer.conf.auc_buckets, trainer.device)
     acc = dict(batch=0.0, plan=0.0, feed=0.0, step=0.0, step_span=0.0)
     batches = ds.batches()
-    prof = None
     n = 0
     while True:
-        if profile and n == 10:
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA,
-            ])
-            prof.__enter__()
-            window_t0 = time.perf_counter()
         t0 = time.perf_counter()
         batch = next(batches, None)
         t1 = time.perf_counter()
@@ -1258,11 +1266,6 @@ def stage_breakdown(ds, table, trainer, profile: bool) -> None:
                      ("step_span", ev0.elapsed_time(ev1) / 1e3)):
             acc[k] += v
         n += 1
-        if prof is not None and n == 30:
-            window_s = time.perf_counter() - window_t0
-            prof.__exit__(None, None, None)
-            report_profile(prof, window_s)
-            prof = None
     native_index_live(table)
     plan_ms = plan_only(ds.batches(), table.plan_batch, plans_agree)
     t0 = time.perf_counter()
@@ -1322,26 +1325,6 @@ def plan_only(batches, plan, agree) -> dict:
     finally:
         del os.environ["PADDLEBOX_TORCH_USE_NATIVE_PLANNER"]
     return {k: v / max(n, 1) * 1e3 for k, v in total.items()}
-
-
-def report_profile(prof, window_s: float) -> None:
-    # device-side entries only (kernels, copies, memsets): the host ops that
-    # launched them carry the same time again, and a user annotation such
-    # as Optimizer.step spans its kernels and the gaps between them
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and not getattr(e, "is_user_annotation", False)]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    busy = sum(dev_us(e) for e in events) / 1e6
-    top = sorted(events, key=dev_us, reverse=True)[:12]
-    log(f"profile window {window_s!r} s (20 staged steps): device busy "
-        f"{busy!r} s = {busy / window_s!r} of the window")
-    for e in top:
-        log(f"  {dev_us(e) / 1e3:.3f} ms device, {e.count} calls: {e.key}")
 
 
 # --------------------------------------------------------------------------- #
@@ -1474,7 +1457,8 @@ def drive_hybrid(datasets, table, trainer) -> list:
 def hybrid_path(datasets) -> dict:
     """The full-width model on POSITIONS positions with the realized hybrid
     placement, launch counters reset just before and read just after; the
-    hash placement and the hybrid one again, in turns, for the times; then
+    hash placement once, for the times (a second pair of turns, hash and
+    hybrid again, was cut to make room for telemetry_path); then
     two hybrid runs under torch.use_deterministic_algorithms over all
     HYBRID_PASSES passes (the hot block realizes in the third and changes
     in the fourth), which must be bit-equal, and the hash placement under
@@ -1485,11 +1469,8 @@ def hybrid_path(datasets) -> dict:
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
 
     runs = {}
-    # in turns for the hybrid-against-hash times: hybrid, hash, hash, hybrid
     for label, placement, det in (("hybrid", "loopback", False),
                                   ("hash", "hash", False),
-                                  ("hash again", "hash", False),
-                                  ("hybrid again", "loopback", False),
                                   ("hybrid deterministic", "loopback", True),
                                   ("hybrid deterministic rerun", "loopback",
                                    True),
@@ -1797,13 +1778,21 @@ def sharded_cached_path(hybrid: dict) -> dict:
 
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
 
+    from paddlebox_tpu_torch import telemetry
+    from paddlebox_tpu_torch.config import TelemetryConfig
+
     datasets = hybrid["datasets"]
     runs = {}
+    events_path = os.path.join(WORK_DIR, "sharded-events.jsonl")
     for label, det in (("sharded cached", False),
                        ("sharded cached deterministic", True)):
         torch.use_deterministic_algorithms(det)
         try:
-            table, trainer = make_hybrid_world("cuda", cache_rows=CACHE_ROWS)
+            # the deterministic arm writes its pass_end records
+            kw = ({"telemetry": TelemetryConfig(events_path=events_path)}
+                  if det else {})
+            table, trainer = make_hybrid_world("cuda", cache_rows=CACHE_ROWS,
+                                               **kw)
             table.boundary_timing = True
             if not det:
                 fed = prefetched_feeds()
@@ -1815,9 +1804,29 @@ def sharded_cached_path(hybrid: dict) -> dict:
                                                    for r in per_pass))
         finally:
             torch.use_deterministic_algorithms(False)
+            telemetry.close_event_log()
         runs[label] = (per_pass, table, trainer)
         for p, r in enumerate(per_pass):
             log_sharded_pass(label, p, r)
+    recs = [json.loads(ln) for ln in open(events_path)
+            if '"pass_end"' in ln]
+    want = {"gauges": ("cache.hit_rate", "placement.hot_keys",
+                       "placement.hot_resident_rows", "train.grad_norm"),
+            "counters": ("pass.host_row_bytes_in", "pass.host_row_bytes_out"),
+            "histograms": ("trainer.stage_seconds{stage=plan}",
+                           "census.cold_keys")}
+    lacking = [(p, kind, n) for p, r in enumerate(recs)
+               for kind, names in want.items() for n in names
+               if n not in r["telemetry"][kind]]
+    if len(recs) != len(datasets) or lacking:
+        raise AssertionError(f"sharded pass_end records: {len(recs)}, "
+                             f"lacking {lacking}")
+    log("sharded cached deterministic pass_end records: hit rates "
+        f"{[r['telemetry']['gauges']['cache.hit_rate'] for r in recs]}, "
+        "hot keys "
+        f"{[r['telemetry']['gauges']['placement.hot_keys'] for r in recs]}, "
+        "promoted bytes "
+        f"{[r['telemetry']['counters']['pass.host_row_bytes_in'] for r in recs]}")
     per_pass, table, _ = runs["sharded cached"]
     steps = sum(r["metrics"]["steps"] for r in per_pass)
     log(f"sharded cached path launches {launches} over {steps} step groups "
@@ -3104,6 +3113,299 @@ def hybrid_specs(hybrid: dict) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 8: the telemetry plane
+# --------------------------------------------------------------------------- #
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _device_busy(trace_file: str) -> tuple:
+    """(busy share, window s, device events) of a torch.profiler Chrome
+    trace: the union of the device's kernel, copy and memset intervals
+    over the window from the trace's first to its last event."""
+    doc = json.load(open(trace_file))
+    evs = [e for e in doc["traceEvents"]
+           if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in evs
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    t0 = min(e["ts"] for e in evs)
+    t1 = max(e["ts"] + e["dur"] for e in evs)
+    busy, end = 0.0, t0
+    for e in sorted(dev, key=lambda e: e["ts"]):
+        lo, hi = max(e["ts"], end), e["ts"] + e["dur"]
+        if hi > lo:
+            busy += hi - lo
+            end = hi
+    return busy / (t1 - t0), (t1 - t0) / 1e6, dev
+
+
+def _device_trace_file(d: str) -> str:
+    (f,) = [x for x in os.listdir(d) if x.startswith("device-trace-")]
+    return os.path.join(d, f)
+
+
+def _scraper(port: int, texts: list, stop) -> None:
+    """Scrape /metrics every 50 ms until ``stop`` is set: (time, text)."""
+    import urllib.request
+
+    while not stop.is_set():
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=5) as r:
+            texts.append((time.perf_counter(), r.read().decode()))
+        stop.wait(0.05)
+
+
+def telemetry_path(zipf_sets) -> None:
+    """The telemetry plane on the default table (HBM cache on, overlapped)
+    at the slice's width, two passes over two Zipf sets:
+      1. telemetry on (TelemetryConfig with a trace dir, an events path
+         and a free metrics port; scan_steps GRAPH_K set, single steps
+         run): a host trace a pass in which ``pass`` encloses plan, feed
+         and step; a /metrics scrape during the second pass showing the
+         stage histograms, the hit rate, the boundary gap and the merge
+         histogram; one ``pass_end`` record a pass and no health alert; no
+         compile event in the second pass, and no kernel build twice in
+         the process.  Launch counters reset before and read after.
+      2. the same passes without telemetry (prefetched, the step group a
+         CUDA graph: one ``train.scan`` compile a pass) bit-equal to the
+         traced ones under deterministic algorithms.
+      3. a pass with profile=True and TrainerConfig.trace_dir: the
+         profile metrics, and a torch.profiler trace that names the
+         pull_rows and scatter_add_rows kernels; the device's busy share.
+      4. the device's busy share in a torch.profiler window over a
+         prefetched default pass.
+      5. samples/s of a default pass and of a pass with the full
+         TelemetryConfig, in turns default, telemetry, telemetry, default.
+      6. tools/pbox_doctor.py on the phase's trace, event and flight files.
+    The health monitor starts afresh: its baselines belong to one run, and
+    the earlier phases ran other models."""
+    import threading
+
+    import torch
+
+    from paddlebox_tpu_torch import telemetry
+    from paddlebox_tpu_torch.config import TelemetryConfig
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.utils.profiler import device_trace
+
+    run_dir = os.path.join(WORK_DIR, "telemetry")
+    os.makedirs(run_dir)
+    sets = zipf_sets[:2]
+    censuses = [d.unique_keys() for d in sets]
+    # the event log and the exporter are process singletons: an earlier
+    # phase's trainer (reshard_check continues the sharded arm's, which
+    # logs its passes) may still hold them
+    telemetry.close_event_log()
+    telemetry.stop_exporter()
+    telemetry.disable_tracing()
+    telemetry.health.reset_for_tests()
+    telemetry.set_process_name("trainer")
+
+    def passes(det: bool, on_pass=None, **trainer_kw) -> tuple:
+        """Two passes of a fresh default world: (metrics, state_dict, the
+        compile events of each pass by stage)."""
+        table, trainer = data_world("cuda", group=False, **trainer_kw)
+        out, compiled, auc = [], [], None
+        torch.use_deterministic_algorithms(det)
+        try:
+            for i, ds in enumerate(sets):
+                before = telemetry.compiles_by_stage()
+                table.begin_pass(censuses[i])
+                if on_pass is not None:
+                    on_pass(i, "start")
+                m = trainer.train_from_dataset(ds, table, auc_state=auc)
+                torch.cuda.synchronize()
+                if on_pass is not None:
+                    on_pass(i, "end")
+                auc = trainer.last_metric_state
+                table.end_pass()
+                after = telemetry.compiles_by_stage()
+                compiled.append({k: after[k] - before.get(k, 0)
+                                 for k in after if after[k] != before.get(k)})
+                out.append(m)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        state = table.state_dict()
+        table.close()
+        return out, state, compiled
+
+    def metric_tuple(ms):
+        return [(m["loss"], m["auc"], m["count"], m["grad_norm"],
+                 m["weight_norm"]) for m in ms]
+
+    # 1. telemetry on
+    port = _free_port()
+    events_path = os.path.join(run_dir, "events.jsonl")
+    texts, stop, window = [], threading.Event(), {}
+    scraper = threading.Thread(target=_scraper, args=(port, texts, stop),
+                               daemon=True)
+
+    def on_pass(i, when):
+        window[i, when] = time.perf_counter()
+        if (i, when) == (0, "start"):
+            scraper.start()  # the exporter listens from the first pass on
+
+    saved = dict(sk.launches)
+    sk.reset_launches()
+    try:
+        on, on_state, on_compiled = passes(
+            True, on_pass, scan_steps=GRAPH_K,
+            telemetry=TelemetryConfig(trace_dir=run_dir,
+                                      events_path=events_path,
+                                      metrics_port=port))
+    finally:
+        stop.set()
+        if scraper.is_alive():
+            scraper.join(10)
+        telemetry.disable_tracing()
+        telemetry.close_event_log()
+        telemetry.stop_exporter()
+    launches = dict(sk.launches)
+    sk.launches.update(saved)
+    log(f"telemetry on: launches {launches}; compile events by pass "
+        f"{on_compiled}; in the process {telemetry.compiles_by_stage()}")
+    for name in ("pull_rows", "scatter_add_rows", "gather_slots",
+                 "scatter_rows", "sorted_search"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "telemetry path")
+    if on_compiled[1]:
+        raise AssertionError(f"the traced second pass compiled "
+                             f"{on_compiled[1]}")
+    twice = {k: v for k, v in telemetry.compiles_by_stage().items()
+             if k.startswith("pallas.") and v > 1}
+    if twice:
+        raise AssertionError(f"kernels built or loaded twice: {twice}")
+    for k in range(2):
+        trace_file = os.path.join(run_dir, f"host-trace-r0-pass{k}.json")
+        evs = [e for e in json.load(open(trace_file))["traceEvents"]
+               if e.get("ph") == "X"]
+        (root,) = [e for e in evs if e["name"] == "pass"]
+        inside = {e["name"] for e in evs
+                  if e.get("args", {}).get("parent") == "pass"
+                  and root["ts"] <= e["ts"]
+                  and e["ts"] + e["dur"] <= root["ts"] + root["dur"]}
+        if not {"plan", "feed", "step"} <= inside:
+            raise AssertionError(f"pass {k}'s trace: pass encloses {inside}")
+    during = [t for at, t in texts
+              if window[1, "start"] <= at <= window[1, "end"]]
+    want = ("trainer_stage_seconds_bucket", "cache_hit_rate ",
+            "pass_boundary_gap_seconds_count", "store_merge_seconds_count")
+    lacking = [w for w in want if not during or w not in during[-1]]
+    if lacking:
+        raise AssertionError(f"{len(during)} scrapes during the second pass"
+                             f"; the last lacks {lacking}")
+    recs = [json.loads(ln) for ln in open(events_path)]
+    kinds = [r["event"] for r in recs]
+    if kinds != ["pass_end", "pass_end"]:
+        raise AssertionError(f"event records {kinds}: want one pass_end a "
+                             "pass and no health alert")
+    log(f"telemetry on: {len(texts)} scrapes, {len(during)} during the "
+        f"second pass ({len(during[-1])} bytes); pass_end records "
+        f"{[sorted(r['telemetry']['histograms'])[:4] for r in recs]}...; "
+        f"losses {[m['loss'] for m in on]}")
+
+    # 2. the same passes without telemetry, step groups as CUDA graphs
+    off, off_state, off_compiled = passes(True, scan_steps=GRAPH_K)
+    _sync_equal("telemetry on against off", on_state, off_state,
+                metric_tuple(on), metric_tuple(off))
+    if any(c != {"train.scan": 1} for c in off_compiled):
+        raise AssertionError(f"untraced passes compiled {off_compiled}: "
+                             "want one train.scan capture a pass")
+    log(f"telemetry off (graph steps): bit-equal to on, compile events by "
+        f"pass {off_compiled}")
+
+    # 3. a profiled pass with a torch.profiler device trace
+    prof_dir = os.path.join(WORK_DIR, "telemetry-profile")
+    table, trainer = data_world("cuda", group=False, profile=True,
+                                trace_dir=prof_dir)
+    table.begin_pass(censuses[0])
+    m = trainer.train_from_dataset(sets[0], table)
+    table.end_pass()
+    table.close()
+    telemetry.disable_tracing()
+    prof = m["profile"]
+    # the quantiles read the process's stage histogram (the reference's
+    # semantics), which the earlier passes of this process fed too
+    log("profiled pass: " + ", ".join(
+        f"{s} {prof[s + '_ms_per_step']!r} ms a step (over the process: "
+        f"p50 {q['p50_ms']!r}, p99 {q['p99_ms']!r})"
+        for s, q in prof["stage_quantiles"].items()))
+    busy, win, dev = _device_busy(_device_trace_file(prof_dir))
+    names = {e["name"] for e in dev if e.get("cat") == "kernel"}
+    for kernel in ("pull_rows", "scatter_add"):
+        if not any(kernel in n for n in names):
+            raise AssertionError(f"the device trace names no {kernel} "
+                                 f"kernel: {sorted(names)[:20]}")
+    log(f"profiled pass device trace: busy {busy!r} of a {win!r} s window "
+        f"({len(dev)} device events); kernels of pull_rows.cu and "
+        f"scatter_add_rows.cu named")
+
+    # 4. the idle share at the defaults
+    idle_dir = os.path.join(WORK_DIR, "telemetry-default")
+    table, trainer = data_world("cuda", group=False)
+    table.begin_pass(censuses[0])
+    with device_trace(idle_dir):
+        m = trainer.train_from_dataset(sets[0], table)
+    table.end_pass()
+    table.close()
+    busy, win, dev = _device_busy(_device_trace_file(idle_dir))
+    log(f"default pass (prefetched) device trace: busy {busy!r} of a "
+        f"{win!r} s window, idle {1 - busy!r}; {m['samples'] / m['duration_s']!r}"
+        " samples/s under the profiler")
+    by_name: dict = {}
+    for e in dev:
+        n, us = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, us + e["dur"])
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f"  {us / 1e3:.3f} ms device, {n} calls: {name[:120]}")
+
+    # 5. the cost of the defaults and of the full telemetry, in turns
+    turns = []
+    for label in ("default", "telemetry", "telemetry", "default"):
+        kw = {}
+        if label == "telemetry":
+            d = os.path.join(WORK_DIR, f"telemetry-turn{len(turns)}")
+            kw["telemetry"] = TelemetryConfig(
+                trace_dir=d, events_path=os.path.join(d, "events.jsonl"),
+                metrics_port=_free_port())
+        table, trainer = data_world("cuda", group=False, **kw)
+        table.begin_pass(censuses[0])
+        try:
+            m = trainer.train_from_dataset(sets[0], table)
+        finally:
+            telemetry.disable_tracing()
+            telemetry.close_event_log()
+            telemetry.stop_exporter()
+        table.end_pass()
+        table.close()
+        turns.append((label, m["samples"] / m["duration_s"]))
+    log(f"samples/s in turns: {turns}")
+
+    # 6. the doctor reads the phase's files
+    dump = telemetry.dump_flight("telemetry_path", {"passes": 2},
+                                 dump_dir=run_dir)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "pbox_doctor.py"),
+         run_dir, "--json"], capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError(f"pbox_doctor exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    srcs = {r["src"] for r in report["timeline"]}
+    if not ({"trace", "dump"} <= srcs and report["sources"]["dumps"] >= 1):
+        raise AssertionError(f"the doctor's timeline holds {srcs}, sources "
+                             f"{report['sources']}")
+    log(f"pbox_doctor on {run_dir}: exit 0, sources {report['sources']}, "
+        f"{len(report['timeline'])} timeline rows; flight dump "
+        f"{os.path.basename(dump)}")
+
+
+# --------------------------------------------------------------------------- #
 # phase 6: kernel times
 # --------------------------------------------------------------------------- #
 def device_ms(fn, inner: int = 20, reps: int = 25) -> float:
@@ -3408,15 +3710,8 @@ def kernel_times(res: dict, ds, cached: dict, census, hybrid: dict,
     return rows
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also record 20 steps with torch.profiler")
-    profile = ap.parse_args(argv).profile
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3490,7 +3785,7 @@ def main(argv=None) -> int:
         errs.update(phase(check_hybrid_parity, cuda))
         res = phase(slice_pass, ds)
         phase(slice_serial_turn, ds, res["per_pass"])
-        phase(stage_breakdown, ds, res["table"], res["trainer"], profile)
+        phase(stage_breakdown, ds, res["table"], res["trainer"])
         phase(feed_turns, ds, res["table"], res["trainer"])
         phase(small_agreement)
         phase(prefetch_agreement)
@@ -3510,6 +3805,10 @@ def main(argv=None) -> int:
         phase(data_half, logkey_files, load_s)
         rows = phase(kernel_times, res, ds, cached,
                      censuses[CACHED_PASSES - 1], hybrid, errs)
+        # last: after its device traces, a torch.profiler window of this
+        # process listed no CUDA kernel among its events (kernel_times
+        # reads the kernels of each wrapper call from such windows)
+        phase(telemetry_path, cached_ds)
         ds.close()
         for d in cached_ds:
             d.close()

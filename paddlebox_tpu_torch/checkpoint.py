@@ -37,7 +37,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from paddlebox_tpu_torch import weights
+from paddlebox_tpu_torch import telemetry, weights
 from paddlebox_tpu_torch.utils import faults
 from paddlebox_tpu_torch.utils.monitor import stats
 
@@ -273,6 +273,23 @@ class CheckpointManager:
         opt_state: Any = None,
         meta: Optional[dict] = None,
     ) -> str:
+        with telemetry.span(f"ckpt.save.{kind}", tag=tag), \
+             telemetry.histogram(
+                 "ckpt.save_seconds",
+                 help="checkpoint write wall time (s) by kind",
+             ).time(kind=kind):
+            return self._write_timed(kind, tag, sparse_state, params,
+                                     opt_state, meta)
+
+    def _write_timed(
+        self,
+        kind: str,
+        tag: str,
+        sparse_state: dict,
+        params: Any = None,
+        opt_state: Any = None,
+        meta: Optional[dict] = None,
+    ) -> str:
         faults.inject("ckpt.save")
         dirname = os.path.join(self.root, f"{kind}-{tag}")
         tmp = dirname + f".tmp-{os.getpid()}-{self.shard}"
@@ -435,6 +452,15 @@ class CheckpointManager:
         file raises CheckpointCorrupt here, not a cryptic npz error mid-
         restore).  Reference: InitializeGPUAndLoadModel
         (box_wrapper.cc:1329)."""
+        with telemetry.span("ckpt.load", upto=upto or ""), \
+             telemetry.histogram(
+                 "ckpt.load_seconds", help="checkpoint restore wall time (s)"
+             ).time():
+            return self._load_timed(table, params_template, opt_template,
+                                    upto)
+
+    def _load_timed(self, table, params_template=None, opt_template=None,
+                    upto: Optional[str] = None):
         faults.inject("ckpt.load")
         ckpts = self.list_checkpoints()
         if upto is not None:
@@ -579,13 +605,16 @@ class IncrementalCheckpointManager:
         meta: Optional[dict] = None,
     ) -> str:
         """Full snapshot as one compacted rewrite generation."""
-        state = table.state_dict()
-        log = self._log(int(state["values"].shape[1]))
-        gen = log.rewrite(state["keys"], state["values"])
-        self._write_state(
-            "base", tag, gen, state["keys"].shape[0], params, opt_state,
-            {"table_seed": table._seed, **(meta or {})},
-        )
+        with telemetry.histogram(
+            "ckpt.save_seconds", help="checkpoint write wall time (s) by kind"
+        ).time(kind="incr-base"):
+            state = table.state_dict()
+            log = self._log(int(state["values"].shape[1]))
+            gen = log.rewrite(state["keys"], state["values"])
+            self._write_state(
+                "base", tag, gen, state["keys"].shape[0], params, opt_state,
+                {"table_seed": table._seed, **(meta or {})},
+            )
         table.clear_delta()  # only after the tag is visible
         return self._state_dir("base", tag)
 
@@ -603,19 +632,22 @@ class IncrementalCheckpointManager:
         the next save retries the same rows — at-least-once, and the log's
         newest-wins merge makes the replay idempotent."""
         faults.inject("ckpt.delta_save")
-        state = table.delta_state_dict()
-        log = self._log(int(state["values"].shape[1]))
-        log.append(state["keys"], state["values"])
-        gen = log.commit()
-        self._write_state(
-            "delta", tag, gen, state["keys"].shape[0], params, opt_state,
-            {"table_seed": table._seed, **(meta or {})},
-        )
-        # bound the NEXT restore: fold over-threshold buckets now, so
-        # the chain a future tag references is compacted-base + a few
-        # deltas (old segments stay on disk — keep_history — so THIS
-        # tag and every older one remain materializable)
-        log.compact()
+        with telemetry.histogram(
+            "ckpt.save_seconds", help="checkpoint write wall time (s) by kind"
+        ).time(kind="incr-delta"):
+            state = table.delta_state_dict()
+            log = self._log(int(state["values"].shape[1]))
+            log.append(state["keys"], state["values"])
+            gen = log.commit()
+            self._write_state(
+                "delta", tag, gen, state["keys"].shape[0], params, opt_state,
+                {"table_seed": table._seed, **(meta or {})},
+            )
+            # bound the NEXT restore: fold over-threshold buckets now, so
+            # the chain a future tag references is compacted-base + a few
+            # deltas (old segments stay on disk — keep_history — so THIS
+            # tag and every older one remain materializable)
+            log.compact()
         table.clear_delta()
         return self._state_dir("delta", tag)
 
@@ -680,6 +712,14 @@ class IncrementalCheckpointManager:
         """Restore the newest (or ``upto``) tag: materialize its pinned log
         generation into the table, then its dense state.  Returns
         (params, opt_state, meta)."""
+        with telemetry.histogram(
+            "ckpt.load_seconds", help="checkpoint restore wall time (s)"
+        ).time():
+            return self._load_timed(table, params_template, opt_template,
+                                    upto)
+
+    def _load_timed(self, table, params_template=None, opt_template=None,
+                    upto: Optional[str] = None):
         ents = self.entries()
         if upto is not None:
             keep, found = [], False

@@ -75,6 +75,30 @@ class _Flags:
         # chaos plan of utils/faults.py: "site=spec;site=spec", and its seed
         "fault_plan": "",
         "fault_seed": 0,
+        # telemetry (telemetry/): a non-zero metrics port starts the
+        # process's /metrics listener on 127.0.0.1; trace_dir enables host
+        # span tracing (a Chrome-trace JSON a pass); events_path appends a
+        # rank-tagged JSONL record a pass
+        "metrics_port": 0,
+        "trace_dir": "",
+        "events_path": "",
+        # the JSONL event file rotates past this many MB (0 = never)
+        "events_max_mb": 64.0,
+        # where flight-recorder dumps land ("" = the events_path directory,
+        # else no dumps; the in-memory ring records regardless), and the
+        # ring's bound
+        "flight_dir": "",
+        "flight_ring": 512,
+        # run-health plane (telemetry/health.py): the kill switch, the EWMA
+        # smoothing factor, the windows a baseline rule observes before it
+        # may fire, and the bound of the recent-alert ring
+        "health_enabled": True,
+        "health_ewma_alpha": 0.3,
+        "health_warmup": 3,
+        "health_max_alerts": 256,
+        # the event log's and flight recorder's rank (the reference's
+        # launcher env)
+        "process_id": 0,
     }
 
     def __getattr__(self, name: str):
@@ -350,6 +374,39 @@ class SparseTableConfig:
             raise not_ported("expand_dim", "model zoo, item 5")
 
 
+@dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """Observability knobs for one process (reference: config.py
+    TelemetryConfig).
+
+    metrics_port: serve Prometheus text on ``127.0.0.1:<port>/metrics``
+    (0 = off).  trace_dir: write a host span trace (Chrome-trace JSON) a
+    pass here ("" = off).  events_path: append rank-tagged JSONL records
+    here ("" = off).  fleet_snapshot: the cross-process snapshot gather,
+    which comes with the multi-process slice (item 8); one process reads
+    nothing of it.
+    """
+
+    metrics_port: int = 0
+    trace_dir: str = ""
+    events_path: str = ""
+    fleet_snapshot: bool = True
+
+    @staticmethod
+    def from_flags() -> "TelemetryConfig":
+        return TelemetryConfig(
+            metrics_port=flags.metrics_port,
+            trace_dir=flags.trace_dir,
+            events_path=flags.events_path,
+        )
+
+    def __post_init__(self):
+        if self.metrics_port < 0 or self.metrics_port > 65535:
+            raise ValueError(
+                f"metrics_port must be in [0, 65535], got {self.metrics_port}"
+            )
+
+
 @dataclasses.dataclass
 class TrainerConfig:
     # dense sync of the multi-chip trainer: "step" sums the positions'
@@ -393,6 +450,15 @@ class TrainerConfig:
     # flags once a replay, and ticks after a non-finite one leave every
     # state untouched.  A pass that dumps fields runs one step at a time.
     scan_steps: int = 1
+    # telemetry policy (telemetry/): None = the PADDLEBOX_TORCH_METRICS_PORT,
+    # _TRACE_DIR and _EVENTS_PATH flags (TelemetryConfig.from_flags())
+    telemetry: Optional[TelemetryConfig] = None
+    # per-stage host timing with a synchronized step (a slower diagnostic
+    # mode: the feed runs serially and the steps one at a time)
+    profile: bool = False
+    # a torch.profiler device trace of each pass lands here ("" = off); it
+    # also enables the host span trace, written to the same directory
+    trace_dir: str = ""
 
     def __post_init__(self):
         if self.sync_dense_mode not in ("step", "kstep", "async"):

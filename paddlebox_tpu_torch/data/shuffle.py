@@ -14,6 +14,12 @@ Attach ``group.shuffler(i)`` to dataset i's ``shuffler`` and the records
 are exchanged while the dataset loads.  The exchange is a collective: all
 n datasets load in the same pass, each on its own thread
 (``preload_into_memory``), or the barrier times out.
+
+Each worker's exchange is a ``shuffle.exchange`` span, observed in
+``shuffle.exchange_seconds`` and recorded in the flight ring as a
+collective, as the reference's TCP exchange records its own; nothing
+crosses a wire in one process, so ``shuffle.exchange_bytes`` and
+``shuffle.wire_errors`` come with the TCP transport.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Sequence
 
 import numpy as np
 
+from paddlebox_tpu_torch import telemetry
 from paddlebox_tpu_torch._native import hash_ids_native
 from paddlebox_tpu_torch.data.record import RecordBlock
 
@@ -138,6 +145,21 @@ class _InProcessShuffler:
     def __init__(self, group: InProcessShuffleGroup, worker_id: int):
         self.group = group
         self.worker_id = worker_id
+        self._round = 0
 
     def exchange(self, block: RecordBlock) -> RecordBlock:
-        return self.group._exchange(self.worker_id, block)
+        rnd = self._round
+        self._round += 1
+        with telemetry.span("shuffle.exchange", round=rnd,
+                            worker=self.worker_id), \
+             telemetry.histogram(
+                 "shuffle.exchange_seconds",
+                 help="shuffle exchange wall time (s)",
+             ).time(worker=str(self.worker_id)):
+            # the collective's digest, recorded before the exchange, so a
+            # wedged round still names (channel, seq, worker) in a dump
+            telemetry.flight.record(
+                "collective", "shuffle.exchange", channel="shuffle",
+                seq=rnd, op="exchange", rank=self.worker_id,
+            )
+            return self.group._exchange(self.worker_id, block)

@@ -6,7 +6,9 @@ headers, so a build takes seconds).  Libraries land in
 ``paddlebox_tpu_torch/_build/`` under a name that carries a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing builds at import time: the first launch of a kernel, or
-``build()``, compiles it.
+``build()``, compiles it.  The first load of a kernel in a process (with
+the build it needed, if any) counts once in ``jit.compiles`` under the
+stage of the reference kernel it ports (telemetry/compiles.py).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from paddlebox_tpu_torch.telemetry import compiles
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PKG_DIR / "csrc"
@@ -96,11 +100,16 @@ def build(names) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built on first use."""
+    """The kernel's shared library, built on first use.  The first load in
+    the process is its compile event: counted under the kernel's stage
+    with the seconds of this build (if any) and load."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
+            compiles.record_compile(time.perf_counter() - t0,
+                                    stage=compiles.KERNEL_STAGES[name])
         return lib

@@ -1,5 +1,4 @@
-"""Shared-dictionary census exchange (reference: paddlebox_tpu/parallel/census.py,
-without its telemetry).
+"""Shared-dictionary census exchange (reference: paddlebox_tpu/parallel/census.py).
 
 Every rank derives the same **shared dictionary** from the global census
 stream: the placement planner's hot set (sparse/placement.py) and the keys
@@ -17,6 +16,10 @@ Transports: :class:`LoopbackTransport` (one process: the encode -> decode
 path still runs) and :class:`InProcessCensusGroup` (N simulated ranks on
 threads, for tests).  The reference's multi-host ``KvGatherTransport``
 comes with the multi-process slice.
+
+Telemetry (the reference's names): each exchange observes its payload
+bytes, raw and encoded, in ``hostplane.gather_bytes`` and the keys that
+missed the dictionary in ``census.cold_keys``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from paddlebox_tpu_torch import telemetry
 from paddlebox_tpu_torch.sparse.engine.hbm_cache import HbmCache
 from paddlebox_tpu_torch.sparse.store import splitmix64
 from paddlebox_tpu_torch.utils import keycodec
@@ -35,6 +39,22 @@ _CODEC_RAW = 0
 _CODEC_VARINT = 1
 
 _EMPTY_U64 = np.empty(0, dtype=np.uint64)
+
+# byte-scale histogram edges: one wire message spans ~100 B (bitmap only)
+# to tens of MB (a cold full census at production scale)
+BYTE_BUCKETS = (
+    64.0, 256.0, 1024.0, 4096.0, 16384.0, 65536.0, 262144.0,
+    float(1 << 20), float(4 << 20), float(16 << 20), float(64 << 20),
+)
+
+
+def _gather_bytes_hist():
+    return telemetry.histogram(
+        "hostplane.gather_bytes",
+        "host-plane gather payload bytes by channel base and kind "
+        "(raw = pre-codec equivalent, encoded = on-wire)",
+        buckets=BYTE_BUCKETS,
+    )
 
 
 class CensusProtocolError(RuntimeError):
@@ -234,6 +254,8 @@ class CensusExchange:
         self.realize = bool(realize)
         self._known: np.ndarray = _EMPTY_U64.copy()
         self.last_wire_bytes = 0  # this rank's encoded payload size
+        self.last_raw_bytes = 0  # what the legacy wire would have shipped
+        self.last_cold_keys = 0
 
     # -- wire format ------------------------------------------------------ #
     def _encode(self, local_pk: np.ndarray, known: np.ndarray) -> bytes:
@@ -247,6 +269,7 @@ class CensusExchange:
         else:
             seen = np.zeros(known.shape[0], dtype=bool)
             cold = local_pk
+        self.last_cold_keys = int(cold.shape[0])
         bitmap = np.packbits(seen).tobytes() if known.shape[0] else b""
         if self.codec == "varint":
             cold_payload = keycodec.encode_sorted_u64(cold)
@@ -337,6 +360,17 @@ class CensusExchange:
         known = self._known
         payload = self._encode(local_pk, known)
         self.last_wire_bytes = len(payload)
+        self.last_raw_bytes = int(local_pk.nbytes)
+        hist = _gather_bytes_hist()
+        hist.observe(float(self.last_raw_bytes),
+                     channel=self.channel, kind="raw")
+        hist.observe(float(self.last_wire_bytes),
+                     channel=self.channel, kind="encoded")
+        telemetry.histogram(
+            "census.cold_keys",
+            "keys per census message that missed the shared dictionary "
+            "and rode the wire as key payloads",
+        ).observe(float(self.last_cold_keys))
         msgs = self.transport.gather(payload)
         seen_any = np.zeros(known.shape[0], dtype=bool)
         colds = []

@@ -64,6 +64,12 @@ nothing: a migration that changes nothing, then a cutover that commits.
 Training after it is bit-equal to a table rebuilt at the new count from
 a checkpoint.
 
+Telemetry: the single-chip table's metrics, summed over the shards
+(``cache.hit_rate`` over the cold census), the hot block's
+``placement.hot_resident_rows`` and ``placement.hot_row_host_bytes``, and
+the reshard's ``reshard.migrate`` / ``reshard.cutover`` spans with its
+``reshard.*`` metrics, under the reference's names.
+
 Not ported here: multi-process ownership (every shard lives in this
 process and its one host store).
 """
@@ -78,6 +84,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from paddlebox_tpu_torch import telemetry
 from paddlebox_tpu_torch.config import SparseTableConfig, flags
 from paddlebox_tpu_torch.data.feed import HostBatch
 from paddlebox_tpu_torch.parallel.census import (
@@ -94,6 +101,8 @@ from paddlebox_tpu_torch.sparse.table import (
     _next_pow2,
     _patch_in,
     _sorted_unique,
+    count_evicted,
+    count_rows_out,
 )
 from paddlebox_tpu_torch.utils import faults
 from paddlebox_tpu_torch.utils.keycodec import (
@@ -364,6 +373,10 @@ class ShardedSparseTable(SparseTable):
             or (target.shape[0] and self.hot_values is None)
         ):
             self._migrate_hot(target, promote, demote)
+        telemetry.gauge(
+            "placement.hot_resident_rows",
+            "rows resident in the replicated device hot block",
+        ).set(float(self._hot_keys.shape[0]))
 
     def _migrate_hot(self, target, promote, demote) -> None:
         """Commit one hot-set change: demoted rows go back to the host
@@ -372,11 +385,20 @@ class ShardedSparseTable(SparseTable):
         w = self.conf.row_width
         H = self.conf.placement_hot_capacity
         n = self.n_shards
+        host_bytes = telemetry.counter(
+            "placement.hot_row_host_bytes",
+            "hot-tier row bytes crossing the host plane (promotions + "
+            "demotions at pass boundaries; structurally zero inside a "
+            "pass)",
+        )
         old = self._hot_keys
         if demote.shape[0] and self.hot_values is not None:
-            self._write_back(demote,
-                             self._hot_rows(np.searchsorted(old, demote)))
+            rows = self._hot_rows(np.searchsorted(old, demote))
+            self._write_back(demote, rows)
+            host_bytes.inc(rows.nbytes)
         promo_rows = self._fetch_hot_rows(promote)
+        if promo_rows.shape[0]:
+            host_bytes.inc(promo_rows.nbytes)
         self.last_hot_moved_rows += int(demote.shape[0] + promote.shape[0])
         # the new block: promoted rows at their slot in the sorted target,
         # survivors from their old slot, padding slots [live, H) zero
@@ -489,14 +511,27 @@ class ShardedSparseTable(SparseTable):
         old = self._reshard_snapshot()
         t0 = time.perf_counter()
         try:
-            moved = self._reshard_migrate(new_mesh)
-            self._reshard_cutover(new_mesh)
+            with telemetry.span("reshard.migrate", old_shards=self.n_shards,
+                                new_shards=new_mesh.n):
+                moved = self._reshard_migrate(new_mesh)
+            with telemetry.span("reshard.cutover", old_shards=self.n_shards,
+                                new_shards=new_mesh.n):
+                self._reshard_cutover(new_mesh)
         except Exception:
             self._reshard_abort(old)
-            stats.add("reshard.aborts")
+            telemetry.counter(
+                "reshard.aborts",
+                "reshards rolled back to the old shard map",
+            ).inc()
             raise
-        stats.add("reshard.migrated_rows", moved)
+        telemetry.counter(
+            "reshard.migrated_rows",
+            "rows whose owner shard changed across reshards",
+        ).inc(moved)
         self.last_reshard_s = time.perf_counter() - t0
+        telemetry.histogram(
+            "reshard.seconds", "live reshard wall time (migrate + cutover)"
+        ).observe(self.last_reshard_s)
         return moved
 
     def _reshard_snapshot(self) -> dict:
@@ -605,6 +640,7 @@ class ShardedSparseTable(SparseTable):
         only the misses of its cache's snapshot directory.  begin_pass
         discards the stage when the hot set churned in between, or when
         the fetch was fault-injected (the buffer is then None)."""
+        t0 = time.perf_counter()
         if callable(pass_keys):
             pass_keys = pass_keys()
         # one process: the local census is the global one
@@ -622,6 +658,12 @@ class ShardedSparseTable(SparseTable):
                     cache_keys[o] if cache_keys else None, entries):
                 lvals = None
                 break
+        if lvals is not None:
+            telemetry.histogram(
+                "pass.promote_seconds",
+                "background next-pass census resolve + init + staging "
+                "wall time",
+            ).observe(time.perf_counter() - t0)
         # stage_seq stays last: _pop_stage reads payload[-1]
         return pk, owner, shard_keys, row_within, lvals, shot, stage_seq
 
@@ -734,6 +776,18 @@ class ShardedSparseTable(SparseTable):
             hits = self._cache_hit_fill(caches, plans, shard_keys, buf)
             self.last_cache_hits = hits
             self.last_cache_misses = int(cold_pk.shape[0]) - hits
+            telemetry.gauge(
+                "cache.hit_rate",
+                "fraction of the pass census served from the HBM cache",
+            ).set(hits / max(cold_pk.shape[0], 1))
+        # boundary host traffic: the rows that crossed host -> device (the
+        # cache misses; everything with the caches off).  The hot tier
+        # never lands here
+        telemetry.counter(
+            "pass.host_row_bytes_in",
+            "embedding-row bytes promoted host->device at begin_pass "
+            "(cache misses + cold materialization)",
+        ).inc(max(int(cold_pk.shape[0]) - hits, 0) * 4 * (w + 1))
         # two contiguous tensors: the kernels take no strided views
         self.values = buf[:, :, :w].contiguous()
         self.g2sum = buf[:, :, w].contiguous()
@@ -753,6 +807,7 @@ class ShardedSparseTable(SparseTable):
         self._census_index = None  # stale: it indexes the previous census
         self._in_pass = True
         self._delta_keys.append(pk)
+        self._observe_gap()
 
     def _sorted_write_back(self, ks: list, vs: list) -> None:
         """One globally sorted write-back from per-shard key/row pieces
@@ -763,6 +818,7 @@ class ShardedSparseTable(SparseTable):
             k = np.concatenate(ks)
             v = np.concatenate(vs)
             order = np.argsort(k, kind="stable")
+            count_rows_out(v)
             self._write_back(k[order], v[order])
 
     def _live_rows(self) -> tuple:
@@ -789,7 +845,10 @@ class ShardedSparseTable(SparseTable):
             upds = [c.plan_update(self._shard_keys[o], plans[o])
                     for o, c in enumerate(caches)]
         except faults.FaultInjected:
-            stats.add("cache.admit_fallbacks")
+            telemetry.counter(
+                "cache.admit_fallbacks",
+                "cache admissions degraded to the full host write-back",
+            ).inc()
             ks, vs = self._live_rows()
             with self._cache_lock:
                 for o, c in enumerate(caches):
@@ -827,6 +886,7 @@ class ShardedSparseTable(SparseTable):
             self._sorted_write_back(ks, vs)
         self.last_evicted_rows = n_evicted
         self.last_write_back_rows = int(sum(k.shape[0] for k in ks))
+        count_evicted(n_evicted)
 
     def end_pass(self) -> None:
         """Write the cold working set back: to each shard's cache for its
@@ -853,6 +913,7 @@ class ShardedSparseTable(SparseTable):
         self._pass_keys = None
         self._pass_row = None
         self._in_pass = False
+        self._last_end_t = time.monotonic()
 
     def pass_state_dict(self) -> dict:
         """Snapshot usable mid-pass: the live cold rows and the resident hot

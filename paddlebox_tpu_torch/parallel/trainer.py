@@ -55,8 +55,14 @@ returns the positions' predictions and each position's real instances are
 dumped (a padding batch dumps nothing); ``need_dump_param`` dumps the
 dense tower and the table's rows at the pass end.
 
+Telemetry, as in the reference's multi-chip trainer: the exporter and the
+event log from ``TrainerConfig.telemetry`` or the flags, the ``plan`` and
+``feed`` stage histograms (``StatsProfiler``; no span tracing and no
+profiled mode), the norm gauges, the health rules and the ``pass_end``
+record at each pass end (window: the global step).
+
 Cut-outs (each raises ``NotImplementedError``): the host plane; the
-watchdog; telemetry; multi-task models.
+watchdog; the cross-process fleet snapshot; multi-task models.
 """
 
 from __future__ import annotations
@@ -69,7 +75,13 @@ from typing import Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig, not_ported
+from paddlebox_tpu_torch import telemetry
+from paddlebox_tpu_torch.config import (
+    SparseTableConfig,
+    TelemetryConfig,
+    TrainerConfig,
+    not_ported,
+)
 from paddlebox_tpu_torch.data.feed import HostBatch, empty_like
 from paddlebox_tpu_torch.metrics.auc import (
     AucState,
@@ -105,12 +117,14 @@ from paddlebox_tpu_torch.train.trainer import (
     _dense_opt,
     await_feed,
     check_model_inputs,
+    finish_pass_telemetry,
     pass_norms,
     prefetched,
     stage_feed,
     sum_squares,
     to_device,
 )
+from paddlebox_tpu_torch.utils.profiler import StatsProfiler
 
 
 def _stack_group(batches: Sequence[HostBatch], plan: ShardedBatchPlan,
@@ -635,6 +649,15 @@ class MultiChipTrainer:
                 optimizer=self.conf.dense_optimizer, lr=self.conf.dense_lr)
         pull_every = max(self.conf.sync_weight_step, 1)
         pending: list = []  # "async": gradients pushed one step late
+        # telemetry: the exporter and the event log are process singletons
+        # (the first pass starts them); the host stages always feed the
+        # stage histograms (plan and feed run on the producer thread; the
+        # step is asynchronous and not timed per group), as the
+        # reference's multi-chip trainer does
+        tele = self.conf.telemetry or TelemetryConfig.from_flags()
+        telemetry.ensure_exporter(tele.metrics_port or None)
+        event_log = telemetry.ensure_event_log(tele.events_path or None)
+        sprof = StatsProfiler()
         dumper = None
         if self.conf.need_dump_field and self.conf.dump_fields_path:
             from paddlebox_tpu_torch.train.dump import FieldDumper
@@ -650,11 +673,13 @@ class MultiChipTrainer:
             group; on the producer thread when prefetching."""
             for batches in groups:
                 check_model_inputs(self.model, batches[0])
-                plan = table.plan_group(batches, self._slot_lr_vec,
-                                        batches[0].n_sparse_slots)
+                with sprof.stage("plan"):
+                    plan = table.plan_group(batches, self._slot_lr_vec,
+                                            batches[0].n_sparse_slots)
                 if plan.hot_occ is not None:
                     hot_occurrences[0] += int((plan.hot_occ < hot_cap).sum())
-                host = _stack_group(batches, plan, self.metric_group)
+                with sprof.stage("feed"):
+                    host = _stack_group(batches, plan, self.metric_group)
                 keep = batches if dumper is not None else None
                 if depth > 0:
                     yield (*stage_feed(host, self.device), keep)
@@ -735,6 +760,10 @@ class MultiChipTrainer:
         self.last_metric_state = {"auc": merged, "gn": gn}
         if group_state is not None:
             self.last_metric_state["group"] = group_state
+        # the cross-process fleet snapshot gather comes with the
+        # multi-process slice; one process has nothing to gather
+        finish_pass_telemetry(metrics, sprof, False, "", event_log, table,
+                              self.global_step, global_step=self.global_step)
         return metrics
 
     # -- evaluation --------------------------------------------------------- #

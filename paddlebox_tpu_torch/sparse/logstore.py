@@ -48,9 +48,8 @@ min-max key range in the manifest, so a census resolve rejects keys that are
 on no segment without touching disk (``might_contain``), and ``lookup``
 reads only segments that may hold a still-unfound key, newest first.
 
-The reference's telemetry (commit and compaction histograms, the live
-segment gauge) waits for the port's telemetry plane; the counters a test
-reads go to ``utils/monitor.stats``.
+Telemetry (the reference's names): the commit and compaction latency
+histograms, the compaction counter and the live-segment gauge.
 """
 
 from __future__ import annotations
@@ -67,6 +66,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from paddlebox_tpu_torch import telemetry
 from paddlebox_tpu_torch.sparse.store import splitmix64
 from paddlebox_tpu_torch.utils import faults
 from paddlebox_tpu_torch.utils.keycodec import (
@@ -77,6 +77,19 @@ from paddlebox_tpu_torch.utils.keycodec import (
 from paddlebox_tpu_torch.utils.monitor import stats
 
 logger = logging.getLogger(__name__)
+
+_COMMIT_SECONDS = telemetry.histogram(
+    "store.log_commit_seconds", "manifest commit latency (fsync + rename x2)"
+)
+_COMPACT_SECONDS = telemetry.histogram(
+    "store.compact_seconds", "per-bucket compaction latency (merge + commit)"
+)
+_COMPACTIONS = telemetry.counter(
+    "store.log_compactions", "bucket compactions committed"
+)
+_LIVE_SEGMENTS = telemetry.gauge(
+    "store.log_live_segments", "committed segment files across all buckets"
+)
 
 _MAGIC = b"PBLOG1\x00\n"
 _EMPTY_KEYS = np.empty(0, dtype=np.uint64)
@@ -455,6 +468,7 @@ class LogStore:
         self._seq = max(self._seq, self._max_disk_seq() + 1)
         self._shift = np.uint64(64 - (self.n_buckets.bit_length() - 1))
         self._pending: List[SegmentInfo] = []
+        self._update_gauges()
 
     # -- paths / manifest io ------------------------------------------------- #
     def _current_path(self) -> str:
@@ -510,6 +524,9 @@ class LogStore:
         os.replace(tmp, path)
 
     # -- observability ------------------------------------------------------- #
+    def _update_gauges(self) -> None:
+        _LIVE_SEGMENTS.set(sum(len(s) for s in self._live))
+
     @property
     def n_live_segments(self) -> int:
         with self._lock:
@@ -574,12 +591,14 @@ class LogStore:
         with self._lock:
             if not self._pending:
                 return self.gen
-            new_live = [list(s) for s in self._live]
-            for info in self._pending:
-                new_live[info.bucket].append(info)
-            self._commit_manifest(new_live)
-            self._live = new_live
-            self._pending = []
+            with _COMMIT_SECONDS.time():
+                new_live = [list(s) for s in self._live]
+                for info in self._pending:
+                    new_live[info.bucket].append(info)
+                self._commit_manifest(new_live)
+                self._live = new_live
+                self._pending = []
+                self._update_gauges()
             return self.gen
 
     def _commit_manifest(self, live: List[List[SegmentInfo]]) -> int:
@@ -644,6 +663,7 @@ class LogStore:
             if not self.keep_history:
                 for info in old:
                     self._unlink(info.name)
+            self._update_gauges()
             return self.gen
 
     def _unlink(self, name: str) -> None:
@@ -710,6 +730,7 @@ class LogStore:
         if not self.keep_history:
             for info in old:
                 self._unlink(info.name)
+        self._update_gauges()
 
     def compact(self, bucket: Optional[int] = None) -> int:
         """Compact one bucket (or every bucket over threshold) to a single
@@ -724,22 +745,25 @@ class LogStore:
             done = 0
             for b in targets:
                 old = list(self._live[b])
-                staged = self._compact_write(b)
-                if staged is None:
-                    continue
-                try:
-                    faults.inject("store.compact")
-                    # staged appends stay uncommitted: the swap manifest
-                    # carries the live set with this bucket replaced
-                    new_live = [list(s) for s in self._live]
-                    new_live[b] = [staged]
-                    self._commit_manifest(new_live)
-                except BaseException:
-                    # abort: drop the staged orphan, keep the old segments
-                    self._unlink(staged.name)
-                    raise
-                self._swap_segments(b, [staged], old)
-                stats.add("store.log_compactions")
+                with _COMPACT_SECONDS.time():
+                    staged = self._compact_write(b)
+                    if staged is None:
+                        continue
+                    try:
+                        faults.inject("store.compact")
+                        # staged appends stay uncommitted: the swap
+                        # manifest carries the live set with this bucket
+                        # replaced
+                        new_live = [list(s) for s in self._live]
+                        new_live[b] = [staged]
+                        self._commit_manifest(new_live)
+                    except BaseException:
+                        # abort: drop the staged orphan, keep the old
+                        # segments
+                        self._unlink(staged.name)
+                        raise
+                    self._swap_segments(b, [staged], old)
+                _COMPACTIONS.inc()
                 done += 1
             return done
 

@@ -1,5 +1,5 @@
 """Sparsity-aware placement planner: replicated-hot against hash-sharded
-cold (reference: paddlebox_tpu/sparse/placement.py, without its telemetry).
+cold (reference: paddlebox_tpu/sparse/placement.py).
 
 A per-pass planner fed by each pass's global census classifies the top-k
 keys by aged frequency as *replicated-hot* and everything else as
@@ -22,6 +22,10 @@ Determinism: ``observe``/``update_plan`` are pure functions of the census
 sequence (ties broken by key value), because every rank must compute the
 same plan without a collective; the census exchange checks a dictionary
 digest and fails loudly on divergence.
+
+Telemetry (the reference's names): ``placement.hot_churn_keys`` and
+``placement.plan_updates`` count the moves and the hot-set changes, and
+``placement.hot_keys`` gauges the planned hot set.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from paddlebox_tpu_torch import telemetry
 
 _EMPTY_U64 = np.empty(0, dtype=np.uint64)
 
@@ -42,11 +48,19 @@ def hot_churn(resident: np.ndarray, target: np.ndarray) -> tuple:
     """(promote, demote) between the device-RESIDENT hot set and the
     plan's TARGET hot set, both sorted unique uint64.  promote = keys the
     realizer must fetch into the replicated block; demote = keys it must
-    write back to the sharded cold tier."""
+    write back to the sharded cold tier.  Counts the total move volume on
+    ``placement.hot_churn_keys`` (the ``table.hot_churn`` health rule
+    watches it)."""
     resident = np.asarray(resident, dtype=np.uint64)
     target = np.asarray(target, dtype=np.uint64)
     promote = np.setdiff1d(target, resident, assume_unique=True)
     demote = np.setdiff1d(resident, target, assume_unique=True)
+    moved = int(promote.shape[0] + demote.shape[0])
+    if moved:
+        telemetry.counter(
+            "placement.hot_churn_keys",
+            "hot-set keys promoted or demoted at pass boundaries",
+        ).inc(moved)
     return promote, demote
 
 
@@ -221,9 +235,17 @@ class PlacementPlanner:
         hot = np.sort(keys[cand])
         if not np.array_equal(hot, cur):
             self._plan = PlacementPlan(hot, self._plan.version + 1)
+            telemetry.counter(
+                "placement.plan_updates",
+                "placement-plan hot-set changes (hysteresis-bounded)",
+            ).inc()
         elif self._plan.version == 0:
             # first decision, even if empty: consumers can distinguish
             # "no plan yet" from "planned, nothing hot"
             self._plan = PlacementPlan(hot, 1)
         self._passes_since_update = 0
+        telemetry.gauge(
+            "placement.hot_keys",
+            "keys currently classified replicated-hot by the planner",
+        ).set(float(self._plan.n_hot))
         return self._plan

@@ -50,6 +50,14 @@ the threads and the store's pool; the table stays usable.
 
 The dead row serves padding and keys missing from the pass census: pulls
 read zeros, and it is re-zeroed after every push.
+
+Telemetry (the reference's names, telemetry/): the boundary's histograms
+(``cache.miss_fetch_seconds``, ``store.merge_seconds``,
+``pass.promote_seconds``, ``pass.boundary_gap_seconds``: the device-idle
+gap from an end_pass return to the next begin_pass return), the
+``cache.hit_rate`` gauge, the row-volume and fallback counters, and
+``health_stats()``, which the run-health rules read each pass.  The
+``last_cache_*`` attributes stay beside them.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from paddlebox_tpu_torch import telemetry
 from paddlebox_tpu_torch.config import SparseTableConfig, flags
 from paddlebox_tpu_torch.data.feed import HostBatch
 from paddlebox_tpu_torch.ops import sparse_kernels
@@ -241,6 +250,8 @@ class SparseTable:
         # so that each holds its device work
         self.boundary_timing = False
         self.last_begin_breakdown: dict = {}
+        # the last end_pass's return (monotonic), for the boundary gap
+        self._last_end_t: Optional[float] = None
 
     # -- introspection --------------------------------------------------- #
     @property
@@ -306,19 +317,54 @@ class SparseTable:
         c = self._get_cache()
         return [c] if c is not None else []
 
+    def health_stats(self) -> dict:
+        """Cheap per-pass health snapshot for telemetry/health.py: O(1)
+        gauges only, never a scan of the store.  ``cache_hit_rate`` is
+        present only once the cache has served a pass (an absent signal
+        makes the collapse rule skip, not fire)."""
+        hits = int(self.last_cache_hits)
+        misses = int(self.last_cache_misses)
+        out = {
+            "cache_hits": hits,
+            "cache_misses": misses,
+            # the begin-pass promotion patch is exactly the miss rows
+            "promotion_patch_rows": misses,
+            "merge_backlog": len(self._merge_futures),
+            "overlay_entries": len(self._overlay),
+            "missing_keys": int(self.missing_key_count),
+            "store_rows": int(self._store.n),
+            "store_resident_buckets": int(self._store.resident_buckets),
+        }
+        if hits + misses > 0:
+            out["cache_hit_rate"] = hits / (hits + misses)
+        caches = self._caches()
+        if caches:
+            out["cache_capacity"] = int(sum(c.capacity for c in caches))
+            out["cache_resident"] = int(sum(c.resident for c in caches))
+        return out
+
     def _cache_fetch_rows(self, miss: np.ndarray, _entries=None) -> np.ndarray:
         """Host-tier fetch of the cache-MISS rows: the begin-pass promotion
         patch, O(cold keys).  Fault site ``cache.fetch``: the callers catch
         the failure and degrade to the full host resolve
         (``_cache_degrade``), never to stale rows."""
         faults.inject("cache.fetch")
-        return self._resolve_or_init(miss, _entries=_entries)
+        t0 = time.perf_counter()
+        rows = self._resolve_or_init(miss, _entries=_entries)
+        telemetry.histogram(
+            "cache.miss_fetch_seconds",
+            "host-tier fetch of the census cache misses (promotion patch)",
+        ).observe(time.perf_counter() - t0)
+        return rows
 
     def _cache_degrade(self, pk: np.ndarray) -> None:
         """cache.fetch failed: write every dirty row back and drop the
         census keys from the caches, so the pass runs fully host-resolved
         (the overlay shows the drained rows at once) with no stale row."""
-        stats.add("cache.fetch_fallbacks")
+        telemetry.counter(
+            "cache.fetch_fallbacks",
+            "promotion fetches degraded to the full host resolve",
+        ).inc()
         self._drain_cache()
         caches = self._caches()
         with self._cache_lock:
@@ -389,6 +435,7 @@ class SparseTable:
 
     def _merge_job(self, entry) -> None:
         seq, keys, vals = entry
+        t0 = time.perf_counter()
         try:
             if self._merge_poisoned:
                 # an earlier merge failed: landing this one would skip a
@@ -409,6 +456,10 @@ class SparseTable:
             # rest, so the oldest overlay entry is always this one
             head = self._overlay.pop(0)
             assert head[0] == seq, "merge completed out of order"
+        telemetry.histogram(
+            "store.merge_seconds",
+            "background pass write-back merge wall time",
+        ).observe(time.perf_counter() - t0)
 
     def flush(self) -> None:
         """The barrier before anything reads the host store as truth: drain
@@ -515,6 +566,7 @@ class SparseTable:
         return True
 
     def _stage_job(self, pass_keys):
+        t0 = time.perf_counter()
         if callable(pass_keys):
             pass_keys = pass_keys()
         pk = _sorted_unique(pass_keys)
@@ -524,7 +576,11 @@ class SparseTable:
         if not self._stage_resolve(pk, vals[: pk.shape[0]],
                                    cache_keys[0] if cache_keys else None,
                                    entries):
-            vals = None
+            return pk, None, stage_seq
+        telemetry.histogram(
+            "pass.promote_seconds",
+            "background next-pass census resolve + init + staging wall time",
+        ).observe(time.perf_counter() - t0)
         return pk, vals, stage_seq
 
     def _pop_stage(self):
@@ -610,6 +666,22 @@ class SparseTable:
         cache.touch(plan)
         self.last_cache_hits = plan.n_hits
         self.last_cache_misses = n - plan.n_hits
+        telemetry.gauge(
+            "cache.hit_rate",
+            "fraction of the pass census served from the HBM cache",
+        ).set(plan.n_hits / max(n, 1))
+
+    def _observe_gap(self) -> None:
+        """Record one pass-boundary device-idle gap (end_pass return ->
+        begin_pass return), the number the whole pipeline exists to
+        shrink."""
+        if self._last_end_t is None:
+            return
+        telemetry.histogram(
+            "pass.boundary_gap_seconds",
+            "device-idle gap from end_pass return to begin_pass return",
+        ).observe(time.monotonic() - self._last_end_t)
+        self._last_end_t = None
 
     def begin_pass(self, pass_keys: np.ndarray) -> None:
         """Promote the pass working set to the device.  A matching stage
@@ -660,6 +732,14 @@ class SparseTable:
                 plan = cache.lookup(pk)
             self._cache_plan_and_fill(cache, plan, buf, n)
         self._cache_plan = plan
+        # host-plane promotion volume: every census row the device could
+        # not fill from its own cache crossed host -> device here
+        n_hits = plan.n_hits if plan is not None else 0
+        telemetry.counter(
+            "pass.host_row_bytes_in",
+            "embedding-row bytes promoted host->device at begin_pass "
+            "(cache misses + cold materialization)",
+        ).inc(max(n - n_hits, 0) * 4 * (w + 1))
         # two contiguous tensors: the kernels take no strided views
         self.values = buf[:, :w].contiguous()
         self.g2sum = buf[:, w].contiguous()
@@ -673,6 +753,7 @@ class SparseTable:
         self._census_index = None  # stale: it indexes the previous census
         self._in_pass = True
         self._delta_keys.append(pk)
+        self._observe_gap()
 
     @staticmethod
     def _cache_update_plan(cache: HbmCache, pk: np.ndarray, plan: CachePlan):
@@ -683,7 +764,10 @@ class SparseTable:
             faults.inject("cache.admit")
             return cache.plan_update(pk, plan)
         except faults.FaultInjected:
-            stats.add("cache.admit_fallbacks")
+            telemetry.counter(
+                "cache.admit_fallbacks",
+                "cache admissions degraded to the full host write-back",
+            ).inc()
             return None
 
     def _end_pass_cached(self, cache: HbmCache, plan: CachePlan,
@@ -698,9 +782,11 @@ class SparseTable:
         if upd is None:
             # the census hits leave the cache and every row writes back,
             # as on an uncached table
+            vals = full[:n].cpu().numpy()
+            count_rows_out(vals)
             with self._cache_lock:
                 cache.evict_keys(pk[plan.hit_mask])
-                self._write_back(pk, full[:n].cpu().numpy())
+                self._write_back(pk, vals)
             self.last_write_back_rows = n
             return
         upd_pos = np.concatenate([plan.hit_pos, upd.admit_pos])
@@ -718,12 +804,14 @@ class SparseTable:
             cache.set_rows(upd_slots, _rows_at(full, upd_pos))
         wb_keys = np.concatenate([pk[upd.cold_pos], upd.victim_keys])
         order = np.argsort(wb_keys, kind="stable")
+        count_rows_out(cold_rows, victim_rows)
         with self._cache_lock:
             cache.commit_update(plan, upd)
             self._write_back(wb_keys[order],
                              np.concatenate([cold_rows, victim_rows])[order])
         self.last_evicted_rows = int(upd.victim_slots.shape[0])
         self.last_write_back_rows = int(wb_keys.shape[0])
+        count_evicted(self.last_evicted_rows)
 
     def end_pass(self) -> None:
         """Write the working set back: to the cache for its resident and
@@ -740,7 +828,9 @@ class SparseTable:
             self._end_pass_cached(cache, plan, pk, n)
         elif n:
             vals = torch.cat([self.values[:n], self.g2sum[:n, None]], dim=1)
-            self._write_back(pk, vals.cpu().numpy())
+            vals = vals.cpu().numpy()
+            count_rows_out(vals)
+            self._write_back(pk, vals)
             self.last_write_back_rows = n
         self.values = None
         self.g2sum = None
@@ -751,6 +841,7 @@ class SparseTable:
         self._census_index = None
         self._pass_keys = None
         self._in_pass = False
+        self._last_end_t = time.monotonic()
 
     def abort_pass(self) -> None:
         """Discard the in-flight working set without writing it back.  The
@@ -958,6 +1049,23 @@ class SparseTable:
 # ------------------------------------------------------------------------- #
 # Device functions on tensors
 # ------------------------------------------------------------------------- #
+def count_rows_out(*rows: np.ndarray) -> None:
+    """The end_pass write-back volume: device -> host row bytes."""
+    telemetry.counter(
+        "pass.host_row_bytes_out",
+        "embedding-row bytes written back device->host at "
+        "end_pass (cold + evicted rows)",
+    ).inc(sum(r.nbytes for r in rows))
+
+
+def count_evicted(n: int) -> None:
+    if n:
+        telemetry.counter(
+            "cache.evicted_rows",
+            "rows evicted from the HBM cache (written back to the host)",
+        ).inc(n)
+
+
 def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row gather through the pull_rows kernel (its twin on the CPU)."""
     return sparse_kernels.pull_rows(values, idx)

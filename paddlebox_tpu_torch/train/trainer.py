@@ -60,7 +60,24 @@ The data half (reference: train/trainer.py):
     a time whatever ``scan_steps`` says.  ``need_dump_param`` dumps the
     dense tower and the table's rows at the pass end.
 
-The watchdog and telemetry are later slices.
+Telemetry (reference: train/trainer.py; telemetry/, utils/profiler.py):
+  * the policy: ``TrainerConfig.telemetry``, else the
+    PADDLEBOX_TORCH_METRICS_PORT / _TRACE_DIR / _EVENTS_PATH flags, starts
+    the process's ``/metrics`` exporter and event log; ``trace_dir`` (the
+    trainer's or the telemetry's) enables host span tracing, and the
+    trainer's also records a torch.profiler device trace of the pass;
+  * every pass times its host stages into ``trainer.stage_seconds``
+    (``StatsProfiler``); under ``profile`` or tracing the ``StepProfiler``
+    synchronizes each step, the feed runs serially and the steps one at a
+    time, so that the split stays honest, and a ``pass`` span encloses the
+    ``plan``, ``feed``, ``step`` and ``dump`` spans;
+  * at the pass end: the ``train.grad_norm`` and ``train.weight_norm``
+    gauges, ``metrics["profile"]`` under the StepProfiler, the host trace
+    ``host-trace-r<rank>-pass<k>.json``, the health rules on the pass's
+    delta snapshot, and the ``pass_end`` event record.  A rollback dumps
+    the flight recorder before it raises.
+
+The watchdog is a later slice.
 """
 
 from __future__ import annotations
@@ -76,7 +93,12 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+from paddlebox_tpu_torch import telemetry
+from paddlebox_tpu_torch.config import (
+    SparseTableConfig,
+    TelemetryConfig,
+    TrainerConfig,
+)
 from paddlebox_tpu_torch.data.feed import HostBatch
 from paddlebox_tpu_torch.metrics.auc import (
     AucState,
@@ -98,6 +120,11 @@ from paddlebox_tpu_torch.train.slot_policy import (
 from paddlebox_tpu_torch.utils import faults
 from paddlebox_tpu_torch.utils.device import resolve_device
 from paddlebox_tpu_torch.utils.monitor import stats
+from paddlebox_tpu_torch.utils.profiler import (
+    StatsProfiler,
+    StepProfiler,
+    device_trace,
+)
 from paddlebox_tpu_torch.utils.queues import bounded_put
 
 logger = logging.getLogger(__name__)
@@ -475,6 +502,9 @@ class Trainer:
         self.graph_replays = 0
         self.last_auc_state: Optional[AucState] = None
         self.last_metric_state: Optional[dict] = None
+        # completed passes: the pass span's, the trace file's and the
+        # event record's index
+        self._pass_idx = 0
 
     @property
     def _check_nan(self) -> bool:
@@ -614,8 +644,13 @@ class Trainer:
                     # settle), the next one captures
                     self._warmed = table.values
                     return self._warm_up(table, feeds, auc, gn, group)
-                # a failed capture raises; nothing runs these steps eagerly
+                # a failed capture raises; nothing runs these steps
+                # eagerly.  The capture is the port's compile event of the
+                # step group (the reference's scan program)
+                t0 = time.perf_counter()
                 graph = _StepGraph(self, table, feeds, auc, gn, group)
+                telemetry.record_compile(time.perf_counter() - t0,
+                                         stage="train.scan")
                 self._graph = graph
                 self.graph_captures += 1
                 stats.add("trainer.graph_captures")
@@ -700,6 +735,13 @@ class Trainer:
         table.abort_pass()
         status, _ = acp.resume(table, self)
         stats.add("train.nan_rollback")
+        # the flight ring still holds the spans and events leading into the
+        # poisoned pass
+        telemetry.dump_flight("pass_rollback", {
+            "restored_pass": (status or {}).get("pass_idx")
+            if isinstance(status, dict) else None,
+            "pass_idx": self._pass_idx,
+        })
         raise PassRolledBack(status)
 
     # -- public API --------------------------------------------------------- #
@@ -764,7 +806,6 @@ class Trainer:
         gn_base = gn.double().cpu()
         losses = []
         n_samples = [0.0]
-        n_steps = 0
         depth = self.conf.prefetch_batches
         dumper = None
         if self.conf.need_dump_field and self.conf.dump_fields_path:
@@ -775,9 +816,13 @@ class Trainer:
                              f"dump-{self.global_step}.txt"),
                 self.conf.dump_fields,
             )
-        # a dumped pass reads every step's predictions: one step at a time
-        k = 1 if dumper is not None else max(1, self.conf.scan_steps)
-        check_nan, skip = self._check_nan, self._skip_batches
+        event_log, host_trace_dir, prof = telemetry_policy(self.conf)
+        # a dumped pass reads every step's predictions, and a profiled or
+        # traced one times each step: one step at a time, fed serially
+        k = (1 if dumper is not None or prof.enabled
+             else max(1, self.conf.scan_steps))
+        if prof.enabled:
+            depth = 0
 
         def feeds():
             """Groups of k (device feed, ready event, instances, batch), the
@@ -787,19 +832,22 @@ class Trainer:
             group_items = []
             for batch in batches:
                 check_model_inputs(self.model, batch)
-                plan = table.plan_batch(batch)
-                host = host_feed(batch, plan, self._slot_lr_vec,
-                                 self.metric_group)
+                with prof.stage("plan"):
+                    plan = table.plan_batch(batch)
+                with prof.stage("feed"):
+                    host = host_feed(batch, plan, self._slot_lr_vec,
+                                     self.metric_group)
                 if faults.fire("train.nan"):
                     # chaos: poison the labels, so the loss and gradients
                     # really go non-finite on the device
                     host["labels"] = np.full_like(host["labels"], np.nan)
                 ins = float(batch.ins_mask.sum())
                 n_samples[0] += ins
-                if depth > 0:
-                    dev, ready = stage_feed(host, self.device)
-                else:
-                    dev, ready = self._to_device(host), None
+                with prof.stage("feed"):
+                    if depth > 0:
+                        dev, ready = stage_feed(host, self.device)
+                    else:
+                        dev, ready = self._to_device(host), None
                 group_items.append(
                     (dev, ready, ins, batch if dumper is not None else None))
                 if len(group_items) == k:
@@ -812,40 +860,15 @@ class Trainer:
         # memory stays about prefetch_batches batches either way
         feed_iter, prefetcher = prefetched(
             feeds(), max(1, depth // k) if depth > 0 else 0)
+        sync = prof.enabled and self.device.type == "cuda"
         try:
             try:
-                for items in feed_iter:
-                    devs = [await_feed(d, r) for d, r, _, _ in items]
-                    preds = [] if dumper is not None else None
-                    loss_k, flags = self._run_group(table, devs, auc, gn,
-                                                    group, preds)
-                    n = len(items)
-                    good = None
-                    if check_nan:
-                        fin = flags.cpu().numpy()  # one readback a group
-                        if not fin.all():
-                            if not skip:
-                                raise NonFiniteBatchError(
-                                    f"non-finite loss/grad within steps "
-                                    f"{self.global_step}.."
-                                    f"{self.global_step + n - 1}")
-                            bad = np.nonzero(~fin)[0]
-                            stats.add("train.nan_skipped_steps", bad.shape[0])
-                            stats.add("train.nan_skipped_ins",
-                                      sum(items[j][2] for j in bad))
-                            good = np.nonzero(fin)[0]
-                            loss_k = loss_k[torch.from_numpy(good).to(
-                                loss_k.device)]
-                            n = good.shape[0]
-                    if dumper is not None:
-                        # a skipped batch dumps nothing, as it trains nothing
-                        for j, (_, _, _, batch) in enumerate(items):
-                            if good is None or j in good:
-                                dumper.dump_batch(batch,
-                                                  preds[j].cpu().numpy())
-                    losses.append(loss_k)
-                    n_steps += n
-                    self.global_step += n
+                with telemetry.span("pass", pass_idx=self._pass_idx,
+                                    global_step=self.global_step), \
+                        device_trace(self.conf.trace_dir or None):
+                    n_steps = self._train_loop(table, feed_iter, auc, gn,
+                                               group, dumper, prof, sync,
+                                               losses)
             finally:
                 if prefetcher is not None:
                     prefetcher.close()
@@ -884,7 +907,60 @@ class Trainer:
         self.last_metric_state = {"auc": auc, "gn": gn}
         if group is not None:
             self.last_metric_state["group"] = group
+        trace_path = ""
+        if host_trace_dir:
+            trace_path = os.path.join(
+                host_trace_dir,
+                f"host-trace-r{telemetry.events._default_rank()}"
+                f"-pass{self._pass_idx}.json")
+        finish_pass_telemetry(metrics, prof, self.conf.profile, trace_path,
+                              event_log, table, self._pass_idx,
+                              pass_idx=self._pass_idx)
+        self._pass_idx += 1
         return metrics
+
+    def _train_loop(self, table, feed_iter, auc, gn, group, dumper, prof,
+                    sync: bool, losses: list) -> int:
+        """The pass's steps over its feed, each group's losses appended to
+        ``losses``; returns the steps counted."""
+        check_nan, skip = self._check_nan, self._skip_batches
+        n_steps = 0
+        for items in feed_iter:
+            devs = [await_feed(d, r) for d, r, _, _ in items]
+            preds = [] if dumper is not None else None
+            with prof.stage("step"):
+                loss_k, flags = self._run_group(table, devs, auc, gn, group,
+                                                preds)
+                if sync:
+                    torch.cuda.synchronize(self.device)  # honest timing
+            prof.step_done()
+            n = len(items)
+            good = None
+            if check_nan:
+                fin = flags.cpu().numpy()  # one readback a group
+                if not fin.all():
+                    if not skip:
+                        raise NonFiniteBatchError(
+                            f"non-finite loss/grad within steps "
+                            f"{self.global_step}.."
+                            f"{self.global_step + n - 1}")
+                    bad = np.nonzero(~fin)[0]
+                    stats.add("train.nan_skipped_steps", bad.shape[0])
+                    stats.add("train.nan_skipped_ins",
+                              sum(items[j][2] for j in bad))
+                    good = np.nonzero(fin)[0]
+                    loss_k = loss_k[torch.from_numpy(good).to(loss_k.device)]
+                    n = good.shape[0]
+            if dumper is not None:
+                with prof.stage("dump"):
+                    # a skipped batch dumps nothing, as it trains nothing
+                    for j, (_, _, _, batch) in enumerate(items):
+                        if good is None or j in good:
+                            dumper.dump_batch(batch, preds[j].cpu().numpy())
+            losses.append(loss_k)
+            n_steps += n
+            self.global_step += n
+        return n_steps
 
     # -- evaluation --------------------------------------------------------- #
     @torch.no_grad()
@@ -912,6 +988,57 @@ class Trainer:
             update_auc_state_(auc, torch.sigmoid(logits), dev["labels"],
                               dev["ins_mask"])
         return compute_metrics(auc)
+
+
+def telemetry_policy(conf: TrainerConfig) -> tuple:
+    """(event log or None, host trace dir or "", stage profiler) of a pass
+    (reference: train/trainer.py's telemetry policy).  Explicit config wins
+    over the flags; the exporter and the event log are process singletons
+    the first pass starts.  Host span tracing runs under the trainer's
+    ``trace_dir`` or the telemetry's; the full ``StepProfiler`` under
+    ``profile`` or tracing, the histogram-only ``StatsProfiler``
+    otherwise."""
+    tele = conf.telemetry or TelemetryConfig.from_flags()
+    telemetry.ensure_exporter(tele.metrics_port or None)
+    event_log = telemetry.ensure_event_log(tele.events_path or None)
+    host_trace_dir = conf.trace_dir or tele.trace_dir
+    if host_trace_dir:
+        telemetry.enable_tracing(pid=telemetry.events._default_rank())
+    prof = (StepProfiler() if conf.profile or host_trace_dir
+            else StatsProfiler())
+    return event_log, host_trace_dir, prof
+
+
+def finish_pass_telemetry(metrics: dict, prof, print_profile: bool,
+                          trace_path: str, event_log, table, window,
+                          **record_fields) -> None:
+    """The pass end's telemetry (reference: train/trainer.py): the norm
+    gauges, ``metrics["profile"]`` under the StepProfiler, the host trace
+    file at ``trace_path`` ("" = none), then the health rules on the pass's
+    delta snapshot, before the ``pass_end`` record that carries the same
+    snapshot."""
+    if "grad_norm" in metrics:
+        telemetry.gauge(
+            "train.grad_norm",
+            "per-pass RMS global gradient norm (dense + sparse)",
+        ).set(metrics["grad_norm"])
+    telemetry.gauge(
+        "train.weight_norm", "dense parameter L2 norm at pass end"
+    ).set(metrics["weight_norm"])
+    if prof.enabled:
+        metrics["profile"] = prof.report()
+        stage_q = prof.quantiles()
+        if stage_q:
+            metrics["profile"]["stage_quantiles"] = stage_q
+        if print_profile:
+            print("[profile]", prof.log_line())
+    if trace_path:
+        telemetry.flush_trace(trace_path)
+    snap = telemetry.registry.delta_snapshot()
+    telemetry.observe_pass(window, metrics=metrics, telemetry=snap,
+                           table=table)
+    if event_log is not None:
+        event_log.log_pass(metrics, telemetry=snap, **record_fields)
 
 
 def pass_norms(gn_delta: torch.Tensor, params) -> dict:

@@ -986,6 +986,54 @@ def test_dumped_pass_with_scan_steps_runs_single_steps(cuda, tmp_path):
     assert dumps[0] == dumps[1] and dumps[0].count("\n") == 640
 
 
+def test_graph_captures_and_kernel_loads_count_as_compiles(cuda, tmp_path):
+    """jit.compiles: one train.scan event a CUDA graph capture, and each
+    kernel's first load in the process once, whatever runs after."""
+    from paddlebox_tpu_torch import telemetry
+
+    ds, table, tr = _graph_world(tmp_path, 4)
+    before = telemetry.compiles_by_stage()
+    _graph_passes(ds, table, tr)
+    after = telemetry.compiles_by_stage()
+    assert (after.get("train.scan", 0) - before.get("train.scan", 0)
+            == tr.graph_captures == 2)
+    assert {"pallas.pull_rows", "pallas.scatter_add"} <= set(after)
+    assert all(v == 1 for k, v in after.items() if k.startswith("pallas."))
+    table.close()
+    ds.close()
+
+
+def test_profiled_pass_writes_host_and_device_traces(cuda, tmp_path):
+    """profile and TrainerConfig.trace_dir on the card: single synchronized
+    steps (no capture), a host trace with plan, feed and step under pass,
+    and a torch.profiler trace that names the pull_rows and
+    scatter_add_rows kernels."""
+    import json
+    import os
+
+    from paddlebox_tpu_torch import telemetry
+
+    d = tmp_path / "traces"
+    ds, table, tr = _graph_world(tmp_path, 4, profile=True, trace_dir=str(d))
+    try:
+        out, _ = _graph_passes(ds, table, tr, passes=1)
+    finally:
+        telemetry.disable_tracing()
+    assert tr.graph_captures == 0 and out[0]["profile"]["steps"] == 20
+    host = json.load(open(d / "host-trace-r0-pass0.json"))
+    spans = {(e["name"], e.get("args", {}).get("parent"))
+             for e in host["traceEvents"] if e.get("ph") == "X"}
+    assert {("pass", None), ("plan", "pass"), ("feed", "pass"),
+            ("step", "pass")} <= spans
+    (dev,) = [n for n in os.listdir(d) if n.startswith("device-trace-")]
+    kernels = {e["name"] for e in json.load(open(d / dev))["traceEvents"]
+               if e.get("cat") == "kernel"}
+    for name in ("pull_rows", "scatter_add"):
+        assert any(name in k for k in kernels), name
+    table.close()
+    ds.close()
+
+
 def test_a_capture_that_cannot_succeed_raises(cuda, tmp_path):
     """A model whose forward reads a value on the host cannot be captured:
     the trainer raises, and no group runs eagerly in its place."""

@@ -16,6 +16,8 @@ port on the CPU the runs are deterministic, so the policies' own claims
 bit.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -229,11 +231,13 @@ def test_raise_policy_leaves_the_poisoned_step_unapplied(world):
 # --------------------------------------------------------------------------- #
 # rollback
 # --------------------------------------------------------------------------- #
-def test_rollback_restores_last_completed_pass(world, tmp_path):
+def test_rollback_restores_last_completed_pass(world, tmp_path, monkeypatch):
     """Port of TestNanPolicy.test_rollback_restores_last_completed_pass:
     pass 1 hits a poisoned batch, the table and dense state return to pass
-    0's checkpoint (PassRolledBack, the pass aborted), and the clean re-run
-    of pass 1 reproduces the uninterrupted run bit for bit."""
+    0's checkpoint (PassRolledBack, the pass aborted, the flight ring
+    dumped), and the clean re-run of pass 1 reproduces the uninterrupted
+    run bit for bit."""
+    monkeypatch.setenv("PADDLEBOX_TORCH_FLIGHT_DIR", str(tmp_path / "flight"))
     ds = world["port"]
     table0, tr0 = _port_world(world)
     _pass(ds, table0, tr0)
@@ -256,6 +260,8 @@ def test_rollback_restores_last_completed_pass(world, tmp_path):
     assert not table._in_pass  # aborted: no end_pass
     assert tr.global_step == step_after_p0
     assert stats.get("train.nan_rollback") - rb0 == 1
+    (dump,) = (tmp_path / "flight").glob("flight-*-pass_rollback-*.json")
+    assert json.load(open(dump))["detail"]["pass_idx"] == 1
     _assert_equal_state(table.state_dict(), state_after_p0)
 
     got = _pass(ds, table, tr)
