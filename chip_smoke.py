@@ -132,7 +132,24 @@ Phases, each fatal on failure:
                a dumped pass, the group under the step graph, the disk
                spill, PV merge and the 4-position world with the group,
                each checked as its docstring says.
-  8. times   — the CUDA kernels one call of each wrapper launches (from
+  8. zoo     — the ranking model zoo (model_zoo) at the slice's width with
+               bench.py's model widths: the row kernels bit-exact against
+               their twins at the new row widths 11, 13 and 18 (the cache
+               kernels at 12, 14 and 19) and pull_rows / scatter_add_rows
+               timed at widths 10, 11 and 13; DeepFM, WideDeep, XDeepFM,
+               DCN and CtrDnn's expand_dim and slot_embed_dims options
+               two passes over the first two Zipf sets, MMoE, RankCtrDnn
+               (PV-merged) and the conv CtrDnn (counter_label_tasks on a
+               cvm_offset 3 table: its conv counters equal a host count of
+               the task labels) two passes over half the logkey set, on
+               the default table; MMoE and RankCtrDnn on the hybrid world
+               over four passes; launch counters reset just before these
+               arms and read just after (all six kernels must launch);
+               every arm card against CPU, and every single-chip arm's
+               scan_steps GRAPH_K graph bit-equal to eager steps under
+               deterministic algorithms.  Samples/s, loss, AUC and the
+               per-task AUCs of every pass.
+  9. times   — the CUDA kernels one call of each wrapper launches (from
                torch.profiler; one each, two for scatter_rows), and the
                median time of each kernel, its twin and the equivalent
                PyTorch library call at the main paths' shapes with the L2
@@ -145,7 +162,7 @@ Phases, each fatal on failure:
                and for those two the same bytes moved without the gather or
                the search), and the time the cold and the warm method give
                a launch that does almost nothing.
-  9. telemetry — the telemetry plane on the default table (telemetry_path):
+ 10. telemetry — the telemetry plane on the default table (telemetry_path):
                two traced passes with an events path and a /metrics
                listener (trace spans, a scrape during the second pass,
                one pass_end record a pass, no health alert, no compile
@@ -3113,7 +3130,453 @@ def hybrid_specs(hybrid: dict) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# phase 8: the telemetry plane
+# phase 8: the model zoo
+# --------------------------------------------------------------------------- #
+# bench.py's make_model defaults (BASELINE.md configs 1-5) and RankCtrDnn's;
+# name -> (class, constructor kwargs, data: "zipf" sets or the "logkey"
+# set, PV-merged for RankCtrDnn)
+ZOO_MODELS = {
+    "deepfm": ("DeepFM", dict(hidden=(400, 400, 400)), "zipf"),
+    "wide_deep": ("WideDeep", dict(hidden=(512, 256, 128)), "zipf"),
+    "xdeepfm": ("XDeepFM", dict(hidden=(256, 128), cin_layers=(32, 32)),
+                "zipf"),
+    "dcn": ("DCN", dict(hidden=(256, 128), n_cross=3), "zipf"),
+    "mmoe": ("MMoE", dict(n_tasks=2, n_experts=4, expert_hidden=(128,),
+                          expert_dim=64, tower_hidden=(32,)), "logkey"),
+    "rank_ctr": ("RankCtrDnn", dict(max_rank=3, att_out_dim=64,
+                                    hidden=(512, 256, 128)), "pv"),
+}
+# CtrDnn's options: name -> (CtrDnn kwargs, SparseTableConfig kwargs,
+# TrainerConfig kwargs, data); rows of 11 (conv, cvm_offset 3) and 18
+# floats (expand_dim 8); 4 slots at embedx dim 4 of 8
+ZOO_VARIANTS = {
+    "ctr_conv": (dict(layout="conv", cvm_offset=3), dict(cvm_offset=3),
+                 dict(counter_label_tasks=(1,)), "logkey"),
+    "ctr_expand": (dict(expand_dim=8), dict(expand_dim=8), {}, "zipf"),
+    "ctr_slot_dims": (dict(slot_embed_dims=tuple((s, 4) for s in range(4))),
+                      {}, {}, "zipf"),
+}
+ZOO_MULTICHIP = ("mmoe", "rank_ctr")
+# depth cuts to keep the whole run near its earlier length: the logkey
+# arms over the first ZOO_LOGKEY_FILES of the data half's files (100 000
+# instances), the graph against eager steps over the first
+# ZOO_GRAPH_BATCHES batches of an arm's data (a warm-up group, a capture
+# and two replays of GRAPH_K), the card against the CPU over the first
+# ZOO_CPU_BATCHES batches (groups of POSITIONS batches on the multi-chip
+# arms), and the multi-chip arms over the first ZOO_MC_BATCHES batches a
+# pass (8 step groups, as the hybrid path's)
+ZOO_LOGKEY_FILES = 4
+ZOO_GRAPH_BATCHES, ZOO_CPU_BATCHES, ZOO_MC_BATCHES = 3 * GRAPH_K, 2, 32
+# the card against the CPU trains the dense side with SGD at this rate:
+# Adam divides each gradient by its own magnitude, so a gradient that
+# cancels to near zero (DeepFM's 400-wide layers) moves its parameter by
+# up to the learning rate on one device and not on the other (2.4e-4 at
+# the default 1e-3); SGD keeps the parameters' difference proportional to
+# the gradients'
+ZOO_CPU_SGD_LR = 0.1
+
+
+def zoo_parity(device) -> dict:
+    """The row kernels against their twins at the zoo's new row widths: 11
+    (conv, cvm_offset 3), 13 (pcoc, pclk_num 1) and 18 (expand_dim 8),
+    and the cache kernels at those widths + 1, bit-exact at the main
+    path's sizes and a ragged one (pull_rows' and scatter_add_rows' odd
+    widths take the scalar path); then pull_rows and scatter_add_rows
+    timed at widths 10, 11 and 13 (L2 cold, the main path's sizes).
+    Returns {width: (pull ms, scatter ms)}."""
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    saved = dict(sk.launches)
+    gen = torch.Generator(device=device).manual_seed(14)
+    P, C = 1 << 21, CACHE_ROWS
+    for w in (11, 13, 18):
+        values = torch.randn((P, w), device=device, generator=gen)
+        for k in (KEY_CAPACITY, 12_345):
+            idx = torch.randint(0, P, (k,), device=device, generator=gen,
+                                dtype=torch.int32)
+            if not torch.equal(sk.pull_rows(values, idx),
+                               sk.pull_rows_plain(values, idx)):
+                raise AssertionError(f"pull_rows differs from its twin at "
+                                     f"W={w}, K={k}")
+            # unique targets + zero-delta dead-row repeats, as the push
+            idx = torch.randperm(P - 1, device=device,
+                                 generator=gen)[:k].to(torch.int32)
+            idx[k - k // 8:] = P - 1
+            delta = torch.randn((k, w), device=device, generator=gen)
+            delta[k - k // 8:] = 0.0
+            if not torch.equal(
+                    sk.scatter_add_rows(values.clone(), idx, delta),
+                    sk.scatter_add_rows_plain(values.clone(), idx, delta)):
+                raise AssertionError(f"scatter_add_rows differs from its "
+                                     f"twin at W={w}, U={k}")
+        rows = torch.randn((C, w + 1), device=device, generator=gen)
+        for k in (C, 12_345):
+            slots = torch.randint(-1, C, (k,), device=device, generator=gen,
+                                  dtype=torch.int32)
+            if not torch.equal(sk.gather_slots(rows, slots),
+                               sk.gather_slots_plain(rows, slots)):
+                raise AssertionError(f"gather_slots differs from its twin at "
+                                     f"W={w + 1}, K={k}")
+            new = torch.randn((k, w + 1), device=device, generator=gen)
+            if not torch.equal(sk.scatter_rows(rows.clone(), slots, new),
+                               sk.scatter_rows_plain(rows.clone(), slots,
+                                                     new)):
+                raise AssertionError(f"scatter_rows differs from its twin at "
+                                     f"W={w + 1}, K={k}")
+    times = {}
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    for w in (10, 11, 13):
+        values = torch.randn((P, w), device=device, generator=gen)
+        idx = torch.randint(0, P, (KEY_CAPACITY,), device=device,
+                            generator=gen, dtype=torch.int32)
+        uniq = torch.randperm(P - 1, device=device,
+                              generator=gen)[:KEY_CAPACITY].to(torch.int32)
+        delta = torch.randn((KEY_CAPACITY, w), device=device, generator=gen)
+        times[w] = (cold_ms(lambda: sk.pull_rows(values, idx), flush),
+                    cold_ms(lambda: sk.scatter_add_rows(values, uniq, delta),
+                            flush))
+    del flush
+    sk.launches.update(saved)  # parity and timing calls: not the main path
+    log("zoo parity: pull_rows and scatter_add_rows bit-exact at W=11, 13, "
+        f"18 (K=U={KEY_CAPACITY}, 12345; a {P}-row table), gather_slots and "
+        f"scatter_rows at W=12, 14, 19 (K={C}, 12345, negative and duplicate "
+        "slots)")
+    log("zoo kernel times (L2 cold, K=U=131072 on a 2^21-row table), ms: "
+        + "; ".join(f"W={w}: pull_rows {p!r}, scatter_add_rows {s!r}"
+                    for w, (p, s) in times.items()))
+    return times
+
+
+def zoo_data(files) -> tuple:
+    """The logkey set's first ZOO_LOGKEY_FILES files loaded twice through
+    the native parser: plain batches (one task label) and PV-merged
+    batches (rank_offset)."""
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+
+    files = files[:ZOO_LOGKEY_FILES]
+    out = []
+    for pv in (False, True):
+        ds = PadBoxSlotDataset(data_conf(), read_threads=len(files))
+        ds.set_filelist(files)
+        ds.load_into_memory()
+        if ds.parser._native is None:
+            raise AssertionError("the zoo loaded without the native parser")
+        if pv:
+            ds.preprocess_instance()
+        out.append(ds)
+    return tuple(out)
+
+
+def zoo_model(name: str, width: int, device):
+    """A zoo entry's model at the slice's width (weights from seed 0)."""
+    from paddlebox_tpu_torch import models
+
+    if name in ZOO_MODELS:
+        cls, kw, _ = ZOO_MODELS[name]
+        return getattr(models, cls)(N_SLOTS, width, dense_dim=DENSE, seed=0,
+                                    device=device, **kw)
+    return models.CtrDnn(N_SLOTS, width, dense_dim=DENSE, hidden=HIDDEN,
+                         seed=0, device=device, **ZOO_VARIANTS[name][0])
+
+
+def zoo_world(name: str, device, cache_rows=None, **trainer_kw):
+    """A zoo entry's single-chip table (the default cached table unless
+    ``cache_rows`` says otherwise) and trainer."""
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.train import Trainer
+
+    tkw, trkw = {}, {}
+    if name in ZOO_VARIANTS:
+        tkw, trkw = ZOO_VARIANTS[name][1], ZOO_VARIANTS[name][2]
+    if cache_rows is not None:
+        tkw = dict(tkw, hbm_cache_rows=cache_rows)
+    tconf = SparseTableConfig(embedding_dim=EMB, **tkw)
+    table = SparseTable(tconf, seed=0, device=device)
+    model = zoo_model(name, tconf.row_width, device)
+    return table, Trainer(model, tconf, TrainerConfig(**trkw, **trainer_kw),
+                          device=device)
+
+
+def zoo_mc_world(name: str, device, **trainer_kw):
+    """MMoE or RankCtrDnn on the hybrid world: POSITIONS shard positions,
+    the realized loopback placement, hot capacity HOT_CAPACITY, cache
+    off."""
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.parallel import (
+        MultiChipTrainer,
+        ShardedSparseTable,
+        make_mesh,
+    )
+
+    tconf = SparseTableConfig(
+        embedding_dim=EMB, hbm_cache_rows=0, placement="loopback",
+        placement_realize=True, placement_update_interval=1,
+        placement_hot_capacity=HOT_CAPACITY)
+    mesh = make_mesh(POSITIONS, device=device)
+    table = ShardedSparseTable(tconf, mesh, seed=0)
+    model = zoo_model(name, tconf.row_width, device)
+    return table, MultiChipTrainer(model, tconf, mesh,
+                                   TrainerConfig(**trainer_kw))
+
+
+def zoo_sets(name: str, zipf_sets, logkey, pv) -> list:
+    """The two passes' datasets of a single-chip arm."""
+    kind = (ZOO_MODELS[name][2] if name in ZOO_MODELS
+            else ZOO_VARIANTS[name][3])
+    if kind == "zipf":
+        return list(zipf_sets[:2])
+    return [pv, pv] if kind == "pv" else [logkey, logkey]
+
+
+def _zoo_metrics(m: dict) -> str:
+    tasks = {k: m[k] for k in sorted(m) if k.startswith("task")
+             and k.endswith("/auc")}
+    return (f"loss {m['loss']!r} auc {m['auc']!r}"
+            + (f" {tasks}" if tasks else ""))
+
+
+def _check_zoo_pass(label: str, m: dict, n_tasks: int) -> None:
+    if not (math.isfinite(m["loss"]) and 0.0 < m["auc"] < 1.0
+            and m["count"] > 0):
+        raise AssertionError(f"{label}: bad pass metrics {m}")
+    for t in range(n_tasks if n_tasks > 1 else 0):
+        if not 0.0 < m[f"task{t}/auc"] < 1.0:
+            raise AssertionError(f"{label}: bad task{t} AUC {m}")
+    if n_tasks > 1 and m["task0/auc"] != m["auc"]:
+        raise AssertionError(f"{label}: task0 is not the primary stream")
+
+
+def conv_counts(ds, passes: int) -> dict:
+    """Host count of the conv counter: for every key, the task labels
+    (column 1) of the instances of its occurrences, over ``passes`` passes
+    of ``ds``."""
+    import numpy as np
+
+    keys, labels = [], []
+    for b in ds.batches():
+        n = b.n_keys
+        keys.append(b.keys[:n])
+        labels.append(b.task_labels[b.key_segments[:n] // N_SLOTS, 1])
+    uniq, inv = np.unique(np.concatenate(keys), return_inverse=True)
+    return uniq, np.bincount(inv, np.concatenate(labels)) * passes
+
+
+def zoo_single(zipf_sets, logkey, pv) -> dict:
+    """Every single-chip arm on the default cached table, two passes each
+    (drive_passes: the next census staged, the boundaries timed): the six
+    models and CtrDnn's conv (counter_label_tasks on a cvm_offset 3
+    table; its conv counters must equal a host count of the task labels),
+    expand_dim and slot_embed_dims options."""
+    import numpy as np
+
+    out = {}
+    for name in [*ZOO_MODELS, *ZOO_VARIANTS]:
+        t0 = time.perf_counter()
+        table, trainer = zoo_world(name, "cuda")
+        sets = zoo_sets(name, zipf_sets, logkey, pv)
+        per_pass = drive_passes(sets, table, trainer)
+        n_tasks = trainer.n_tasks
+        for p, r in enumerate(per_pass):
+            _check_zoo_pass(f"zoo {name} pass {p}", r["metrics"], n_tasks)
+            if r["metrics"]["count"] != sets[p].get_memory_data_size():
+                raise AssertionError(f"zoo {name} pass {p}: counted "
+                                     f"{r['metrics']['count']} instances")
+        state = table.state_dict()
+        if not np.isfinite(state["values"]).all():
+            raise AssertionError(f"zoo {name}: non-finite table rows")
+        if name == "ctr_conv":
+            keys, want = conv_counts(sets[0], len(sets))
+            got = dict(zip(state["keys"].tolist(),
+                           state["values"][:, 2].tolist()))
+            if [got.get(k, -1.0) for k in keys.tolist()] != want.tolist():
+                raise AssertionError("zoo ctr_conv: conv counters differ from "
+                                     "the host count of the task labels")
+            log(f"zoo ctr_conv: {keys.shape[0]} keys' conv counters equal the "
+                f"host count of the task labels ({int(want.sum())} in all)")
+        table.close()
+        out[name] = per_pass
+        log(f"zoo {name} (single chip, W={table.conf.row_width}): "
+            + "; ".join(f"pass {p} {r['samples_per_s']!r} samples/s, "
+                        f"{r['metrics']['duration_s']!r} s, "
+                        + _zoo_metrics(r["metrics"])
+                        for p, r in enumerate(per_pass))
+            + f"; arm {time.perf_counter() - t0!r} s")
+    return out
+
+
+def zoo_multichip(logkey, pv) -> dict:
+    """MMoE and RankCtrDnn on the hybrid world, HYBRID_PASSES passes over
+    the first ZOO_MC_BATCHES batches of their set, the streams continued:
+    the hot block realizes at the third begin_pass and routes through
+    hot_cold_select."""
+    import itertools
+
+    out = {}
+    for name in ZOO_MULTICHIP:
+        t0 = time.perf_counter()
+        src = pv if name == "rank_ctr" else logkey
+        data = _Batches(itertools.islice(src.batches(), ZOO_MC_BATCHES))
+        table, trainer = zoo_mc_world(name, "cuda")
+        per_pass = drive_hybrid([data] * HYBRID_PASSES, table, trainer)
+        table.close()
+        for p, r in enumerate(per_pass):
+            _check_zoo_pass(f"zoo {name} multi-chip pass {p}", r["metrics"],
+                            trainer.n_tasks)
+        if not per_pass[-1]["hot_occ"] > 0:
+            raise AssertionError(f"zoo {name} multi-chip: no hot occurrence "
+                                 "routed")
+        out[name] = per_pass
+        log(f"zoo {name} (multi-chip, {POSITIONS} positions): "
+            + "; ".join(f"pass {p} {r['samples_per_s']!r} samples/s, "
+                        f"hot {r['resident']}, hot occurrences "
+                        f"{r['hot_occ']}, " + _zoo_metrics(r["metrics"])
+                        for p, r in enumerate(per_pass))
+            + f"; arm {time.perf_counter() - t0!r} s")
+    return out
+
+
+def _dense_diff(a, b) -> float:
+    return max(float((p.detach().cpu() - q.detach().cpu()).abs().max())
+               for p, q in zip(a.parameters(), b.parameters()))
+
+
+def zoo_cpu_agreement(zipf_sets, logkey, pv) -> None:
+    """Every arm's first ZOO_CPU_BATCHES batches (groups of POSITIONS on
+    the multi-chip arms) trained once on the card and once on the CPU
+    (the plain twins), from the same seeds, uncached, the dense side by
+    SGD at ZOO_CPU_SGD_LR: losses within 1e-4 relative, AUC within 1e-3,
+    every dense parameter and table row within 1e-4 (small_agreement's
+    tolerances)."""
+    import itertools
+
+    import numpy as np
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    saved = dict(sk.launches)
+    report = []
+    arms = [(n, False) for n in [*ZOO_MODELS, *ZOO_VARIANTS]]
+    arms += [(n, True) for n in ZOO_MULTICHIP]
+    for name, multi in arms:
+        src = zoo_sets(name, zipf_sets, logkey, pv)[0]
+        n = ZOO_CPU_BATCHES * (POSITIONS if multi else 1)
+        data = _Batches(itertools.islice(src.batches(), n))
+        runs = {}
+        sgd = dict(dense_optimizer="sgd", dense_lr=ZOO_CPU_SGD_LR)
+        for device in ("cuda", "cpu"):
+            if multi:
+                table, trainer = zoo_mc_world(name, device, **sgd)
+            else:
+                table, trainer = zoo_world(name, device, cache_rows=0, **sgd)
+            table.begin_pass(data.unique_keys())
+            m = trainer.train_from_dataset(data, table)
+            table.end_pass()
+            runs[device] = (m, table.state_dict(), trainer.model)
+            table.close()
+        (mg, sg, dg), (mc, sc, dc) = runs["cuda"], runs["cpu"]
+        rows = (float(np.abs(sg["values"] - sc["values"]).max())
+                if np.array_equal(sg["keys"], sc["keys"]) else math.inf)
+        dense = _dense_diff(dg, dc)
+        if not (math.isfinite(mg["loss"])
+                and math.isclose(mg["loss"], mc["loss"], rel_tol=1e-4)
+                and abs(mg["auc"] - mc["auc"]) <= 1e-3
+                and rows <= 1e-4 and dense <= 1e-4):
+            raise AssertionError(
+                f"zoo {name} card/CPU: loss {mg['loss']} vs {mc['loss']}, auc "
+                f"{mg['auc']} vs {mc['auc']}, rows {rows}, dense {dense}")
+        report.append(f"{name}{' (multi-chip)' if multi else ''} rows "
+                      f"{rows!r} dense {dense!r}")
+    sk.launches.update(saved)  # the CPU runs the twins; not the main path
+    log("zoo card vs CPU, max abs diff: " + "; ".join(report))
+
+
+def zoo_graph_equality(zipf_sets, logkey, pv) -> None:
+    """Under deterministic algorithms, each single-chip arm's first
+    ZOO_GRAPH_BATCHES batches: scan_steps GRAPH_K as a CUDA graph (a
+    warm-up group, a capture, a replay) against eager steps, bit-equal in
+    losses, AUCs, grad_norm, dense parameters and table."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    saved = dict(sk.launches)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in [*ZOO_MODELS, *ZOO_VARIANTS]:
+            src = zoo_sets(name, zipf_sets, logkey, pv)[0]
+            data = _Batches(itertools.islice(src.batches(), ZOO_GRAPH_BATCHES))
+            runs = []
+            for k in (1, GRAPH_K):
+                table, trainer = zoo_world(name, "cuda", scan_steps=k)
+                table.begin_pass(data.unique_keys())
+                m = trainer.train_from_dataset(data, table)
+                torch.cuda.synchronize()
+                table.end_pass()
+                runs.append((m, table.state_dict(), trainer))
+                table.close()
+            (me, se, te), (mg, sg, tg) = runs
+            keys = [k for k in me if k == "loss" or k.endswith("auc")
+                    or k == "grad_norm"]
+            if tg.graph_captures != 1 or tg.graph_replays != (
+                    ZOO_GRAPH_BATCHES // GRAPH_K - 1):
+                raise AssertionError(
+                    f"zoo {name} graph: {tg.graph_captures} captures, "
+                    f"{tg.graph_replays} replays")
+            _sync_equal(f"zoo {name} graph against eager steps", sg, se,
+                        [mg[k] for k in keys], [me[k] for k in keys])
+            if _dense_diff(te.model, tg.model) != 0.0:
+                raise AssertionError(f"zoo {name} graph: dense parameters "
+                                     "differ from eager steps")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    sk.launches.update(saved)
+    log(f"zoo graph: every single-chip arm's first {ZOO_GRAPH_BATCHES} "
+        f"batches with scan_steps {GRAPH_K} (one capture, "
+        f"{ZOO_GRAPH_BATCHES // GRAPH_K - 1} replay(s)) bit-equal to eager "
+        "steps under deterministic algorithms")
+
+
+def model_zoo(zipf_sets, logkey_files) -> dict:
+    """The ranking model zoo at the slice's width (16 slots, 13 dense,
+    batch 2048, embedding_dim 8, vocab 100 000, bench.py's model widths):
+    kernel parity at the new row widths; each single-chip arm two passes
+    on the default table and MMoE and RankCtrDnn on the hybrid world, the
+    launch counters reset just before these arms and read just after
+    (all six kernels must launch); then every arm card against CPU, and
+    graph against eager steps."""
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    t0 = time.perf_counter()
+    times = zoo_parity(__import__("torch").device("cuda"))
+    logkey, pv = zoo_data(logkey_files)
+    log(f"zoo data: the logkey set, {logkey.get_memory_data_size()} "
+        f"instances, and PV-merged ({pv.get_pv_data_size()} page-views); "
+        f"{time.perf_counter() - t0!r} s with the parity")
+    sk.reset_launches()
+    single = zoo_single(zipf_sets, logkey, pv)
+    multi = zoo_multichip(logkey, pv)
+    launches = dict(sk.launches)
+    log(f"zoo launches (single-chip and multi-chip arms): {launches}")
+    for name in sk.KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the zoo's "
+                                 "path")
+    zoo_cpu_agreement(zipf_sets, logkey, pv)
+    zoo_graph_equality(zipf_sets, logkey, pv)
+    logkey.close()
+    pv.close()
+    return {"single": single, "multi": multi, "launches": launches,
+            "times": times}
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: the telemetry plane
 # --------------------------------------------------------------------------- #
 def _free_port() -> int:
     import socket
@@ -3803,6 +4266,7 @@ def main() -> int:
         phase(step_policies, ds)
         phase(slot_policy, hybrid)
         phase(data_half, logkey_files, load_s)
+        phase(model_zoo, cached_ds, logkey_files)
         rows = phase(kernel_times, res, ds, cached,
                      censuses[CACHED_PASSES - 1], hybrid, errs)
         # last: after its device traces, a torch.profiler window of this

@@ -369,10 +369,6 @@ class SparseTableConfig:
         """Width of a pulled value row: [show, clk, embed...]."""
         return self.cvm_offset + self.embedding_dim + self.expand_dim
 
-    def __post_init__(self):
-        if self.expand_dim:
-            raise not_ported("expand_dim", "model zoo, item 5")
-
 
 @dataclasses.dataclass(frozen=True)
 class TelemetryConfig:
@@ -433,6 +429,11 @@ class TrainerConfig:
     dump_param: Sequence[str] = ()
     need_dump_field: bool = False
     need_dump_param: bool = False
+    # task-label columns (col 0 = the primary label) that feed the extra
+    # counters of a cvm_offset > 2 table: counter 2+i of each pushed key
+    # adds task_labels[:, counter_label_tasks[i]] of the key's instance (the
+    # conv layout's conversion counter is (1,)); the single-chip Trainer
+    # reads it, and needs len(counter_label_tasks) == cvm_offset - 2
     counter_label_tasks: Sequence[int] = ()
     compute_dtype: str = ""  # "" -> flags.compute_dtype
     check_nan_inf: bool = False
@@ -474,5 +475,3 @@ class TrainerConfig:
                 f"unknown nan_policy {self.nan_policy!r} "
                 "(want raise | skip_batch | rollback)"
             )
-        if self.counter_label_tasks:
-            raise not_ported("counter_label_tasks", "model zoo, item 5")

@@ -100,16 +100,17 @@ def update_auc_state_(state: AucState, preds: torch.Tensor,
 def update_auc_states_(state: AucState, preds: torch.Tensor,
                        labels: torch.Tensor, masks: torch.Tensor,
                        gate: Optional[torch.Tensor] = None) -> AucState:
-    """``update_auc_state_`` of M stacked streams at once, IN PLACE: the
-    streams share ``preds`` and ``labels`` [B] and each has its mask row of
-    ``masks`` [M, B] (a metric group's specs).  One scatter-add per bucket
-    table over the [M, B] weights, as the reference vmaps the update over
-    the metric axis; the integer counts equal M separate updates bit for
-    bit."""
+    """``update_auc_state_`` of M stacked streams at once, IN PLACE: each
+    stream has its mask row of ``masks`` [M, B]; ``preds`` and ``labels``
+    are [B], shared by the streams (a metric group's specs), or [M, B], one
+    row per stream (a multi-task model's tasks).  One scatter-add per
+    bucket table over the [M, B] weights, as the reference vmaps the update
+    over the metric axis; the integer counts equal M separate updates bit
+    for bit."""
     m, nb = state.pos.shape
     idx = torch.clamp((preds * nb).to(torch.int32), 0, nb - 1)
     flat = (torch.arange(m, device=idx.device)[:, None] * nb
-            + idx[None, :].to(torch.int64)).reshape(-1)
+            + idx.to(torch.int64)).reshape(-1)
     pos_w = (masks * labels).to(torch.int64)
     neg_w = (masks * (1.0 - labels)).to(torch.int64)
     err = (preds - labels) * masks

@@ -72,6 +72,25 @@ def init_linear(layer: nn.Linear, generator: torch.Generator) -> None:
         layer.bias.zero_()
 
 
+def make_linear(in_dim: int, out_dim: int, generator: torch.Generator,
+                device) -> nn.Linear:
+    """One xavier-initialized linear layer (the reference's init_linear)."""
+    layer = nn.Linear(in_dim, out_dim)
+    init_linear(layer, generator)
+    return layer.to(device)
+
+
+def init_param(shape, bound: float, generator: torch.Generator,
+               device) -> nn.Parameter:
+    """A bare parameter array drawn uniform in [-bound, bound] on the CPU
+    from ``generator`` (the CIN kernels, rank_param); ``bound`` 0 gives
+    zeros (DCN's cross vectors)."""
+    w = torch.zeros(shape)
+    if bound:
+        w.uniform_(-bound, bound, generator=generator)
+    return nn.Parameter(w.to(device))
+
+
 def make_mlp(in_dim: int, hidden: Sequence[int], out_dim: int,
              generator: torch.Generator, device) -> nn.ModuleList:
     # built on the CPU, then moved: nn.Linear's own init would draw from the
@@ -83,6 +102,16 @@ def make_mlp(in_dim: int, hidden: Sequence[int], out_dim: int,
     for layer in layers:
         init_linear(layer, generator)
     return layers.to(device)
+
+
+def linear(layer: nn.Linear, x: torch.Tensor,
+           compute_dtype=None) -> torch.Tensor:
+    """One layer, ``x @ w + b``; with a compute dtype it runs in it and the
+    output comes back as float32, as the reference's linear()."""
+    if compute_dtype is None:
+        return layer(x)
+    out = x.to(compute_dtype) @ layer.weight.to(compute_dtype).t()
+    return (out + layer.bias.to(compute_dtype)).float()
 
 
 def mlp(layers: nn.ModuleList, x: torch.Tensor,
@@ -104,9 +133,13 @@ def mlp(layers: nn.ModuleList, x: torch.Tensor,
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Numerically stable sigmoid cross-entropy (per element)."""
+    """Numerically stable sigmoid cross-entropy (per element).  At a logit
+    of exactly 0 (a tower whose last hidden layer is all dead ReLUs, and a
+    zero output bias) the gradient is the reference's, -label: relu's
+    derivative there is 0 (clamp's would be 1) and abs's is 0, where the
+    reference's maximum gives 1/2 and its abs 1."""
     return (
-        torch.clamp(logits, min=0.0)
+        torch.relu(logits)
         - logits * labels
         + torch.log1p(torch.exp(-torch.abs(logits)))
     )

@@ -61,8 +61,16 @@ event log from ``TrainerConfig.telemetry`` or the flags, the ``plan`` and
 profiled mode), the norm gauges, the health rules and the ``pass_end``
 record at each pass end (window: the global step).
 
+The model contract, as in the reference: a model's extra inputs by
+marker (``rank_offset``, ``seq_pos``, each position's slice), the
+multi-task loss (the mean BCE over a model's ``n_tasks`` logit columns
+against the batch's task labels) and per-task AUC streams, one stacked
+state per position merged at the pass end (``task<t>/<metric>``); the
+primary AUC reads task 0.  As the reference's, this trainer reads no
+``counter_label_tasks``.
+
 Cut-outs (each raises ``NotImplementedError``): the host plane; the
-watchdog; the cross-process fleet snapshot; multi-task models.
+watchdog; the cross-process fleet snapshot.
 """
 
 from __future__ import annotations
@@ -80,17 +88,18 @@ from paddlebox_tpu_torch.config import (
     SparseTableConfig,
     TelemetryConfig,
     TrainerConfig,
-    not_ported,
 )
 from paddlebox_tpu_torch.data.feed import HostBatch, empty_like
 from paddlebox_tpu_torch.metrics.auc import (
     AucState,
     compute_metrics,
+    compute_metrics_stacked,
     init_auc_state,
     merge_auc_states,
     stack_auc_states,
     unstack_auc_state,
     update_auc_state_,
+    update_auc_states_,
 )
 from paddlebox_tpu_torch.metrics.variants import MetricGroup
 from paddlebox_tpu_torch.models.layers import (
@@ -117,6 +126,8 @@ from paddlebox_tpu_torch.train.trainer import (
     _dense_opt,
     await_feed,
     check_model_inputs,
+    check_task_labels,
+    model_extras,
     finish_pass_telemetry,
     pass_norms,
     prefetched,
@@ -326,9 +337,9 @@ class MultiChipTrainer:
                  metric_group=None, slot_mask: Optional[Iterable[int]] = None):
         """slot_mask: participating sparse-slot indices (None = all), with
         the single-chip Trainer's semantics on every position."""
-        if getattr(model, "n_tasks", 1) > 1:
-            raise not_ported("multi-task models", "model zoo, item 5")
         self.model = model
+        # a multi-task model's logits are [B, n_tasks] (task 0 primary)
+        self.n_tasks = getattr(model, "n_tasks", 1)
         self.table_conf = table_conf
         self.mesh = mesh
         self.device = mesh.device
@@ -476,12 +487,14 @@ class MultiChipTrainer:
     # -- the step ----------------------------------------------------------- #
     def _step(self, table: ShardedSparseTable, feed: dict,
               aucs: list, gn: Optional[torch.Tensor] = None,
-              groups: Optional[list] = None) -> tuple:
+              groups: Optional[list] = None,
+              tasks: Optional[list] = None) -> tuple:
         """One step over every position; updates the model copies (or, in
         "async" mode, returns their gradient), the table and the hot block
         in place, ``aucs`` (one AucState per position), ``groups`` (one
-        stacked metric-group state per position) and ``gn`` [n, 2] (each
-        position's grad-norm stream).  Returns (loss, per-position
+        stacked metric-group state per position), ``tasks`` (a multi-task
+        model's stacked per-task streams, one per position) and ``gn``
+        [n, 2] (each position's grad-norm stream).  Returns (loss, per-position
         instance counts [n], summed dense gradients or None, the
         positions' predictions [n, B]) on the device: the psummed loss, or
         in "kstep" mode each position's own loss [n]."""
@@ -513,21 +526,28 @@ class MultiChipTrainer:
                 feed["key_segments"] % self._part_vec.shape[0]]
             key_mask = key_mask * key_part
             key_clicks = key_clicks * key_part
-        losses, pgrads, row_grads, preds = [], [], [], []
+        multi = self.n_tasks > 1
+        losses, pgrads, row_grads, preds, task_preds = [], [], [], [], []
         for d in range(n):
             model = self.models[d % len(self.models)]
             params = list(model.parameters())
             r = rows[d].detach().requires_grad_(True)
             pulled = r if key_part is None else r * key_part[d][:, None]
             logits = model(pulled, feed["key_segments"][d], feed["dense"][d],
-                           mask.shape[1])
-            per_ins = bce_with_logits(logits, feed["labels"][d]) * mask[d]
+                           mask.shape[1], **_position_extras(model, feed, d))
+            if multi:
+                per_ins = bce_with_logits(
+                    logits, feed["task_labels"][d]).mean(1) * mask[d]
+            else:
+                per_ins = bce_with_logits(logits, feed["labels"][d]) * mask[d]
             loss = per_ins.sum() / denoms[d]
             grads = torch.autograd.grad(loss, params + [r])
             losses.append(loss.detach())
             pgrads.append(grads[:-1])
             row_grads.append(grads[-1])
-            preds.append(torch.sigmoid(logits.detach()))
+            p = torch.sigmoid(logits.detach())
+            task_preds.append(p)
+            preds.append(p[:, 0] if multi else p)
         summed = None
         if mode == "kstep":
             loss = torch.stack(losses)
@@ -576,6 +596,10 @@ class MultiChipTrainer:
             )
         for d in range(n):
             update_auc_state_(aucs[d], preds[d], feed["labels"][d], mask[d])
+            if tasks is not None:
+                update_auc_states_(tasks[d], task_preds[d].t(),
+                                   feed["task_labels"][d].t(),
+                                   mask[d].expand(self.n_tasks, -1))
             if groups is not None:
                 MetricGroup.update(groups[d], preds[d], feed["labels"][d],
                                    feed["metric_masks"][d])
@@ -612,27 +636,39 @@ class MultiChipTrainer:
         if hot_cap:
             self._ensure_hot_block(table, hot_cap)
         gn = torch.zeros((self.n_dev, 2), device=self.device)
-        group_state = None
+        group_state = task_state = None
         if self.metric_group is not None:
             group_state = stack_auc_states(
                 self.metric_group.init_state(self.device), self.n_dev)
+        if self.n_tasks > 1:
+            # [n, n_tasks, ...]: per position, one stream per task
+            task_state = stack_auc_states(stack_auc_states(
+                init_auc_state(self.conf.auc_buckets, self.device),
+                self.n_tasks), self.n_dev)
         if isinstance(auc_state, dict):
             if "gn" in auc_state:
                 gn.copy_(auc_state["gn"])
             if group_state is not None and "group" in auc_state:
                 group_state = AucState(*(t.clone()
                                          for t in auc_state["group"]))
+            if task_state is not None and "task" in auc_state:
+                task_state = AucState(*(t.clone() for t in auc_state["task"]))
             auc_state = auc_state["auc"]
-        elif auc_state is not None and group_state is not None:
+        elif auc_state is not None and (group_state is not None
+                                        or task_state is not None):
             raise ValueError(
                 "pass trainer.last_metric_state (dict) to continue metrics "
-                "across passes: a bare AucState would reset the metric "
-                "group's streams while continuing the primary one"
+                "across passes: a bare AucState would reset the task/group "
+                "streams while continuing the primary one"
             )
-        # per-position views of the stacked group state, updated in place
+        # per-position views of the stacked group and task states, updated
+        # in place
         group_views = (None if group_state is None else
                        [unstack_auc_state(group_state, d)
                         for d in range(self.n_dev)])
+        task_views = (None if task_state is None else
+                      [unstack_auc_state(task_state, d)
+                       for d in range(self.n_dev)])
         # the grad-norm stream carries across continued passes: the pass
         # reads a float64 delta of the positions' sum
         gn_base = gn.sum(0).double().cpu()
@@ -673,6 +709,7 @@ class MultiChipTrainer:
             group; on the producer thread when prefetching."""
             for batches in groups:
                 check_model_inputs(self.model, batches[0])
+                check_task_labels(self.n_tasks, batches[0])
                 with sprof.stage("plan"):
                     plan = table.plan_group(batches, self._slot_lr_vec,
                                             batches[0].n_sparse_slots)
@@ -690,7 +727,8 @@ class MultiChipTrainer:
         try:
             for feed, ready, batches in feed_iter:
                 loss, cnt, grads, preds = self._step(
-                    table, await_feed(feed, ready), aucs, gn, group_views)
+                    table, await_feed(feed, ready), aucs, gn, group_views,
+                    task_views)
                 if dumper is not None:
                     # a padding batch has no real instance: it dumps nothing
                     for b, p in zip(batches, preds):
@@ -733,6 +771,11 @@ class MultiChipTrainer:
             )
         merged = AucState(*(torch.stack(ts) for ts in zip(*aucs)))
         metrics = compute_metrics(merged)
+        if task_state is not None:
+            # the positions' streams summed in ascending order, per task
+            metrics.update(compute_metrics_stacked(
+                merge_auc_states(*task_views),
+                [f"task{t}" for t in range(self.n_tasks)]))
         if group_state is not None:
             # the positions' streams summed in ascending order, per spec
             metrics.update(self.metric_group.compute(
@@ -758,6 +801,8 @@ class MultiChipTrainer:
                                   self.model.parameters()))
         self.last_auc_state = merged
         self.last_metric_state = {"auc": merged, "gn": gn}
+        if task_state is not None:
+            self.last_metric_state["task"] = task_state
         if group_state is not None:
             self.last_metric_state["group"] = group_state
         # the cross-process fleet snapshot gather comes with the
@@ -800,11 +845,21 @@ class MultiChipTrainer:
             for d in range(self.n_dev):
                 model = self.models[d % len(self.models)]
                 logits = model(rows[d], feed["key_segments"][d],
-                               feed["dense"][d], mask.shape[1])
+                               feed["dense"][d], mask.shape[1],
+                               **_position_extras(model, feed, d))
+                if self.n_tasks > 1:
+                    logits = logits[:, 0]  # the primary task
                 update_auc_state_(aucs[d], torch.sigmoid(logits),
                                   feed["labels"][d], mask[d])
         return compute_metrics(AucState(*(torch.stack(ts)
                                           for ts in zip(*aucs))))
+
+
+def _position_extras(model, feed: dict, d: int) -> dict:
+    """Position d's slice of the extra inputs the model reads
+    (train/trainer.py:model_extras): the feed stacks rank_offset and
+    seq_pos [n, ...] over the positions."""
+    return {k: v[d] for k, v in model_extras(model, feed).items()}
 
 
 def _group_batches(batches: Iterator[HostBatch],

@@ -53,12 +53,21 @@ The data half (reference: train/trainer.py):
     graph holds the masks as one more static feed slot.
   * The feed also carries ``rank_offset``, ``seq_pos`` and ``task_labels``
     when the batch has them; a model that reads rank_offset or seq_pos
-    (``uses_rank_offset`` / ``uses_seq_pos``) gets a RuntimeError for a
-    batch without them.
+    (``uses_rank_offset`` / ``uses_seq_pos``) gets them by keyword, and a
+    RuntimeError for a batch without them.
   * Field dumps (``TrainerConfig.need_dump_field``, train/dump.py): each
     step's predictions go to a FieldDumper, and the pass runs one step at
     a time whatever ``scan_steps`` says.  ``need_dump_param`` dumps the
     dense tower and the table's rows at the pass end.
+
+The model contract (reference: train/trainer.py): a model with ``n_tasks``
+> 1 returns logits [B, n_tasks] and trains on the mean BCE over the
+batch's task-label columns (task 0 is the primary label, the stream the
+pass AUC reads); its per-task AUC streams ("task" in the metric state)
+update in the same step body and give ``task<t>/<metric>`` in the pass
+metrics.  ``TrainerConfig.counter_label_tasks`` (cvm_offset - 2 entries)
+adds each key's instance's task-label columns to its extra counters: the
+feed's ``key_extras``, masked like the show/clk counters.
 
 Telemetry (reference: train/trainer.py; telemetry/, utils/profiler.py):
   * the policy: ``TrainerConfig.telemetry``, else the
@@ -103,8 +112,11 @@ from paddlebox_tpu_torch.data.feed import HostBatch
 from paddlebox_tpu_torch.metrics.auc import (
     AucState,
     compute_metrics,
+    compute_metrics_stacked,
     init_auc_state,
+    stack_auc_states,
     update_auc_state_,
+    update_auc_states_,
 )
 from paddlebox_tpu_torch.metrics.variants import MetricGroup
 from paddlebox_tpu_torch.models.layers import (
@@ -152,7 +164,8 @@ class PassRolledBack(RuntimeError):
 
 def host_feed(batch: HostBatch, plan: BatchPlan,
               slot_lr_vec: Optional[np.ndarray] = None,
-              metric_group: Optional[MetricGroup] = None) -> dict:
+              metric_group: Optional[MetricGroup] = None,
+              counter_label_tasks=()) -> dict:
     """The static-shape feed of one step, as numpy arrays.
 
     ``slot_lr_vec``: [S] per-slot learning rates; the feed then carries
@@ -161,7 +174,9 @@ def host_feed(batch: HostBatch, plan: BatchPlan,
     reference's ``_host_batch_dict`` builds it.  ``metric_group``: the
     feed carries its ``metric_masks`` [n_specs, B].  The batch's
     ``rank_offset``, ``seq_pos`` and ``task_labels`` ride along when it has
-    them."""
+    them.  ``counter_label_tasks``: the feed carries ``key_extras`` [K, n],
+    each occurrence's task-label columns (masked), the extra counter
+    increments of a cvm_offset > 2 table."""
     n_slots = batch.n_sparse_slots
     ins = np.minimum(batch.key_segments // n_slots, batch.batch_size - 1)
     feed = {
@@ -179,6 +194,22 @@ def host_feed(batch: HostBatch, plan: BatchPlan,
         v = getattr(batch, name)
         if v is not None:
             feed[name] = v
+    if counter_label_tasks:
+        if batch.task_labels is None:
+            raise RuntimeError(
+                "counter_label_tasks configured but the batch carries no "
+                "task labels: set DataFeedConfig.task_label_slots"
+            )
+        n_cols = batch.task_labels.shape[1]
+        bad = [t for t in counter_label_tasks if not 0 <= t < n_cols]
+        if bad:
+            raise ValueError(
+                f"counter_label_tasks {bad} out of range: the batch has "
+                f"{n_cols} task-label columns (col 0 = primary label)"
+            )
+        feed["key_extras"] = np.stack(
+            [batch.task_labels[ins, t] * plan.key_mask
+             for t in counter_label_tasks], axis=1).astype(np.float32)
     if metric_group is not None:
         feed["metric_masks"] = metric_group.masks(batch)
     if slot_lr_vec is not None:
@@ -208,6 +239,31 @@ def check_model_inputs(model, batch: HostBatch) -> None:
             "DataFeedConfig.sequence_slot (and max_seq_len) so "
             "batches carry seq_pos"
         )
+
+
+def check_task_labels(n_tasks: int, batch: HostBatch) -> None:
+    """The reference's error for a multi-task model whose batch lacks its
+    task-label columns (task 0 is the primary label)."""
+    if n_tasks > 1 and (batch.task_labels is None
+                        or batch.task_labels.shape[1] != n_tasks):
+        got = 0 if batch.task_labels is None else batch.task_labels.shape[1]
+        raise RuntimeError(
+            f"model has {n_tasks} tasks but the batch carries {got} task "
+            "label columns: configure DataFeedConfig.task_label_slots with "
+            f"{n_tasks - 1} slots (task 0 is the primary label)"
+        )
+
+
+def model_extras(model, feed: dict) -> dict:
+    """The extra inputs a model reads from the feed by its markers:
+    ``rank_offset`` (``uses_rank_offset``) and ``seq_pos``
+    (``uses_seq_pos``)."""
+    extra = {}
+    if getattr(model, "uses_rank_offset", False):
+        extra["rank_offset"] = feed["rank_offset"]
+    if getattr(model, "uses_seq_pos", False):
+        extra["seq_pos"] = feed["seq_pos"]
+    return extra
 
 
 def to_device(host: dict, device: torch.device) -> dict:
@@ -402,9 +458,9 @@ class _StepGraph:
     metric streams')."""
 
     def __init__(self, trainer: "Trainer", table, feeds: list, auc, gn,
-                 group=None):
+                 group=None, task=None):
         self.values, self.g2sum = table.values, table.g2sum
-        self.auc, self.gn, self.group = auc, gn, group
+        self.auc, self.gn, self.group, self.task = auc, gn, group, task
         self.shapes = _feed_shapes(feeds)
         self.slots = [{k: torch.empty_like(v) for k, v in f.items()}
                       for f in feeds]
@@ -418,13 +474,15 @@ class _StepGraph:
         # capture and invalidate it
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             trainer._group_body(self.values, self.g2sum, self.slots, auc, gn,
-                                self.losses, self.flags, group)
+                                self.losses, self.flags, group, task=task)
 
-    def matches(self, table, feeds: list, auc, gn, group=None) -> bool:
+    def matches(self, table, feeds: list, auc, gn, group=None,
+                task=None) -> bool:
         return (self.values is table.values and self.g2sum is table.g2sum
                 and self.gn is gn
                 and all(a is b for a, b in zip(self.auc, auc))
                 and _same_tensors(self.group, group)
+                and _same_tensors(self.task, task)
                 and self.shapes == _feed_shapes(feeds))
 
     def replay(self, feeds: list) -> tuple:
@@ -439,7 +497,7 @@ class _StepGraph:
 
 
 def _same_tensors(a, b) -> bool:
-    """The same metric-group state (or both absent)."""
+    """The same metric-group or task state (or both absent)."""
     if a is None or b is None:
         return a is b
     return all(x is y for x, y in zip(a, b))
@@ -481,6 +539,16 @@ class Trainer:
                 raise ValueError(
                     f"model parameters on {p.device}, trainer on {self.device}"
                 )
+        n_extra = len(self.conf.counter_label_tasks)
+        if n_extra and n_extra != table_conf.cvm_offset - 2:
+            raise ValueError(
+                f"counter_label_tasks has {n_extra} entries but the table's "
+                f"cvm_offset={table_conf.cvm_offset} leaves "
+                f"{table_conf.cvm_offset - 2} extra counter column(s)"
+            )
+        # a multi-task model's logits are [B, n_tasks]; task 0 is the
+        # primary label, the stream the pass AUC reads
+        self.n_tasks = getattr(model, "n_tasks", 1)
         self._part_vec = slot_participation_vec(self.slot_mask, n_slots,
                                                 self.device)
         # the host half of the per-slot LR map; the feed carries uniq_lr
@@ -522,13 +590,16 @@ class Trainer:
     # -- the step ----------------------------------------------------------- #
     def _tick(self, values, g2sum, feed: dict, auc: AucState,
               gn: torch.Tensor, ok: Optional[torch.Tensor],
-              group: Optional[AucState] = None):
+              group: Optional[AucState] = None,
+              task: Optional[AucState] = None):
         """One training step, every update in place.  ``ok``: with the
         check on, a bool device scalar, False when an earlier step of the
         group failed under a raising policy.  ``group``: the metric group's
-        stacked streams, updated from the feed's metric_masks.  Returns
-        (loss, gate, preds): gate is None without the check, else the
-        device flag that decided whether this step's updates applied."""
+        stacked streams, updated from the feed's metric_masks.  ``task``: a
+        multi-task model's stacked per-task streams [n_tasks, ...].
+        Returns (loss, gate, preds): gate is None without the check, else
+        the device flag that decided whether this step's updates applied;
+        preds are the primary task's."""
         tconf = self.table_conf
         rows = pull_rows(
             values, feed["idx"],
@@ -547,9 +618,15 @@ class Trainer:
             pulled = rows * key_part[:, None]
         labels, mask = feed["labels"], feed["ins_mask"]
         logits = self.model(pulled, feed["key_segments"], feed["dense"],
-                            labels.shape[0])
+                            labels.shape[0], **model_extras(self.model, feed))
         denom = torch.clamp(mask.sum(), min=1.0)
-        loss = (bce_with_logits(logits, labels) * mask).sum() / denom
+        multi = self.n_tasks > 1
+        if multi:
+            # [B, T] logits against [B, T] task labels, mean over the tasks
+            per_ins = bce_with_logits(logits, feed["task_labels"]).mean(1)
+        else:
+            per_ins = bce_with_logits(logits, labels)
+        loss = (per_ins * mask).sum() / denom
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         row_grads = rows.grad
@@ -575,17 +652,24 @@ class Trainer:
                 for t, b in zip(dense, before):
                     t.copy_(torch.where(gate, t, b))
         key_mask, key_clicks = feed["key_mask"], feed["key_clicks"]
+        key_extras = feed.get("key_extras")
         if key_part is not None:
-            # excluded slots increment no show/clk counter either
+            # excluded slots increment no show/clk/extra counter either
             key_mask = key_mask * key_part
             key_clicks = key_clicks * key_part
+            if key_extras is not None:
+                key_extras = key_extras * key_part[:, None]
         push_and_update(
             values, g2sum, row_grads, feed["uniq_idx"], feed["inverse"],
-            key_mask, key_clicks, tconf, uniq_lr=feed.get("uniq_lr"),
-            gate=gate,
+            key_mask, key_clicks, tconf, key_extras=key_extras,
+            uniq_lr=feed.get("uniq_lr"), gate=gate,
         )
-        preds = torch.sigmoid(logits.detach())
+        all_preds = torch.sigmoid(logits.detach())
+        preds = all_preds[:, 0] if multi else all_preds
         update_auc_state_(auc, preds, labels, mask, gate)
+        if task is not None:
+            update_auc_states_(task, all_preds.t(), feed["task_labels"].t(),
+                               mask.expand(self.n_tasks, -1), gate)
         if group is not None:
             MetricGroup.update(group, preds, labels, feed["metric_masks"],
                                gate)
@@ -596,7 +680,8 @@ class Trainer:
     def _group_body(self, values, g2sum, feeds: list, auc: AucState,
                     gn: torch.Tensor, losses: torch.Tensor,
                     flags: torch.Tensor, group: Optional[AucState] = None,
-                    preds: Optional[list] = None) -> None:
+                    preds: Optional[list] = None,
+                    task: Optional[AucState] = None) -> None:
         """k steps in one body (the reference's scan tick): the CPU runs
         it eagerly, the card captures it.  No host sync: each step's loss
         and flag land in ``losses`` / ``flags`` [k].  Under "skip_batch" a
@@ -609,7 +694,7 @@ class Trainer:
             ok = torch.ones((), dtype=torch.bool, device=values.device)
         for j, feed in enumerate(feeds):
             loss, gate, p = self._tick(values, g2sum, feed, auc, gn, ok,
-                                       group)
+                                       group, task)
             if preds is not None:
                 preds.append(p)
             losses[j] = loss
@@ -626,7 +711,8 @@ class Trainer:
 
     def _run_group(self, table, feeds: list, auc: AucState,
                    gn: torch.Tensor, group: Optional[AucState] = None,
-                   preds: Optional[list] = None) -> tuple:
+                   preds: Optional[list] = None,
+                   task: Optional[AucState] = None) -> tuple:
         """Run one group: replayed as the captured graph when it is a full
         group of scan_steps > 1 on the card, else eagerly.  Returns (losses
         [k], flags [k]) on the device.  ``preds`` (a list, eager groups
@@ -636,19 +722,19 @@ class Trainer:
         if self.device.type == "cuda" and k > 1:
             graph = self._graph
             if graph is None or not graph.matches(table, feeds, auc, gn,
-                                                  group):
+                                                  group, task):
                 self._graph = None
                 if self._warmed is not table.values:
                     # the warm-up of a new table: this group runs eagerly
                     # on a side stream (autograd, cuBLAS and the allocator
                     # settle), the next one captures
                     self._warmed = table.values
-                    return self._warm_up(table, feeds, auc, gn, group)
+                    return self._warm_up(table, feeds, auc, gn, group, task)
                 # a failed capture raises; nothing runs these steps
                 # eagerly.  The capture is the port's compile event of the
                 # step group (the reference's scan program)
                 t0 = time.perf_counter()
-                graph = _StepGraph(self, table, feeds, auc, gn, group)
+                graph = _StepGraph(self, table, feeds, auc, gn, group, task)
                 telemetry.record_compile(time.perf_counter() - t0,
                                          stage="train.scan")
                 self._graph = graph
@@ -660,10 +746,10 @@ class Trainer:
         losses = torch.zeros(k, device=table.values.device)
         flags = torch.ones(k, dtype=torch.bool, device=table.values.device)
         self._group_body(table.values, table.g2sum, feeds, auc, gn, losses,
-                         flags, group, preds)
+                         flags, group, preds, task)
         return losses, flags
 
-    def _warm_up(self, table, feeds, auc, gn, group=None) -> tuple:
+    def _warm_up(self, table, feeds, auc, gn, group=None, task=None) -> tuple:
         """The group eagerly on a side stream, ordered after and before the
         current stream's work, as torch.cuda.graphs' whole-network example
         warms up before a capture; the optimizer's state is created here,
@@ -677,7 +763,7 @@ class Trainer:
             losses = torch.zeros(k, device=self.device)
             flags = torch.ones(k, dtype=torch.bool, device=self.device)
             self._group_body(table.values, table.g2sum, feeds, auc, gn,
-                             losses, flags, group)
+                             losses, flags, group, task=task)
         cur.wait_stream(side)
         # for the caching allocator: the feeds were read on the side
         # stream, the outputs will be on the current one
@@ -769,30 +855,34 @@ class Trainer:
                                 auc_state, next_pass_keys=next_pass_keys)
 
     def _metric_state(self, auc_state) -> tuple:
-        """(auc, gn, group) of a pass: fresh, or continued from an
+        """(auc, gn, group, task) of a pass: fresh, or continued from an
         AucState (the primary stream only) or from ``last_metric_state``
-        (every stream).  A bare AucState with a metric group is refused:
-        it would reset the group's streams while continuing the primary
-        one."""
+        (every stream).  A bare AucState with a metric group or a
+        multi-task model is refused: it would reset the group's or the
+        tasks' streams while continuing the primary one."""
         gn = torch.zeros(2, device=self.device)
-        group = None
+        group = task = None
         if self.metric_group is not None:
             group = self.metric_group.init_state(self.device)
+        if self.n_tasks > 1:
+            task = stack_auc_states(self.init_auc(), self.n_tasks)
         if isinstance(auc_state, dict):
             if "gn" in auc_state:
                 gn.copy_(auc_state["gn"])
             if group is not None and "group" in auc_state:
                 group = AucState(*(t.clone() for t in auc_state["group"]))
+            if task is not None and "task" in auc_state:
+                task = AucState(*(t.clone() for t in auc_state["task"]))
             auc_state = auc_state["auc"]
-        elif auc_state is not None and group is not None:
+        elif auc_state is not None and (group is not None or task is not None):
             raise ValueError(
                 "pass trainer.last_metric_state (dict) to continue metrics "
-                "across passes: a bare AucState would reset the metric "
-                "group's streams while continuing the primary one"
+                "across passes: a bare AucState would reset the task/group "
+                "streams while continuing the primary one"
             )
         auc = (AucState(*(t.clone() for t in auc_state))
                if auc_state is not None else self.init_auc())
-        return auc, gn, group
+        return auc, gn, group, task
 
     def train_steps(self, table: SparseTable, batches: Iterable[HostBatch],
                     auc_state=None, next_pass_keys=None) -> dict:
@@ -800,7 +890,7 @@ class Trainer:
         if not table._in_pass:
             raise RuntimeError("begin_pass before training")
         t0 = time.monotonic()
-        auc, gn, group = self._metric_state(auc_state)
+        auc, gn, group, task = self._metric_state(auc_state)
         # the stream carries across continued passes: the pass reads a
         # delta, in float64 on the host as the reference reads it
         gn_base = gn.double().cpu()
@@ -832,11 +922,13 @@ class Trainer:
             group_items = []
             for batch in batches:
                 check_model_inputs(self.model, batch)
+                check_task_labels(self.n_tasks, batch)
                 with prof.stage("plan"):
                     plan = table.plan_batch(batch)
                 with prof.stage("feed"):
                     host = host_feed(batch, plan, self._slot_lr_vec,
-                                     self.metric_group)
+                                     self.metric_group,
+                                     self.conf.counter_label_tasks)
                 if faults.fire("train.nan"):
                     # chaos: poison the labels, so the loss and gradients
                     # really go non-finite on the device
@@ -868,7 +960,7 @@ class Trainer:
                         device_trace(self.conf.trace_dir or None):
                     n_steps = self._train_loop(table, feed_iter, auc, gn,
                                                group, dumper, prof, sync,
-                                               losses)
+                                               losses, task)
             finally:
                 if prefetcher is not None:
                     prefetcher.close()
@@ -893,6 +985,9 @@ class Trainer:
                 select=self.conf.dump_param,
             )
         metrics = compute_metrics(auc)
+        if task is not None:
+            metrics.update(compute_metrics_stacked(
+                task, [f"task{t}" for t in range(self.n_tasks)]))
         if group is not None:
             metrics.update(self.metric_group.compute(group))
         metrics["loss"] = (
@@ -905,6 +1000,8 @@ class Trainer:
                                   self.model.parameters()))
         self.last_auc_state = auc
         self.last_metric_state = {"auc": auc, "gn": gn}
+        if task is not None:
+            self.last_metric_state["task"] = task
         if group is not None:
             self.last_metric_state["group"] = group
         trace_path = ""
@@ -920,7 +1017,7 @@ class Trainer:
         return metrics
 
     def _train_loop(self, table, feed_iter, auc, gn, group, dumper, prof,
-                    sync: bool, losses: list) -> int:
+                    sync: bool, losses: list, task=None) -> int:
         """The pass's steps over its feed, each group's losses appended to
         ``losses``; returns the steps counted."""
         check_nan, skip = self._check_nan, self._skip_batches
@@ -930,7 +1027,7 @@ class Trainer:
             preds = [] if dumper is not None else None
             with prof.stage("step"):
                 loss_k, flags = self._run_group(table, devs, auc, gn, group,
-                                                preds)
+                                                preds, task)
                 if sync:
                     torch.cuda.synchronize(self.device)  # honest timing
             prof.step_done()
@@ -984,7 +1081,10 @@ class Trainer:
                 pull_embedx_scale=tconf.pull_embedx_scale,
             )
             logits = self.model(rows, dev["key_segments"], dev["dense"],
-                                dev["labels"].shape[0])
+                                dev["labels"].shape[0],
+                                **model_extras(self.model, dev))
+            if self.n_tasks > 1:
+                logits = logits[:, 0]  # the primary task
             update_auc_state_(auc, torch.sigmoid(logits), dev["labels"],
                               dev["ins_mask"])
         return compute_metrics(auc)

@@ -1,8 +1,10 @@
 """Carry the JAX package's parameters, as numpy arrays, into the port.
 
-The reference keeps its CTR-DNN tower as a list of ``{"w": [in, out],
-"b": [out]}`` dicts used as ``x @ w + b``; the port's tower is a list of
-``nn.Linear`` whose weight is ``[out, in]``.  These helpers transpose and
+The reference keeps a model's parameters as a pytree: each dense layer a
+``{"w": [in, out], "b": [out]}`` dict used as ``x @ w + b``, lists of them
+for towers, bare arrays for the rest (CIN kernels, rank_param, DCN's cross
+vectors).  The port's layers are ``nn.Linear`` (weight ``[out, in]``) in
+submodules named after the reference's keys.  These helpers transpose and
 name the arrays so that both packages compute the same function from the
 same numbers.  They take numpy arrays and import nothing of JAX.
 """
@@ -55,43 +57,99 @@ def hot_block_from_jax(values, g2sum) -> dict:
     return {"hot_values": state["values"], "hot_g2sum": state["g2sum"]}
 
 
-_JAX_TOWER_LEAF = re.compile(r"^\['tower'\]\[(\d+)\]\['([wb])'\]$")
+# a jax key path: ``['tower'][0]['w']``, ``['rank_param']``, ``['cin'][1]``
+_JAX_KEY_PATH = re.compile(r"^(\[('[^'\[\]]+'|\d+)\])+$")
+_JAX_KEY = re.compile(r"\[(?:'([^']+)'|(\d+))\]")
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def params_from_jax_tree(tree) -> dict:
+    """A reference model's whole parameter pytree (nested dicts and lists of
+    numpy arrays) -> the port's state_dict for the same model.  The port
+    names its submodules after the reference's keys, so the mapping is
+    mechanical: a ``{"w": [in, out], "b": [out]}`` dict is an nn.Linear
+    (``weight`` transposed, ``bias``); a ``{"w", "b"}`` dict of vectors (a
+    DCN cross layer) and every bare array (the CIN kernels, rank_param)
+    copy as they are; list entries become indexed submodules."""
+    state = {}
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if set(node) == {"w", "b"} and np.ndim(w) == 2:
+                state[f"{name}weight"] = torch.from_numpy(
+                    np.array(np.asarray(w, np.float32).T, order="C"))
+                state[f"{name}bias"] = torch.from_numpy(
+                    np.array(node["b"], np.float32))
+                return
+            for k in sorted(node):
+                walk(node[k], f"{name}{k}.")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{name}{i}.")
+        else:
+            state[name[:-1]] = torch.from_numpy(np.array(node, np.float32))
+
+    walk(tree, "")
+    return state
 
 
 def is_jax_param_file(names) -> bool:
-    """True when npz leaf ``names`` are the reference's CtrDnn params as its
+    """True when npz leaf ``names`` are a reference model's params as its
     checkpoints save them (jax key paths: ``['tower'][0]['w']``)."""
     names = list(names)
-    return bool(names) and all(_JAX_TOWER_LEAF.match(n) for n in names)
+    return bool(names) and all(_JAX_KEY_PATH.match(n) for n in names)
+
+
+def _tree_from_key_paths(flat: dict):
+    """{jax key path: array} -> the nested dicts and lists it flattens."""
+    root: dict = {}
+    for name, arr in flat.items():
+        keys = [k if k else int(i) for k, i in _JAX_KEY.findall(name)]
+        node = root
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = arr
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(isinstance(k, int) for k in out):
+            return [out[i] for i in sorted(out)]
+        return out
+
+    return listify(root)
 
 
 def params_from_jax_flat(flat: dict) -> dict:
     """A reference checkpoint's dense leaves {"['tower'][i]['w']": ...} ->
-    a CtrDnn state_dict, through ``params_from_jax``."""
-    layers: dict = {}
-    for name, arr in flat.items():
-        m = _JAX_TOWER_LEAF.match(name)
-        if m is None:
-            raise KeyError(f"not a reference tower leaf: {name!r}")
-        layers.setdefault(int(m.group(1)), {})[m.group(2)] = arr
-    return params_from_jax([layers[i] for i in sorted(layers)])
+    the port's state_dict, through ``params_from_jax_tree``."""
+    for name in flat:
+        if not _JAX_KEY_PATH.match(name):
+            raise KeyError(f"not a reference parameter leaf: {name!r}")
+    return params_from_jax_tree(_tree_from_key_paths(flat))
 
 
 def params_to_jax(state: dict) -> dict:
-    """A CtrDnn state_dict -> the reference's params {"tower": [{"w": [in,
-    out], "b": [out]}, ...]} as numpy arrays (the inverse of
-    ``params_from_jax``)."""
-    tower = []
-    i = 0
-    while f"tower.{i}.weight" in state:
-        w = state[f"tower.{i}.weight"]
-        b = state[f"tower.{i}.bias"]
-        w = w.detach().cpu().numpy() if torch.is_tensor(w) else np.asarray(w)
-        b = b.detach().cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
-        tower.append({"w": np.array(w.T, np.float32, order="C"),
-                      "b": np.array(b, np.float32)})
-        i += 1
-    return {"tower": tower}
+    """A port model's state_dict -> the reference's parameter pytree as
+    numpy arrays (the inverse of ``params_from_jax_tree``): ``X.weight`` /
+    ``X.bias`` of an nn.Linear become ``{"w": [in, out], "b": [out]}``,
+    other leaves keep their names, and indexed submodules become lists."""
+    flat = {}
+    for name, v in state.items():
+        parts = name.split(".")
+        arr = np.array(_np(v), np.float32)
+        if parts[-1] == "weight":
+            parts[-1], arr = "w", np.array(arr.T, order="C")
+        elif parts[-1] == "bias":
+            parts[-1] = "b"
+        flat["".join(f"[{p}]" if p.isdigit() else f"[{p!r}]"
+                     for p in parts)] = arr
+    return _tree_from_key_paths(flat)
 
 
 def jax_key_paths(tree) -> dict:

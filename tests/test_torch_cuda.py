@@ -1034,6 +1034,121 @@ def test_profiled_pass_writes_host_and_device_traces(cuda, tmp_path):
     ds.close()
 
 
+# the model zoo at a small width: name -> (model class, kwargs, table
+# kwargs, trainer kwargs); every entry trains on logkey data with one task
+# label, RankCtrDnn's PV-merged
+ZOO = {
+    "wide_deep": ("WideDeep", dict(hidden=(16,)), {}, {}),
+    "deepfm": ("DeepFM", dict(hidden=(16,)), {}, {}),
+    "dcn": ("DCN", dict(hidden=(16,), n_cross=2), {}, {}),
+    "xdeepfm": ("XDeepFM", dict(hidden=(16,), cin_layers=(8, 8)), {}, {}),
+    "rank_ctr": ("RankCtrDnn", dict(hidden=(16,), att_out_dim=8), {}, {}),
+    "mmoe": ("MMoE", dict(n_tasks=2, n_experts=2, expert_hidden=(16,),
+                          expert_dim=8, tower_hidden=(8,)), {}, {}),
+    "ctr_conv": ("CtrDnn", dict(hidden=(16,), layout="conv", cvm_offset=3),
+                 dict(cvm_offset=3), dict(counter_label_tasks=(1,))),
+    "ctr_expand": ("CtrDnn", dict(hidden=(16,), expand_dim=3),
+                   dict(expand_dim=3), {}),
+    "ctr_slot_dims": ("CtrDnn", dict(hidden=(16,),
+                                     slot_embed_dims=((0, 2), (3, 1))), {}, {}),
+}
+
+
+def _zoo_world(tmp_path, name, device, **trkw):
+    from paddlebox_tpu_torch import models
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.train import Trainer
+
+    cls, kw, tkw, zoo_trkw = ZOO[name]
+    d = tmp_path / "zoo"
+    files = sorted(str(p) for p in d.glob("part-*")) if d.exists() else \
+        write_synth_files(str(d), n_files=1, ins_per_file=384,
+                          n_sparse_slots=4, vocab_per_slot=60, dense_dim=3,
+                          seed=6, with_logkey=True, n_task_labels=1)
+    data_kw = dict(parse_logkey=True, n_task_labels=1)
+    if name == "rank_ctr":
+        data_kw.update(enable_pv_merge=True, pv_batch_size=8,
+                       rank_offset="rank_offset")
+    ds = PadBoxSlotDataset(make_synth_config(4, 3, 32, 16, **data_kw),
+                           read_threads=1)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    if name == "rank_ctr":
+        ds.preprocess_instance()
+    tconf = SparseTableConfig(embedding_dim=4, hbm_cache_rows=0, **tkw)
+    table = SparseTable(tconf, seed=5, device=device)
+    model = getattr(models, cls)(4, tconf.row_width, dense_dim=3, seed=2,
+                                 device=device, **kw)
+    tr = Trainer(model, tconf, TrainerConfig(auc_buckets=1 << 10,
+                                             **zoo_trkw, **trkw),
+                 device=device)
+    return ds, table, tr
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_zoo_pass_on_the_card_matches_cpu(cuda, tmp_path, name):
+    """One pass of each zoo model on the card (the kernels launched) and on
+    the CPU (the twins) from the same seeds: losses within 1e-4 relative,
+    AUC within 1e-3, dense parameters and table rows within 1e-4."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        ds, table, tr = _zoo_world(tmp_path, name, device)
+        sk.reset_launches()
+        table.begin_pass(ds.unique_keys())
+        m = tr.train_from_dataset(ds, table)
+        table.end_pass()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert sk.launches["pull_rows"] == sk.launches[
+                "scatter_add_rows"] == m["steps"] > 0
+        runs[device] = (m, table.state_dict(),
+                        [p.detach().cpu() for p in tr.model.parameters()])
+        table.close()
+        ds.close()
+    (mg, sg, pg), (mc, sc, pc) = runs["cuda"], runs["cpu"]
+    assert np.isfinite(mg["loss"])
+    assert mg["loss"] == pytest.approx(mc["loss"], rel=1e-4)
+    assert abs(mg["auc"] - mc["auc"]) <= 1e-3
+    np.testing.assert_array_equal(sg["keys"], sc["keys"])
+    np.testing.assert_allclose(sg["values"], sc["values"], rtol=0, atol=1e-4)
+    for a, b in zip(pg, pc):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4)
+    if name == "mmoe":
+        assert abs(mg["task1/auc"] - mc["task1/auc"]) <= 1e-3
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_zoo_captured_steps_equal_eager(cuda, tmp_path, name):
+    """Each zoo model's steps captured as a CUDA graph (scan_steps 4: a
+    warm-up group, then replays) equal eager steps under deterministic
+    algorithms: losses, AUCs, grad_norm, parameters and table."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for k in (1, 4):
+            ds, table, tr = _zoo_world(tmp_path, name, "cuda", scan_steps=k)
+            table.begin_pass(ds.unique_keys())
+            m = tr.train_from_dataset(ds, table)
+            table.end_pass()
+            torch.cuda.synchronize()
+            runs[k] = (m, table.state_dict(), tr)
+            table.close()
+            ds.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (m1, s1, t1), (m4, s4, t4) = runs[1], runs[4]
+    assert t4.graph_captures == 1 and t4.graph_replays >= 1
+    for key in m1:
+        if key == "loss" or key.endswith("auc") or key == "grad_norm":
+            assert m1[key] == m4[key], key
+    np.testing.assert_array_equal(s1["values"], s4["values"])
+    for a, b in zip(t1.model.parameters(), t4.model.parameters()):
+        assert torch.equal(a, b)
+
+
 def test_a_capture_that_cannot_succeed_raises(cuda, tmp_path):
     """A model whose forward reads a value on the host cannot be captured:
     the trainer raises, and no group runs eagerly in its place."""

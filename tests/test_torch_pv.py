@@ -272,7 +272,12 @@ def test_a_model_that_reads_the_pv_inputs_needs_them(pv_files, needs):
     )
 
     class Reader(CtrDnn):
-        pass
+        """A CtrDnn that declares it reads ``needs``' input: the trainers
+        pass it by keyword, and it must arrive."""
+
+        def forward(self, rows, key_segments, dense, batch_size, **extra):
+            assert set(extra) == {needs[len("uses_"):]}, extra
+            return super().forward(rows, key_segments, dense, batch_size)
 
     setattr(Reader, needs, True)
     tconf = SparseTableConfig(embedding_dim=4)

@@ -254,26 +254,50 @@ def test_trainer_rejects_a_model_on_another_device():
 
 
 # --------------------------------------------------------------------------- #
-# options this slice does not support raise, naming the later slice
+# the model-zoo options, refused until the zoo slice, construct
 # --------------------------------------------------------------------------- #
-def _unsupported(case):
+def _zoo_option(case, pkg):
+    """One option as a reference config or model names it, built by the
+    port (pkg "port") or the reference (pkg "ref")."""
     row = 2 + EMB
     if case == "expand_dim":
-        SparseTableConfig(expand_dim=4)
-    elif case == "layout_conv":
-        CtrDnn(SLOTS, row, layout="conv", device="cpu")
-    elif case == "counter_label_tasks":
-        TrainerConfig(counter_label_tasks=(1,))
-    elif case == "slot_embed_dims":
-        CtrDnn(SLOTS, row, slot_embed_dims=((0, 2),), device="cpu")
+        return (ref_config.SparseTableConfig if pkg == "ref" else
+                SparseTableConfig)(expand_dim=4)
+    if case == "counter_label_tasks":
+        return (ref_config.TrainerConfig if pkg == "ref" else
+                TrainerConfig)(counter_label_tasks=(1,))
+    kw = (dict(layout="conv", cvm_offset=3) if case == "layout_conv"
+          else dict(slot_embed_dims=((0, 2),)))
+    if pkg == "ref":
+        return RefCtrDnn(SLOTS, row + kw.get("cvm_offset", 2) - 2, **kw)
+    return CtrDnn(SLOTS, row + kw.get("cvm_offset", 2) - 2, device="cpu",
+                  **kw)
 
 
 @pytest.mark.parametrize("case", [
     "expand_dim", "layout_conv", "counter_label_tasks", "slot_embed_dims",
 ])
 def test_unsupported_options_raise_not_implemented(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _unsupported(case)
+    """The four options this test once held to a NotImplementedError
+    (until the model-zoo slice ported them) now construct, each equal to
+    the reference's for the same fields: the configs field by field, the
+    models by their input accounting and per-slot column mask."""
+    got, want = _zoo_option(case, "port"), _zoo_option(case, "ref")
+    if case == "expand_dim":
+        assert (got.expand_dim, got.cvm_offset, got.embedding_dim) == (
+            want.expand_dim, want.cvm_offset, want.embedding_dim)
+        assert got.row_width == want.row_width == 2 + 8 + 4
+        return
+    if case == "counter_label_tasks":
+        assert tuple(got.counter_label_tasks) == tuple(
+            want.counter_label_tasks) == (1,)
+        return
+    assert got.input_dim == want.input_dim
+    assert (got.layout, got.show_filter) == (want.layout, want.show_filter)
+    if case == "slot_embed_dims":
+        np.testing.assert_array_equal(got._dim_mask.numpy(), want._dim_mask)
+    else:
+        assert got._dim_mask is None and want._dim_mask is None
 
 
 @pytest.mark.parametrize("case", [
