@@ -149,6 +149,24 @@ Phases, each fatal on failure:
                scan_steps GRAPH_K graph bit-equal to eager steps under
                deterministic algorithms.  Samples/s, loss, AUC and the
                per-task AUCs of every pass.
+  8b. axes   — this slice's models and parallel axes (parallel_axes) at
+               the slice's width: TwoTower under RetrievalTrainer over two
+               Zipf sets, eager and as a CUDA graph (timed, then again
+               under deterministic algorithms, bit-equal), and evaluate; LongSeqCtrDnn on a
+               behaviour-sequence set with full attention and on 4 seq
+               positions with ring and Ulysses attention; PipelinedCtrDnn
+               on 4 pipe positions (f32 and bf16) beside CtrDnn; MMoE on 4
+               expert positions beside the serial bank; MMoE and the ring
+               LongSeqCtrDnn on composed 4 x 2 meshes of the hybrid world
+               over four passes beside data-only runs (counters bit-equal,
+               loss within 5e-3, AUC within 2e-2); launch counters reset
+               before these arms and read after (all six kernels must
+               launch); then each sharded model's forward against its
+               serial twin, every arm's first batches card against CPU and
+               sharded against serial, the row kernels at the sequence
+               set's key capacity, PipelineTrainer's gradient against the
+               sequential oracle's, the aux tables card against host, and
+               synchronized ms a step of the three attentions.
   9. times   — the CUDA kernels one call of each wrapper launches (from
                torch.profiler; one each, two for scatter_rows), and the
                median time of each kernel, its twin and the equivalent
@@ -273,7 +291,9 @@ def card_line() -> str:
 
 
 def _write_part(args) -> str:
-    out_dir, ins, seed, zipf_a, logkey = args
+    out_dir, ins, seed, zipf_a, logkey, seq_keys = args
+    import numpy as np
+
     from paddlebox_tpu_torch.data.synth import write_synth_files
 
     extra = {}
@@ -292,23 +312,40 @@ def _write_part(args) -> str:
         name = os.path.basename(out_dir)
         with open(path, "w") as f:
             f.writelines(f"{name}-{i} {line}\n" for i, line in enumerate(lines))
+    if seq_keys:
+        # slot0 (after "1 <click>") becomes a behaviour sequence of 1 to
+        # seq_keys keys of its own vocabulary; the click keeps the signal
+        # of the other slots
+        rng = np.random.default_rng(seed)
+        with open(path) as f:
+            lines = f.read().splitlines()
+        with open(path, "w") as f:
+            for line in lines:
+                tok = line.split(" ")
+                m = int(rng.integers(1, seq_keys + 1))
+                tok[2:3 + int(tok[2])] = [str(m), *map(
+                    str, rng.integers(1, VOCAB + 1, size=m).tolist())]
+                f.write(" ".join(tok) + "\n")
     return path
 
 
 def write_data() -> tuple:
     """Synthetic files, one writer process per file (spawned, so no child
     inherits a CUDA context): the uncached path's N_FILES, CACHED_FILES per
-    Zipf file set, and the data half's N_FILES with the ins_id and logkey
-    prefixes and a task label.  Returns (files, [files of each set],
-    logkey files)."""
-    jobs = [(os.path.join(WORK_DIR, f"w{i}"), INS_PER_FILE, 7 + i, 0.0, False)
-            for i in range(N_FILES)]
+    Zipf file set, the data half's N_FILES with the ins_id and logkey
+    prefixes and a task label, and the sequence arm's SEQ_FILES whose slot0
+    holds sequences of up to SEQ_T keys.  Returns (files, [files of each set], logkey
+    files, sequence files)."""
+    jobs = [(os.path.join(WORK_DIR, f"w{i}"), INS_PER_FILE, 7 + i, 0.0, False,
+             0) for i in range(N_FILES)]
     for p in range(ZIPF_SETS):
         jobs += [(os.path.join(WORK_DIR, f"z{p}-{i}"), CACHED_INS_PER_FILE,
-                  100 + CACHED_FILES * p + i, ZIPF_A, False)
+                  100 + CACHED_FILES * p + i, ZIPF_A, False, 0)
                  for i in range(CACHED_FILES)]
     jobs += [(os.path.join(WORK_DIR, f"l{i}"), INS_PER_FILE, 300 + i, 0.0,
-              True) for i in range(N_FILES)]
+              True, 0) for i in range(N_FILES)]
+    jobs += [(os.path.join(WORK_DIR, f"s{i}"), SEQ_INS_PER_FILE, 400 + i, 0.0,
+              False, SEQ_T) for i in range(SEQ_FILES)]
     ctx = multiprocessing.get_context("spawn")
     workers = min(len(jobs), os.cpu_count() or 1)
     with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as ex:
@@ -316,7 +353,9 @@ def write_data() -> tuple:
     per_pass = [paths[N_FILES + CACHED_FILES * p:
                       N_FILES + CACHED_FILES * (p + 1)]
                 for p in range(ZIPF_SETS)]
-    return paths[:N_FILES], per_pass, paths[-N_FILES:]
+    logkey_end = N_FILES + CACHED_FILES * ZIPF_SETS + N_FILES
+    return (paths[:N_FILES], per_pass, paths[logkey_end - N_FILES:logkey_end],
+            paths[logkey_end:])
 
 
 def based4(t):
@@ -2180,25 +2219,20 @@ def _sync_equal(label, a_state, b_state, a_metrics=(), b_metrics=()):
                              f"vs {b_metrics}, rows max abs diff {diff})")
 
 
-def _group_ms(ds, k: int) -> list:
-    """The first STEP_MS_BATCHES batches of the uncached slice world, every
-    feed on the card beforehand: seconds of each group of ``k`` steps
-    through ``Trainer._run_group``, to a synchronize (with k > 1: the
-    warm-up group, the capture and its first replay, then the replays)."""
-    import itertools
-
+def timed_groups(table, trainer, batches, k: int = 1) -> list:
+    """Seconds of each group of ``k`` steps through ``Trainer._run_group``
+    over ``batches``, to a synchronize, every feed on the card beforehand
+    (with k > 1: the warm-up group, the capture and its first replay, then
+    the replays), in a pass of its own; the table is closed after."""
     import torch
 
     from paddlebox_tpu_torch.train.trainer import host_feed
 
-    _, table, trainer = make_world(N_SLOTS, DENSE, BATCH, EMB, HIDDEN, "cuda",
-                                   KEY_CAPACITY,
-                                   trainer_kw=dict(scan_steps=k))
-    batches = _Batches(itertools.islice(ds.batches(), STEP_MS_BATCHES))
+    batches = _Batches(batches)
     table.begin_pass(batches.unique_keys())
     feeds = [trainer._to_device(host_feed(b, table.plan_batch(b)))
              for b in batches.batches()]
-    auc, gn = trainer.init_auc(), torch.zeros(2, device="cuda")
+    auc, gn = trainer.init_auc(), torch.zeros(2, device=trainer.device)
     torch.cuda.synchronize()
     out = []
     for i in range(0, len(feeds) // k * k, k):
@@ -2209,6 +2243,18 @@ def _group_ms(ds, k: int) -> list:
     table.end_pass()
     table.close()
     return out
+
+
+def _group_ms(ds, k: int) -> list:
+    """timed_groups over the first STEP_MS_BATCHES batches of the uncached
+    slice world."""
+    import itertools
+
+    _, table, trainer = make_world(N_SLOTS, DENSE, BATCH, EMB, HIDDEN, "cuda",
+                                   KEY_CAPACITY,
+                                   trainer_kw=dict(scan_steps=k))
+    return timed_groups(table, trainer,
+                        itertools.islice(ds.batches(), STEP_MS_BATCHES), k)
 
 
 def graph_steps(ds, zipf_sets) -> dict:
@@ -3269,22 +3315,32 @@ def zoo_data(files) -> tuple:
     return tuple(out)
 
 
-def zoo_model(name: str, width: int, device):
-    """A zoo entry's model at the slice's width (weights from seed 0)."""
+def zoo_model(name: str, width: int, device, **over):
+    """A zoo or parallel-axes entry's model at the slice's width (weights
+    from seed 0); a model axis the entry names gets AXIS_POSITIONS
+    positions; ``over`` overrides constructor arguments."""
     from paddlebox_tpu_torch import models
+    from paddlebox_tpu_torch.parallel import make_mesh
 
-    if name in ZOO_MODELS:
-        cls, kw, _ = ZOO_MODELS[name]
-        return getattr(models, cls)(N_SLOTS, width, dense_dim=DENSE, seed=0,
-                                    device=device, **kw)
-    return models.CtrDnn(N_SLOTS, width, dense_dim=DENSE, hidden=HIDDEN,
-                         seed=0, device=device, **ZOO_VARIANTS[name][0])
+    if name in ZOO_VARIANTS:
+        cls, kw = "CtrDnn", dict(ZOO_VARIANTS[name][0], hidden=HIDDEN)
+    else:
+        cls, kw, _ = {**ZOO_MODELS, **AXES_MODELS}[name]
+    kw = dict(kw, **over)
+    for k in ("mesh", "seq_mesh", "expert_mesh"):
+        if kw.get(k) in MODEL_AXES:
+            kw[k] = make_mesh(AXIS_POSITIONS, device=device, axis_name=kw[k])
+    lead = (kw.pop("mesh"),) if "mesh" in kw else ()  # PipelinedCtrDnn's
+    return getattr(models, cls)(*lead, N_SLOTS, width, dense_dim=DENSE,
+                                seed=0, device=device, **kw)
 
 
 def zoo_world(name: str, device, cache_rows=None, **trainer_kw):
-    """A zoo entry's single-chip table (the default cached table unless
-    ``cache_rows`` says otherwise) and trainer."""
+    """An entry's single-chip table (the default cached table unless
+    ``cache_rows`` says otherwise) and trainer (RetrievalTrainer for
+    TwoTower)."""
     from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.scenarios import RetrievalTrainer
     from paddlebox_tpu_torch.sparse.table import SparseTable
     from paddlebox_tpu_torch.train import Trainer
 
@@ -3296,18 +3352,21 @@ def zoo_world(name: str, device, cache_rows=None, **trainer_kw):
     tconf = SparseTableConfig(embedding_dim=EMB, **tkw)
     table = SparseTable(tconf, seed=0, device=device)
     model = zoo_model(name, tconf.row_width, device)
-    return table, Trainer(model, tconf, TrainerConfig(**trkw, **trainer_kw),
-                          device=device)
+    cls = RetrievalTrainer if getattr(model, "retrieval", False) else Trainer
+    return table, cls(model, tconf, TrainerConfig(**trkw, **trainer_kw),
+                      device=device)
 
 
-def zoo_mc_world(name: str, device, **trainer_kw):
-    """MMoE or RankCtrDnn on the hybrid world: POSITIONS shard positions,
-    the realized loopback placement, hot capacity HOT_CAPACITY, cache
-    off."""
+def zoo_mc_world(name: str, device, composed: bool = False, **trainer_kw):
+    """An entry on the hybrid world: POSITIONS shard positions, the
+    realized loopback placement, hot capacity HOT_CAPACITY, cache off; with
+    ``composed``, on make_composed_mesh(POSITIONS, 2, axis) with the
+    model's inner axis "inherit" (COMPOSED)."""
     from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
     from paddlebox_tpu_torch.parallel import (
         MultiChipTrainer,
         ShardedSparseTable,
+        make_composed_mesh,
         make_mesh,
     )
 
@@ -3315,20 +3374,24 @@ def zoo_mc_world(name: str, device, **trainer_kw):
         embedding_dim=EMB, hbm_cache_rows=0, placement="loopback",
         placement_realize=True, placement_update_interval=1,
         placement_hot_capacity=HOT_CAPACITY)
-    mesh = make_mesh(POSITIONS, device=device)
+    over = {}
+    if composed:
+        axis, over = COMPOSED[name]
+        mesh = make_composed_mesh(POSITIONS, 2, axis, device=device)
+    else:
+        mesh = make_mesh(POSITIONS, device=device)
     table = ShardedSparseTable(tconf, mesh, seed=0)
-    model = zoo_model(name, tconf.row_width, device)
+    model = zoo_model(name, tconf.row_width, device, **over)
     return table, MultiChipTrainer(model, tconf, mesh,
                                    TrainerConfig(**trainer_kw))
 
 
-def zoo_sets(name: str, zipf_sets, logkey, pv) -> list:
-    """The two passes' datasets of a single-chip arm."""
-    kind = (ZOO_MODELS[name][2] if name in ZOO_MODELS
-            else ZOO_VARIANTS[name][3])
-    if kind == "zipf":
-        return list(zipf_sets[:2])
-    return [pv, pv] if kind == "pv" else [logkey, logkey]
+def zoo_sets(name: str, data: dict) -> list:
+    """The passes' datasets of a single-chip arm: ``data`` maps an entry's
+    data kind ("zipf", "logkey", "pv", "seq") to them."""
+    kind = (ZOO_VARIANTS[name][3] if name in ZOO_VARIANTS
+            else {**ZOO_MODELS, **AXES_MODELS}[name][2])
+    return data[kind]
 
 
 def _zoo_metrics(m: dict) -> str:
@@ -3364,29 +3427,31 @@ def conv_counts(ds, passes: int) -> dict:
     return uniq, np.bincount(inv, np.concatenate(labels)) * passes
 
 
-def zoo_single(zipf_sets, logkey, pv) -> dict:
-    """Every single-chip arm on the default cached table, two passes each
-    (drive_passes: the next census staged, the boundaries timed): the six
-    models and CtrDnn's conv (counter_label_tasks on a cvm_offset 3
-    table; its conv counters must equal a host count of the task labels),
-    expand_dim and slot_embed_dims options."""
+def zoo_single(data: dict, names=(*ZOO_MODELS, *ZOO_VARIANTS),
+               label: str = "zoo") -> dict:
+    """Each named single-chip arm on the default cached table over its
+    sets (zoo_sets; drive_passes: the next census staged, the boundaries
+    timed); by default the six models and CtrDnn's conv
+    (counter_label_tasks on a cvm_offset 3 table; its conv counters must
+    equal a host count of the task labels), expand_dim and slot_embed_dims
+    options."""
     import numpy as np
 
     out = {}
-    for name in [*ZOO_MODELS, *ZOO_VARIANTS]:
+    for name in names:
         t0 = time.perf_counter()
         table, trainer = zoo_world(name, "cuda")
-        sets = zoo_sets(name, zipf_sets, logkey, pv)
+        sets = zoo_sets(name, data)
         per_pass = drive_passes(sets, table, trainer)
         n_tasks = trainer.n_tasks
         for p, r in enumerate(per_pass):
-            _check_zoo_pass(f"zoo {name} pass {p}", r["metrics"], n_tasks)
+            _check_zoo_pass(f"{label} {name} pass {p}", r["metrics"], n_tasks)
             if r["metrics"]["count"] != sets[p].get_memory_data_size():
-                raise AssertionError(f"zoo {name} pass {p}: counted "
+                raise AssertionError(f"{label} {name} pass {p}: counted "
                                      f"{r['metrics']['count']} instances")
         state = table.state_dict()
         if not np.isfinite(state["values"]).all():
-            raise AssertionError(f"zoo {name}: non-finite table rows")
+            raise AssertionError(f"{label} {name}: non-finite table rows")
         if name == "ctr_conv":
             keys, want = conv_counts(sets[0], len(sets))
             got = dict(zip(state["keys"].tolist(),
@@ -3398,7 +3463,7 @@ def zoo_single(zipf_sets, logkey, pv) -> dict:
                 f"host count of the task labels ({int(want.sum())} in all)")
         table.close()
         out[name] = per_pass
-        log(f"zoo {name} (single chip, W={table.conf.row_width}): "
+        log(f"{label} {name} (single chip, W={table.conf.row_width}): "
             + "; ".join(f"pass {p} {r['samples_per_s']!r} samples/s, "
                         f"{r['metrics']['duration_s']!r} s, "
                         + _zoo_metrics(r["metrics"])
@@ -3407,29 +3472,30 @@ def zoo_single(zipf_sets, logkey, pv) -> dict:
     return out
 
 
-def zoo_multichip(logkey, pv) -> dict:
-    """MMoE and RankCtrDnn on the hybrid world, HYBRID_PASSES passes over
-    the first ZOO_MC_BATCHES batches of their set, the streams continued:
-    the hot block realizes at the third begin_pass and routes through
-    hot_cold_select."""
+def zoo_multichip(sources: dict, composed: bool = False,
+                  label: str = "zoo") -> dict:
+    """Each entry of ``sources`` (name -> (dataset, batches)) on the
+    hybrid world (zoo_mc_world; ``composed``: on its composed mesh),
+    HYBRID_PASSES passes over the first batches of its set, the streams
+    continued: the hot block realizes at the third begin_pass and routes
+    through hot_cold_select.  Returns name -> (per pass, table state)."""
     import itertools
 
     out = {}
-    for name in ZOO_MULTICHIP:
+    for name, (src, n) in sources.items():
         t0 = time.perf_counter()
-        src = pv if name == "rank_ctr" else logkey
-        data = _Batches(itertools.islice(src.batches(), ZOO_MC_BATCHES))
-        table, trainer = zoo_mc_world(name, "cuda")
+        data = _Batches(itertools.islice(src.batches(), n))
+        table, trainer = zoo_mc_world(name, "cuda", composed=composed)
         per_pass = drive_hybrid([data] * HYBRID_PASSES, table, trainer)
+        out[name] = (per_pass, table.state_dict())
         table.close()
         for p, r in enumerate(per_pass):
-            _check_zoo_pass(f"zoo {name} multi-chip pass {p}", r["metrics"],
-                            trainer.n_tasks)
+            _check_zoo_pass(f"{label} {name} multi-chip pass {p}",
+                            r["metrics"], trainer.n_tasks)
         if not per_pass[-1]["hot_occ"] > 0:
-            raise AssertionError(f"zoo {name} multi-chip: no hot occurrence "
-                                 "routed")
-        out[name] = per_pass
-        log(f"zoo {name} (multi-chip, {POSITIONS} positions): "
+            raise AssertionError(f"{label} {name} multi-chip: no hot "
+                                 "occurrence routed")
+        log(f"{label} {name} (multi-chip, {trainer.mesh.shape}): "
             + "; ".join(f"pass {p} {r['samples_per_s']!r} samples/s, "
                         f"hot {r['resident']}, hot occurrences "
                         f"{r['hot_occ']}, " + _zoo_metrics(r["metrics"])
@@ -3438,69 +3504,102 @@ def zoo_multichip(logkey, pv) -> dict:
     return out
 
 
+def _dense_params(model) -> list:
+    """A model's dense parameters, a pipelined tower unpacked into
+    CtrDnn's layers (so the two compare)."""
+    if hasattr(model, "unpack_tower"):
+        model = model.unpack_tower()
+    return [p.detach().cpu() for p in model.parameters()]
+
+
 def _dense_diff(a, b) -> float:
-    return max(float((p.detach().cpu() - q.detach().cpu()).abs().max())
-               for p, q in zip(a.parameters(), b.parameters()))
+    return max(float((p - q).abs().max())
+               for p, q in zip(_dense_params(a), _dense_params(b)))
 
 
-def zoo_cpu_agreement(zipf_sets, logkey, pv) -> None:
-    """Every arm's first ZOO_CPU_BATCHES batches (groups of POSITIONS on
-    the multi-chip arms) trained once on the card and once on the CPU
-    (the plain twins), from the same seeds, uncached, the dense side by
-    SGD at ZOO_CPU_SGD_LR: losses within 1e-4 relative, AUC within 1e-3,
-    every dense parameter and table row within 1e-4 (small_agreement's
-    tolerances)."""
-    import itertools
-
-    import numpy as np
-
+def trained_runs(names, sets, devices=("cuda", "cpu"), multi=False,
+                 cache_rows=0) -> dict:
+    """Each (name, device) trained over ``sets`` (one pass each, from the
+    same seeds; ``multi`` on the hybrid world), the dense side by SGD at
+    ZOO_CPU_SGD_LR: {(name, device): (last metrics, state, model)}.  Runs
+    on the CPU take the plain twins, so no launch is counted."""
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
 
     saved = dict(sk.launches)
+    sgd = dict(dense_optimizer="sgd", dense_lr=ZOO_CPU_SGD_LR)
+    out = {}
+    for name in names:
+        for device in devices:
+            table, trainer = (zoo_mc_world(name, device, **sgd) if multi else
+                              zoo_world(name, device, cache_rows=cache_rows,
+                                        **sgd))
+            m = None
+            for data in sets:
+                table.begin_pass(data.unique_keys())
+                m = trainer.train_from_dataset(data, table)
+                table.end_pass()
+            out[(name, device)] = (m, table.state_dict(), trainer.model)
+            table.close()
+    sk.launches.update(saved)
+    return out
+
+
+def agree(label: str, a: tuple, b: tuple, tol: float = 1e-4,
+          g2sum_rtol=None) -> str:
+    """Two trained runs' (metrics, state, model) within small_agreement's
+    bounds: loss ``tol`` relative, AUC 1e-3, every table row and dense
+    parameter ``tol``; with ``g2sum_rtol`` the rows' g2sum column within
+    that relative bound instead.  Returns the report."""
+    import numpy as np
+
+    (ma, sa, da), (mb, sb, db) = a, b
+    va, vb = sa["values"], sb["values"]
+    g2 = 0.0
+    if g2sum_rtol is not None:
+        g2 = float((np.abs(va[:, -1] - vb[:, -1])
+                    / np.maximum(np.abs(vb[:, -1]), 1.0)).max())
+        va, vb = va[:, :-1], vb[:, :-1]
+    rows = (float(np.abs(va - vb).max())
+            if np.array_equal(sa["keys"], sb["keys"]) else math.inf)
+    dense = _dense_diff(da, db)
+    if not (math.isfinite(ma["loss"])
+            and math.isclose(ma["loss"], mb["loss"], rel_tol=tol)
+            and abs(ma["auc"] - mb["auc"]) <= 1e-3
+            and rows <= tol and dense <= tol and g2 <= (g2sum_rtol or 0.0)):
+        raise AssertionError(
+            f"{label}: loss {ma['loss']} vs {mb['loss']}, auc {ma['auc']} vs "
+            f"{mb['auc']}, rows {rows}, g2sum {g2}, dense {dense}")
+    return (f"{label} rows {rows!r} dense {dense!r}"
+            + (f" g2sum (relative) {g2!r}" if g2sum_rtol is not None else ""))
+
+
+def zoo_cpu_agreement(data: dict) -> None:
+    """Every arm's first ZOO_CPU_BATCHES batches (groups of POSITIONS on
+    the multi-chip arms) trained once on the card and once on the CPU
+    (the plain twins), from the same seeds, uncached (trained_runs), held
+    to small_agreement's tolerances (agree)."""
+    import itertools
+
     report = []
     arms = [(n, False) for n in [*ZOO_MODELS, *ZOO_VARIANTS]]
     arms += [(n, True) for n in ZOO_MULTICHIP]
     for name, multi in arms:
-        src = zoo_sets(name, zipf_sets, logkey, pv)[0]
+        src = zoo_sets(name, data)[0]
         n = ZOO_CPU_BATCHES * (POSITIONS if multi else 1)
-        data = _Batches(itertools.islice(src.batches(), n))
-        runs = {}
-        sgd = dict(dense_optimizer="sgd", dense_lr=ZOO_CPU_SGD_LR)
-        for device in ("cuda", "cpu"):
-            if multi:
-                table, trainer = zoo_mc_world(name, device, **sgd)
-            else:
-                table, trainer = zoo_world(name, device, cache_rows=0, **sgd)
-            table.begin_pass(data.unique_keys())
-            m = trainer.train_from_dataset(data, table)
-            table.end_pass()
-            runs[device] = (m, table.state_dict(), trainer.model)
-            table.close()
-        (mg, sg, dg), (mc, sc, dc) = runs["cuda"], runs["cpu"]
-        rows = (float(np.abs(sg["values"] - sc["values"]).max())
-                if np.array_equal(sg["keys"], sc["keys"]) else math.inf)
-        dense = _dense_diff(dg, dc)
-        if not (math.isfinite(mg["loss"])
-                and math.isclose(mg["loss"], mc["loss"], rel_tol=1e-4)
-                and abs(mg["auc"] - mc["auc"]) <= 1e-3
-                and rows <= 1e-4 and dense <= 1e-4):
-            raise AssertionError(
-                f"zoo {name} card/CPU: loss {mg['loss']} vs {mc['loss']}, auc "
-                f"{mg['auc']} vs {mc['auc']}, rows {rows}, dense {dense}")
-        report.append(f"{name}{' (multi-chip)' if multi else ''} rows "
-                      f"{rows!r} dense {dense!r}")
-    sk.launches.update(saved)  # the CPU runs the twins; not the main path
+        batches = _Batches(itertools.islice(src.batches(), n))
+        runs = trained_runs([name], [batches], multi=multi)
+        report.append(agree(f"{name}{' (multi-chip)' if multi else ''}",
+                            runs[(name, "cuda")], runs[(name, "cpu")]))
     log("zoo card vs CPU, max abs diff: " + "; ".join(report))
 
 
-def zoo_graph_equality(zipf_sets, logkey, pv) -> None:
+def zoo_graph_equality(data: dict) -> None:
     """Under deterministic algorithms, each single-chip arm's first
     ZOO_GRAPH_BATCHES batches: scan_steps GRAPH_K as a CUDA graph (a
     warm-up group, a capture, a replay) against eager steps, bit-equal in
     losses, AUCs, grad_norm, dense parameters and table."""
     import itertools
 
-    import numpy as np
     import torch
 
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
@@ -3509,13 +3608,14 @@ def zoo_graph_equality(zipf_sets, logkey, pv) -> None:
     torch.use_deterministic_algorithms(True)
     try:
         for name in [*ZOO_MODELS, *ZOO_VARIANTS]:
-            src = zoo_sets(name, zipf_sets, logkey, pv)[0]
-            data = _Batches(itertools.islice(src.batches(), ZOO_GRAPH_BATCHES))
+            src = zoo_sets(name, data)[0]
+            batches = _Batches(itertools.islice(src.batches(),
+                                                ZOO_GRAPH_BATCHES))
             runs = []
             for k in (1, GRAPH_K):
                 table, trainer = zoo_world(name, "cuda", scan_steps=k)
-                table.begin_pass(data.unique_keys())
-                m = trainer.train_from_dataset(data, table)
+                table.begin_pass(batches.unique_keys())
+                m = trainer.train_from_dataset(batches, table)
                 torch.cuda.synchronize()
                 table.end_pass()
                 runs.append((m, table.state_dict(), trainer))
@@ -3558,21 +3658,485 @@ def model_zoo(zipf_sets, logkey_files) -> dict:
     log(f"zoo data: the logkey set, {logkey.get_memory_data_size()} "
         f"instances, and PV-merged ({pv.get_pv_data_size()} page-views); "
         f"{time.perf_counter() - t0!r} s with the parity")
+    data = {"zipf": list(zipf_sets[:2]), "logkey": [logkey, logkey],
+            "pv": [pv, pv]}
     sk.reset_launches()
-    single = zoo_single(zipf_sets, logkey, pv)
-    multi = zoo_multichip(logkey, pv)
+    single = zoo_single(data)
+    multi = zoo_multichip({n: (zoo_sets(n, data)[0], ZOO_MC_BATCHES)
+                           for n in ZOO_MULTICHIP})
     launches = dict(sk.launches)
     log(f"zoo launches (single-chip and multi-chip arms): {launches}")
     for name in sk.KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the zoo's "
                                  "path")
-    zoo_cpu_agreement(zipf_sets, logkey, pv)
-    zoo_graph_equality(zipf_sets, logkey, pv)
+    zoo_cpu_agreement(data)
+    zoo_graph_equality(data)
     logkey.close()
     pv.close()
     return {"single": single, "multi": multi, "launches": launches,
             "times": times}
+
+
+# --------------------------------------------------------------------------- #
+# phase 8b: the parallel axes and retrieval
+# --------------------------------------------------------------------------- #
+# The sequence arm's set: SEQ_FILES x SEQ_INS_PER_FILE instances (16
+# batches) whose slot0 is the behaviour sequence of 1 to SEQ_T keys (the
+# model's SEQ_T positions; about a quarter of the instances reach the last
+# of AXIS_POSITIONS chunks), the other slots 1 to 3 keys; the key capacity
+# is the worst case, so no key is dropped
+SEQ_FILES, SEQ_INS_PER_FILE, SEQ_T = 4, 8192, 64
+SEQ_FEASIGNS = SEQ_T + (N_SLOTS - 1) * 3
+SEQ_KEY_CAPACITY = BATCH * SEQ_FEASIGNS
+# this slice's models at bench.py's widths (zoo_model's entries beside
+# ZOO_MODELS): the retrieval tower's item slot is the last one; a model
+# axis named by a mesh argument gets AXIS_POSITIONS positions; 8 pipeline
+# microbatches
+AXIS_POSITIONS, PIPE_MICROBATCHES = 4, 8
+MODEL_AXES = ("seq", "expert", "pipe")
+LONGSEQ_KW = dict(n_heads=4, head_dim=16, hidden=HIDDEN, max_seq_len=SEQ_T)
+AXES_MODELS = {
+    "retrieval": ("TwoTower", dict(item_slots=(N_SLOTS - 1,), hidden=(128, 64),
+                                   temperature=0.05), "zipf"),
+    "longseq_full": ("LongSeqCtrDnn", LONGSEQ_KW, "seq"),
+    "longseq_ring": ("LongSeqCtrDnn", dict(LONGSEQ_KW, seq_mesh="seq",
+                                           seq_impl="ring"), "seq"),
+    "longseq_ulysses": ("LongSeqCtrDnn", dict(LONGSEQ_KW, seq_mesh="seq",
+                                              seq_impl="ulysses"), "seq"),
+    "pipelined": ("PipelinedCtrDnn", dict(mesh="pipe", hidden=HIDDEN,
+                                          microbatches=PIPE_MICROBATCHES), "zipf"),
+    "pipelined_bf16": ("PipelinedCtrDnn", dict(
+        mesh="pipe", hidden=HIDDEN, microbatches=PIPE_MICROBATCHES,
+        compute_dtype="bfloat16"), "zipf"),
+    "ctr": ("CtrDnn", dict(hidden=HIDDEN), "zipf"),
+    "mmoe_expert": ("MMoE", dict(ZOO_MODELS["mmoe"][1], expert_mesh="expert"),
+                    "logkey"),
+}
+# the single-chip arms beside the retrieval arm: one pass over the sequence
+# set, two over the Zipf or logkey sets
+AXES_SINGLE = ("longseq_full", "longseq_ring", "longseq_ulysses", "pipelined",
+               "ctr", "pipelined_bf16", "mmoe_expert", "mmoe")
+# the composed arms: entry -> (inner axis of make_composed_mesh(POSITIONS,
+# 2, axis), the model's "inherit" arguments)
+COMPOSED = {"mmoe": ("expert", dict(expert_mesh="inherit")),
+            "longseq_full": ("seq", dict(seq_mesh="inherit",
+                                         seq_impl="ring"))}
+# PipelineTrainer at the slice's pooled width (16 slots x 10 + 13 dense)
+PIPE_D_IN, PIPE_WIDTH, PIPE_DEPTH = 173, 512, 2
+# depth cuts to keep the phase within 150 s: the expert and composed MMoE
+# arms over the first AXES_LOGKEY_FILES logkey files (50 000 instances),
+# card against CPU over AXES_CPU_BATCHES batches, synchronized ms a step
+# over AXES_MS_STEPS steps
+AXES_LOGKEY_FILES, AXES_CPU_BATCHES, AXES_MS_STEPS = 2, 2, 8
+# sharded against serial, one forward: the reference tests' bound; bf16
+# against the bf16 CtrDnn: the reference's bf16 bound
+AXES_FWD_TOL, AXES_BF16_TOL = 2e-5, 2e-2
+
+
+def seq_load(files):
+    """The sequence set through the native parser."""
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config
+
+    ds = PadBoxSlotDataset(make_synth_config(
+        n_sparse_slots=N_SLOTS, dense_dim=DENSE, batch_size=BATCH,
+        max_feasigns_per_ins=SEQ_FEASIGNS,
+        batch_key_capacity=SEQ_KEY_CAPACITY, sequence_slot="slot0",
+        max_seq_len=SEQ_T), read_threads=len(files))
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    if ds.parser._native is None:
+        raise AssertionError("the sequence set loaded without the native "
+                             "parser")
+    return ds
+
+
+def seq_spans(label: str, batches, p: int) -> int:
+    """Instances of ``batches`` whose behaviour sequence reaches the last
+    of ``p`` chunks of SEQ_T positions (the feed left-aligns seq_pos, so
+    every chunk then holds real keys and every ring tick folds a live
+    block); raises if there is none."""
+    n = sum(int((b.seq_pos[:, SEQ_T - SEQ_T // p] < b.keys.shape[0]).sum())
+            for b in batches)
+    if not n:
+        raise AssertionError(f"{label}: no sequence reaches the last of {p} "
+                             "chunks")
+    return n
+
+
+def _logits_on(table, models, batch) -> list:
+    """Each model's logits on one batch, the rows pulled once from an open
+    pass of ``table`` (no launch counted)."""
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.sparse.table import pull_rows
+    from paddlebox_tpu_torch.train.trainer import host_feed, model_extras
+
+    saved = dict(sk.launches)
+    dev = {k: torch.from_numpy(v).cuda()
+           for k, v in host_feed(batch, table.plan_batch(batch)).items()}
+    rows = pull_rows(table.values, dev["idx"])
+    with torch.no_grad():
+        out = [m(rows, dev["key_segments"], dev["dense"], BATCH,
+                 **model_extras(m, dev)) for m in models]
+    sk.launches.update(saved)
+    return out
+
+
+def _max_rel(a, b) -> float:
+    """max |a - b| / (1 + |b|)."""
+    return float(((a - b).abs() / (1.0 + b.abs())).max())
+
+
+# the retrieval loss scales the row gradients by 1/temperature (20), so
+# their accumulated squares, the rows' g2sum column, by 400: that column
+# within this relative bound against the CPU
+RETRIEVAL_G2SUM_RTOL = 1e-3
+
+
+def _step_ms(name: str, batches) -> float:
+    """Median synchronized ms of one eager step of an arm's single-chip
+    world over ``batches`` (their feeds on the card beforehand; the first
+    step a warm-up), launches not counted."""
+    import statistics
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    saved = dict(sk.launches)
+    seconds = timed_groups(*zoo_world(name, "cuda", cache_rows=0), batches)
+    sk.launches.update(saved)
+    return statistics.median(seconds[1:]) * 1e3
+
+
+def _pass_line(label: str, per_pass: list) -> str:
+    return (f"{label}: " + "; ".join(
+        f"pass {p} {r['samples_per_s']!r} samples/s, "
+        f"{r['metrics']['duration_s']!r} s, " + _zoo_metrics(r["metrics"])
+        for p, r in enumerate(per_pass)))
+
+
+def retrieval_arm(zipf_sets) -> dict:
+    """TwoTower under RetrievalTrainer on the default table over the first
+    two Zipf sets (32 steps a pass, [2048, 2048] similarities): eager steps
+    and scan_steps GRAPH_K as a CUDA graph, timed at the defaults; the same
+    two runs again under deterministic algorithms, bit-equal; then evaluate
+    in a pass of its own."""
+    import torch
+
+    sets = list(zipf_sets[:2])
+    out, runs = {}, {}
+    for det in (False, True):
+        torch.use_deterministic_algorithms(det)
+        try:
+            for k in (1, GRAPH_K):
+                table, trainer = zoo_world("retrieval", "cuda", scan_steps=k)
+                per_pass = drive_passes(sets, table, trainer)
+                for p, r in enumerate(per_pass):
+                    _check_zoo_pass(f"retrieval k={k} pass {p}",
+                                    r["metrics"], 1)
+                if det:
+                    runs[k] = (per_pass, table.state_dict(), trainer)
+                else:
+                    out[k] = per_pass
+                if det and k == 1:
+                    table.begin_pass(sets[0].unique_keys())
+                    ev = trainer.evaluate(sets[0], table)
+                    table.end_pass()
+                table.close()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    (pe, se, te), (pg, sg, tg) = runs[1], runs[GRAPH_K]
+    keys = ("loss", "auc", "grad_norm")
+    _sync_equal("retrieval graph against eager steps", sg, se,
+                [r["metrics"][k] for r in pg for k in keys],
+                [r["metrics"][k] for r in pe for k in keys])
+    if _dense_diff(te.model, tg.model) != 0.0 or tg.graph_captures != 2:
+        raise AssertionError(f"retrieval graph: dense parameters differ or "
+                             f"{tg.graph_captures} captures")
+    if not (ev["count"] == sets[0].get_memory_data_size()
+            and 0.0 < ev["auc"] < 1.0):
+        raise AssertionError(f"retrieval evaluate: {ev}")
+    log(_pass_line("axes retrieval, eager", out[1]))
+    log(_pass_line(f"axes retrieval, scan_steps {GRAPH_K} graph",
+                   out[GRAPH_K]))
+    log(_pass_line("axes retrieval, eager, deterministic", pe))
+    log(_pass_line(f"axes retrieval, scan_steps {GRAPH_K} graph, "
+                   "deterministic", pg) + "; bit-equal to eager")
+    log(f"axes retrieval evaluate: auc {ev['auc']!r} over {ev['count']} "
+        "instances")
+    return {"eager": out[1], "graph": out[GRAPH_K]}
+
+
+def composed_arm(logkey, seq_ds) -> dict:
+    """MMoE on make_composed_mesh(POSITIONS, 2, "expert") and the ring
+    LongSeqCtrDnn on make_composed_mesh(POSITIONS, 2, "seq") on the hybrid
+    world (zoo_multichip), beside the same runs on make_mesh(POSITIONS):
+    show and click counters bit-equal, loss within rel 5e-3 and AUC
+    within 2e-2 (the reference test's bounds)."""
+    import itertools
+
+    import numpy as np
+
+    sources = {"mmoe": (logkey, ZOO_MC_BATCHES), "longseq_full": (seq_ds, 16)}
+    seq_spans("axes composed longseq_full",
+              itertools.islice(seq_ds.batches(), 16), 2)
+    runs = {c: zoo_multichip(sources, c, "axes composed" if c else "axes")
+            for c in (True, False)}
+    for name in sources:
+        (pc, sc), (pd, sd) = runs[True][name], runs[False][name]
+        mc, md = pc[-1]["metrics"], pd[-1]["metrics"]
+        counters = (np.array_equal(sc["keys"], sd["keys"]) and np.array_equal(
+            sc["values"][:, :2], sd["values"][:, :2]))
+        if not (counters and mc["steps"] == md["steps"]
+                and math.isclose(mc["loss"], md["loss"], rel_tol=5e-3)
+                and abs(mc["auc"] - md["auc"]) <= 2e-2):
+            raise AssertionError(
+                f"axes composed {name}: loss {mc['loss']} vs {md['loss']}, "
+                f"auc {mc['auc']} vs {md['auc']}, counters equal {counters}")
+        log(f"axes composed {name} against data-only: counters bit-equal, "
+            f"loss {mc['loss']!r} vs {md['loss']!r}, auc {mc['auc']!r} vs "
+            f"{md['auc']!r}, rows max abs diff "
+            f"{float(np.abs(sc['values'] - sd['values']).max())!r}")
+    return runs
+
+
+def axes_checks(zipf_sets, logkey, seq_ds) -> None:
+    """The arms' checks, no launch counted: one batch's logits of the
+    sharded models against their serial twins (AXES_FWD_TOL; the bf16
+    pipelined tower against the bf16 CtrDnn, AXES_BF16_TOL); the first
+    AXES_CPU_BATCHES batches trained (SGD) by each sharded model against
+    its serial twin on the card and by every arm's model on the card
+    against the CPU, the retrieval arm over two passes on the default
+    cached table; the row kernels bit-exact against their twins at the
+    sequence arm's key capacity; PipelineTrainer's gradient against the
+    sequential oracle's; the aux tables on the card against the host."""
+    import itertools
+
+    import torch
+
+    from paddlebox_tpu_torch.config import SparseTableConfig
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+
+    saved = dict(sk.launches)
+    first = lambda ds, n=AXES_CPU_BATCHES: _Batches(
+        itertools.islice(ds.batches(), n))
+    zipf0, zipf1 = first(zipf_sets[0]), first(zipf_sets[1])
+    seq2, log2 = first(seq_ds), first(logkey)
+    # the forward's batch reaches every ring tick with live blocks
+    spans = seq_spans("axes forward", [next(seq2.batches())], AXIS_POSITIONS)
+    # one forward each: sharded against serial
+    table = SparseTable(SparseTableConfig(embedding_dim=EMB, hbm_cache_rows=0),
+                        seed=0, device="cuda")
+    w = table.conf.row_width
+    report = []
+    for src, names, tol in (
+            (seq2, ["longseq_full", "longseq_ring", "longseq_ulysses"],
+             AXES_FWD_TOL),
+            (zipf0, ["ctr", "pipelined"], AXES_FWD_TOL),
+            (log2, ["mmoe", "mmoe_expert"], AXES_FWD_TOL)):
+        batch = next(src.batches())
+        table.begin_pass(src.unique_keys())
+        models = [zoo_model(n, w, "cuda") for n in names]
+        logits = _logits_on(table, models, batch)
+        table.end_pass()
+        for n, lg in zip(names[1:], logits[1:]):
+            err = _max_rel(lg, logits[0])
+            if not err <= tol:
+                raise AssertionError(f"axes {n} forward: {err} from "
+                                     f"{names[0]}")
+            report.append(f"{n} {err!r}")
+    table.begin_pass(zipf0.unique_keys())
+    bf = [zoo_model(n, w, "cuda", compute_dtype="bfloat16")
+          for n in ("ctr", "pipelined")]
+    lc, lp = _logits_on(table, bf, next(zipf0.batches()))
+    table.end_pass()
+    table.close()
+    err = _max_rel(lp, lc)
+    if not (lp.dtype == torch.float32 and err <= AXES_BF16_TOL):
+        raise AssertionError(f"axes pipelined bf16 forward: {err}")
+    log(f"axes forward, sharded against serial ({spans} of the sequence "
+        f"batch's instances reach all {AXIS_POSITIONS} chunks), max |d| / "
+        "(1 + |x|): " + "; ".join(report) + f"; pipelined bf16 against bf16 CtrDnn {err!r}")
+    # trained: sharded against serial on the card, card against CPU
+    report = []
+    for names, sets, cache in (
+            (["longseq_full", "longseq_ring", "longseq_ulysses"], [seq2], 0),
+            (["ctr", "pipelined"], [zipf0], 0),
+            (["mmoe", "mmoe_expert"], [log2], 0),
+            (["retrieval"], [zipf0, zipf1], None)):
+        runs = trained_runs(names, sets, cache_rows=cache)
+        for n in names:
+            report.append(agree(
+                f"{n} card/CPU", runs[(n, "cuda")], runs[(n, "cpu")],
+                g2sum_rtol=RETRIEVAL_G2SUM_RTOL if n == "retrieval" else None))
+        for n in names[1:]:
+            report.append(agree(f"{n}/{names[0]}", runs[(n, "cuda")],
+                                runs[(names[0], "cuda")]))
+    log("axes trained agreement, max abs diff: " + "; ".join(report))
+    # the row kernels at the sequence arm's capacity
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    values = torch.randn((1 << 21, 10), device="cuda", generator=gen)
+    idx = torch.randint(0, 1 << 21, (SEQ_KEY_CAPACITY,), device="cuda",
+                        generator=gen, dtype=torch.int32)
+    uniq = torch.randperm((1 << 21) - 1, device="cuda",
+                          generator=gen)[:SEQ_KEY_CAPACITY].to(torch.int32)
+    delta = torch.randn((SEQ_KEY_CAPACITY, 10), device="cuda", generator=gen)
+    if not (torch.equal(sk.pull_rows(values, idx),
+                        sk.pull_rows_plain(values, idx))
+            and torch.equal(sk.scatter_add_rows(values.clone(), uniq, delta),
+                            sk.scatter_add_rows_plain(values.clone(), uniq,
+                                                      delta))):
+        raise AssertionError("a row kernel differs from its twin at the "
+                             "sequence arm's key capacity")
+    del values, delta
+    # PipelineTrainer: the pipeline's gradient is the sequential oracle's
+    pipeline_trainer_check()
+    aux_tables_check()
+    sk.launches.update(saved)
+
+
+def pipeline_trainer_check() -> None:
+    """PipelineTrainer at d_in PIPE_D_IN, width PIPE_WIDTH, PIPE_DEPTH
+    layers a stage, AXIS_POSITIONS stages and PIPE_MICROBATCHES
+    microbatches of BATCH / PIPE_MICROBATCHES: the gradient through the
+    schedule against the sequential oracle's (reference_forward_loss), an
+    SGD step applying exactly it, and ms per Adam step."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.parallel import PipelineTrainer, make_mesh
+    from paddlebox_tpu_torch.parallel import pipeline as pipe
+
+    rng = np.random.default_rng(16)
+    mb = BATCH // PIPE_MICROBATCHES
+    x = rng.normal(size=(PIPE_MICROBATCHES, mb, PIPE_D_IN)).astype(np.float32)
+    y = (x.mean(-1) > 0).astype(np.float32)
+    mask = np.ones_like(y)
+    mesh = make_mesh(AXIS_POSITIONS, device="cuda", axis_name="pipe")
+    params = pipe.init_pipeline_params(PIPE_D_IN, PIPE_WIDTH, PIPE_DEPTH,
+                                       AXIS_POSITIONS, seed=2, device="cuda")
+    dev = [torch.from_numpy(a).cuda() for a in (x, y, mask)]
+    grads = []
+    for fn in (lambda p: pipe.pipeline_forward_loss(p, *dev)[0],
+               lambda p: pipe.reference_forward_loss(p, *dev)):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        fn(p).backward()
+        grads.append({k: v.grad for k, v in p.items()})
+    errs = {k: float((grads[0][k] - grads[1][k]).abs().max()
+                     / grads[1][k].abs().max().clamp(min=1e-30))
+            for k in params}
+    lr = 0.1
+    tr = PipelineTrainer(mesh, PIPE_D_IN, PIPE_WIDTH, PIPE_DEPTH,
+                         params=params, optimizer=lambda ps: (
+                             torch.optim.SGD(ps, lr=lr)))
+    tr.train_step(x, y, mask)
+    step = max(float(((params[k] - tr.params[k].detach())
+                      - lr * grads[1][k]).abs().max()) for k in params)
+    if not (max(errs.values()) <= 1e-4 and step <= 1e-5):
+        raise AssertionError(f"PipelineTrainer: gradient against the oracle "
+                             f"{errs}, SGD step off by {step}")
+    tr = PipelineTrainer(mesh, PIPE_D_IN, PIPE_WIDTH, PIPE_DEPTH, seed=3)
+    losses = [tr.train_step(x, y, mask) for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        losses.append(tr.train_step(x, y, mask))
+    step_ms = (time.perf_counter() - t0) * 100.0
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"PipelineTrainer did not learn: {losses}")
+    log(f"axes PipelineTrainer ({AXIS_POSITIONS} stages, d_in {PIPE_D_IN}, "
+        f"width {PIPE_WIDTH}, depth {PIPE_DEPTH} a stage, M "
+        f"{PIPE_MICROBATCHES}): gradient against the sequential oracle, max "
+        f"|d| / max |g| {max(errs.values())!r}; SGD step off by {step!r}; "
+        f"Adam {step_ms!r} ms a step (host-synchronized by the loss "
+        f"readback), loss {losses[0]!r} -> {losses[-1]!r}")
+
+
+def aux_tables_check() -> None:
+    """ReplicaCache.pull and InputTable rows on the card against the
+    host."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.sparse.aux_tables import InputTable, ReplicaCache
+
+    rng = np.random.default_rng(17)
+    matrix = rng.normal(size=(4096, 8)).astype(np.float32)
+    cache = ReplicaCache(matrix, device="cuda")
+    ids = rng.integers(-5, 4200, size=BATCH)
+    want = np.concatenate([np.zeros((1, 8), np.float32), matrix])[
+        np.where((ids >= 0) & (ids <= 4096), ids, 0)]
+    got = cache.pull(ids)
+    table = InputTable(dim=8, device="cuda")
+    for i in range(100):
+        table.add_row(f"ad-{i}", matrix[i])
+    keys = [f"ad-{i}" for i in rng.integers(0, 150, size=BATCH)]
+    idx = torch.from_numpy(table.lookup_idx(keys)).cuda()
+    rows = table.rows_device().index_select(0, idx)
+    if not (got.device.type == "cuda"
+            and np.array_equal(got.cpu().numpy(), want)
+            and np.array_equal(rows.cpu().numpy(), table.lookup_rows(keys))):
+        raise AssertionError("the aux tables on the card differ from the "
+                             "host")
+    log(f"axes aux tables: ReplicaCache.pull of {BATCH} ids (bad ids read "
+        f"row 0) and {BATCH} InputTable rows on the card equal the host's")
+
+
+def parallel_axes(zipf_sets, logkey_files, seq_files) -> dict:
+    """This slice's models and parallel axes at the slice's width (16
+    slots, 13 dense, batch 2048, embedding_dim 8, vocab 100 000): the
+    retrieval, sequence, pipeline, expert and composed arms with the
+    launch counters reset just before them and read just after (all six
+    kernels must launch), then their checks (axes_checks) and the full,
+    ring and Ulysses attention arms' synchronized ms a step."""
+    import itertools
+
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    t0 = time.perf_counter()
+    seq_ds = seq_load(seq_files)
+    logkey = PadBoxSlotDataset(data_conf(), read_threads=AXES_LOGKEY_FILES)
+    logkey.set_filelist(logkey_files[:AXES_LOGKEY_FILES])
+    logkey.load_into_memory()
+    log(f"axes data: the sequence set, {seq_ds.get_memory_data_size()} "
+        f"instances, {seq_ds.unique_keys().shape[0]} census keys; the logkey "
+        f"set's first {AXES_LOGKEY_FILES} files, "
+        f"{logkey.get_memory_data_size()} instances; "
+        f"{time.perf_counter() - t0!r} s")
+    spans = seq_spans("axes sequence set", seq_ds.batches(), AXIS_POSITIONS)
+    data = {"zipf": list(zipf_sets[:2]), "logkey": [logkey, logkey],
+            "seq": [seq_ds]}
+    sk.reset_launches()
+    out = {"retrieval": retrieval_arm(zipf_sets),
+           "single": zoo_single(data, AXES_SINGLE, "axes"),
+           "composed": composed_arm(logkey, seq_ds)}
+    launches = dict(sk.launches)
+    if seq_ds.builder.dropped_keys:
+        raise AssertionError(f"the sequence set dropped "
+                             f"{seq_ds.builder.dropped_keys} keys")
+    log(f"axes sequence set: sequences of 1 to {SEQ_T} positions, {spans} "
+        f"of {seq_ds.get_memory_data_size()} instances reach all "
+        f"{AXIS_POSITIONS} chunks, 0 keys dropped")
+    log(f"axes launches (every arm): {launches}")
+    for name in sk.KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "parallel axes' path")
+    axes_checks(zipf_sets, logkey, seq_ds)
+    ms = {name: _step_ms(name, itertools.islice(seq_ds.batches(),
+                                                AXES_MS_STEPS))
+          for name in ("longseq_full", "longseq_ring", "longseq_ulysses")}
+    log("axes synchronized ms a step (sequence set, median of "
+        f"{AXES_MS_STEPS - 1}): " + "; ".join(f"{n} {v!r}"
+                                              for n, v in ms.items()))
+    seq_ds.close()
+    logkey.close()
+    out.update(launches=launches, step_ms=ms)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -4215,7 +4779,7 @@ def main() -> int:
                 f"{k}: {v['log']}" for k, v in _native.build_log.items()))
 
         t0 = time.perf_counter()
-        files, cached_files, logkey_files = write_data()
+        files, cached_files, logkey_files, seq_files = write_data()
         write_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         ds = load(files, N_FILES)
@@ -4267,6 +4831,7 @@ def main() -> int:
         phase(slot_policy, hybrid)
         phase(data_half, logkey_files, load_s)
         phase(model_zoo, cached_ds, logkey_files)
+        phase(parallel_axes, cached_ds, logkey_files, seq_files)
         rows = phase(kernel_times, res, ds, cached,
                      censuses[CACHED_PASSES - 1], hybrid, errs)
         # last: after its device traces, a torch.profiler window of this

@@ -1,9 +1,8 @@
 """Configuration for the PyTorch port: the dataclasses and the flag shim.
 
 A copy of the fields of ``paddlebox_tpu/config.py`` that the ported paths
-read.  Every other feature of the reference is either absent here or, where
-its field exists, raises ``NotImplementedError`` naming the later slice of
-the port (ROADMAP.md, Queue A) that brings it.
+read; every other feature of the reference is absent here (ROADMAP.md,
+Queue A, names the slice that brings it).
 """
 
 from __future__ import annotations
@@ -12,14 +11,6 @@ import dataclasses
 import math
 import os
 from typing import Optional, Sequence
-
-
-def not_ported(what: str, where: str) -> NotImplementedError:
-    """The error every unsupported option raises: names the later slice."""
-    return NotImplementedError(
-        f"{what} is not ported to paddlebox_tpu_torch yet ({where}; "
-        "see ROADMAP.md Queue A)"
-    )
 
 
 # --------------------------------------------------------------------------- #

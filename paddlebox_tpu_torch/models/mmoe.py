@@ -4,8 +4,14 @@ paddlebox_tpu/models/mmoe.py; BASELINE.json configs[4]).
 All tasks share the sparse table and the pooled features; E expert MLPs
 feed T softmax gates and T task towers.  Task 0's label is the primary
 label; tasks 1.. read the batch's task-label columns
-(DataFeedConfig.task_label_slots).  The serial expert bank only: the
-reference's expert-parallel bank (``expert_mesh``) is a later slice.
+(DataFeedConfig.task_label_slots).
+
+Expert parallelism: with ``expert_mesh`` (a mesh with an ``expert`` axis,
+or ``"inherit"`` inside a composed mesh, parallel/mesh.py) the bank runs
+over the axis's positions (parallel/expert.py): each position runs its E/P
+experts on the replicated batch and mixes them by its own gate columns, and
+one psum reduces the mix.  The parameters stay the serial bank's
+``ModuleList``; the forward stacks them ``[E, d_in, d_out]``.
 """
 
 from __future__ import annotations
@@ -15,7 +21,6 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from paddlebox_tpu_torch.config import not_ported
 from paddlebox_tpu_torch.models.layers import (
     linear,
     make_linear,
@@ -24,6 +29,8 @@ from paddlebox_tpu_torch.models.layers import (
     resolve_compute_dtype,
 )
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm, pooled_width
+from paddlebox_tpu_torch.parallel.expert import EXPERT_AXIS, expert_parallel_mlp_mix
+from paddlebox_tpu_torch.parallel.mesh import axis_positions, inner_mesh
 from paddlebox_tpu_torch.utils.device import resolve_device
 
 
@@ -41,13 +48,15 @@ class MMoE(nn.Module):
         use_cvm: bool = True,
         cvm_offset: int = 2,
         compute_dtype: str = "",
-        expert_mesh=None,
+        expert_mesh=None,  # Mesh with an "expert" axis | "inherit" | None
         seed: int = 0,
         device="cuda",
     ):
         super().__init__()
-        if expert_mesh is not None:
-            raise not_ported("expert_mesh", "parallel axes, item 5")
+        if expert_mesh is not None and expert_mesh != "inherit":
+            self._check_axis(axis_positions(expert_mesh, EXPERT_AXIS),
+                             n_experts)
+        self.expert_mesh = expert_mesh
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.device = resolve_device(device)
         self.n_sparse_slots = n_sparse_slots
@@ -83,8 +92,50 @@ class MMoE(nn.Module):
         dt = self.compute_dtype
         gates = torch.stack([torch.softmax(linear(g, feats, dt), dim=-1)
                              for g in self.gates])  # [T, B, E]
-        expert_out = torch.stack([mlp(e, feats, dt) for e in self.experts],
-                                 dim=1)  # [B, E, expert_dim]
-        mixed = torch.einsum("tbe,bed->tbd", gates, expert_out)
+        if self.expert_mesh is None:
+            expert_out = torch.stack([mlp(e, feats, dt) for e in self.experts],
+                                     dim=1)  # [B, E, expert_dim]
+            mixed = torch.einsum("tbe,bed->tbd", gates, expert_out)
+        else:
+            mixed = self._ep_mixed(feats, gates)
         return torch.stack([mlp(tower, mixed[t], dt)[:, 0]
                             for t, tower in enumerate(self.towers)], dim=1)
+
+    def bind_composed_mesh(self, mesh) -> None:
+        """Bind an ``"inherit"`` expert_mesh to the composed ``mesh``'s
+        expert axis (MultiChipTrainer calls it once, when it is built)."""
+        if self.expert_mesh == "inherit":
+            self.expert_mesh = inner_mesh(mesh, EXPERT_AXIS)
+            self._check_axis(self.expert_mesh.n, self.n_experts)
+
+    @staticmethod
+    def _check_axis(p: int, n_experts: int) -> None:
+        if n_experts % p:
+            raise ValueError(
+                f"n_experts {n_experts} not divisible by the "
+                f"{EXPERT_AXIS!r} axis size {p}"
+            )
+
+    def _ep_mixed(self, feats: torch.Tensor, gates: torch.Tensor
+                  ) -> torch.Tensor:
+        """[T, B, expert_dim] gate-mixed expert outputs with the bank over
+        the ``expert`` axis's P positions: the stacked bank [E, d_in, d_out]
+        split [P, E/P, ...], the gates' expert columns [P, T, B, E/P] the
+        same way; mlp()'s cast policy, so serial == sharded under any
+        compute dtype."""
+        p = axis_positions(self.expert_mesh, EXPERT_AXIS)
+        dt = self.compute_dtype
+        e_local = self.n_experts // p
+        stacked = []
+        for li in range(len(self.experts[0])):
+            w = torch.stack([e[li].weight.t() for e in self.experts])
+            b = torch.stack([e[li].bias for e in self.experts])
+            if dt is not None:
+                w, b = w.to(dt), b.to(dt)
+            stacked.append({"w": w.reshape(p, e_local, *w.shape[1:]),
+                            "b": b.reshape(p, e_local, -1)})
+        if dt is not None:
+            feats = feats.to(dt)
+        T, B, _ = gates.shape
+        gates_local = gates.reshape(T, B, p, e_local).permute(2, 0, 1, 3)
+        return expert_parallel_mlp_mix(stacked, feats, gates_local)[0]

@@ -69,8 +69,16 @@ state per position merged at the pass end (``task<t>/<metric>``); the
 primary AUC reads task 0.  As the reference's, this trainer reads no
 ``counter_label_tasks``.
 
-Cut-outs (each raises ``NotImplementedError``): the host plane; the
-watchdog; the cross-process fleet snapshot.
+A composed mesh (``make_composed_mesh(n_data, n_inner, axis)``): the
+table, the feeds, the plans and the counters see the ``n_data`` data
+positions; a model built with ``"inherit"`` (MMoE's ``expert_mesh``,
+LongSeqCtrDnn's ``seq_mesh``) takes the inner axis when the trainer is
+built (its ``bind_composed_mesh``) and splits its dense compute over the
+inner positions inside each data position (reference: the
+``axis_names={"data"}`` binding of the step's shard_map).
+
+Not ported: the host plane; the watchdog; the cross-process fleet
+snapshot.
 """
 
 from __future__ import annotations
@@ -109,7 +117,7 @@ from paddlebox_tpu_torch.models.layers import (
 from paddlebox_tpu_torch.ops import sparse_kernels
 from paddlebox_tpu_torch.parallel import collectives
 from paddlebox_tpu_torch.parallel.async_dense import AsyncDenseTable
-from paddlebox_tpu_torch.parallel.mesh import Mesh
+from paddlebox_tpu_torch.parallel.mesh import Mesh, data_axis_size
 from paddlebox_tpu_torch.parallel.sharded_table import (
     ShardedBatchPlan,
     ShardedSparseTable,
@@ -343,7 +351,9 @@ class MultiChipTrainer:
         self.table_conf = table_conf
         self.mesh = mesh
         self.device = mesh.device
-        self.n_dev = mesh.n
+        # data positions; a composed mesh's inner axis splits the dense
+        # compute inside the step, unseen by the feeds and the table
+        self.n_dev = data_axis_size(mesh)
         self.conf = trainer_conf or TrainerConfig()
         self.metric_group = metric_group
         n_slots = model.n_sparse_slots
@@ -353,6 +363,9 @@ class MultiChipTrainer:
         # the per-slot LR map, consumed by plan_group -> serve_lr / hot_lr
         self._slot_lr_vec = resolve_slot_lr_vec(table_conf, n_slots)
         apply_compute_dtype_override(model, self.conf.compute_dtype)
+        # a model built with "inherit" takes the composed mesh's inner axis
+        if hasattr(model, "bind_composed_mesh"):
+            model.bind_composed_mesh(mesh)
         for p in model.parameters():
             if p.device.type != self.device.type:
                 raise ValueError(
@@ -533,8 +546,9 @@ class MultiChipTrainer:
             params = list(model.parameters())
             r = rows[d].detach().requires_grad_(True)
             pulled = r if key_part is None else r * key_part[d][:, None]
-            logits = model(pulled, feed["key_segments"][d], feed["dense"][d],
-                           mask.shape[1], **_position_extras(model, feed, d))
+            logits = model(pulled, feed["key_segments"][d],
+                           feed["dense"][d], mask.shape[1],
+                           **_position_extras(model, feed, d))
             if multi:
                 per_ins = bce_with_logits(
                     logits, feed["task_labels"][d]).mean(1) * mask[d]

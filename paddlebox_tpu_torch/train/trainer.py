@@ -617,16 +617,8 @@ class Trainer:
                 feed["key_segments"] % self._part_vec.shape[0]]
             pulled = rows * key_part[:, None]
         labels, mask = feed["labels"], feed["ins_mask"]
-        logits = self.model(pulled, feed["key_segments"], feed["dense"],
-                            labels.shape[0], **model_extras(self.model, feed))
-        denom = torch.clamp(mask.sum(), min=1.0)
+        loss, logits = self._loss(pulled, feed)
         multi = self.n_tasks > 1
-        if multi:
-            # [B, T] logits against [B, T] task labels, mean over the tasks
-            per_ins = bce_with_logits(logits, feed["task_labels"]).mean(1)
-        else:
-            per_ins = bce_with_logits(logits, labels)
-        loss = (per_ins * mask).sum() / denom
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         row_grads = rows.grad
@@ -676,6 +668,23 @@ class Trainer:
         inc = torch.stack([gsq, torch.ones_like(gsq)])
         gn.add_(inc if gate is None else torch.where(gate, inc, 0.0))
         return loss.detach(), gate, preds
+
+    def _loss(self, pulled: torch.Tensor, feed: dict) -> tuple:
+        """(loss, logits) of one step's forward on the pulled rows: the mean
+        BCE over the batch's real instances (a multi-task model's over its
+        task-label columns); the sigmoid of the logits ([B], or [B,
+        n_tasks]) are the step's predictions.  RetrievalTrainer overrides
+        it with the in-batch sampled softmax; every policy of ``_tick``
+        applies to either."""
+        labels, mask = feed["labels"], feed["ins_mask"]
+        logits = self.model(pulled, feed["key_segments"], feed["dense"],
+                            labels.shape[0], **model_extras(self.model, feed))
+        if self.n_tasks > 1:
+            # [B, T] logits against [B, T] task labels, mean over the tasks
+            per_ins = bce_with_logits(logits, feed["task_labels"]).mean(1)
+        else:
+            per_ins = bce_with_logits(logits, labels)
+        return (per_ins * mask).sum() / torch.clamp(mask.sum(), min=1.0), logits
 
     def _group_body(self, values, g2sum, feeds: list, auc: AucState,
                     gn: torch.Tensor, losses: torch.Tensor,

@@ -7,6 +7,14 @@ vectors).  The port's layers are ``nn.Linear`` (weight ``[out, in]``) in
 submodules named after the reference's keys.  These helpers transpose and
 name the arrays so that both packages compute the same function from the
 same numbers.  They take numpy arrays and import nothing of JAX.
+
+The mapping is mechanical, so the trees of the retrieval and parallel-axis
+models carry across by ``params_from_jax_tree`` too: TwoTower's ``user``
+MLP (nn.Linear layers), LongSeqCtrDnn's bare ``qkv`` [emb_dim, 3*H*D] and
+its ``tower``, PipelinedCtrDnn's padded ``stages`` ``w`` [P, dmax, A, A]
+and ``b`` (bare arrays, ``x @ w`` as in the reference), and
+PipelineTrainer's stacked stage arrays (``proj_w`` ... ``head_b``, its
+``params`` argument); ``params_to_jax`` maps each back.
 """
 
 from __future__ import annotations

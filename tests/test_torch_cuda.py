@@ -1149,6 +1149,176 @@ def test_zoo_captured_steps_equal_eager(cuda, tmp_path, name):
         assert torch.equal(a, b)
 
 
+# the models on the parallel axes and the retrieval model at a small width:
+# name -> (model class, kwargs (a callable of the device for a mesh),
+# data: "plain", "seq" or "tasks" (one task label), trainer: "ranking" or
+# "retrieval")
+AXES = {
+    "two_tower": ("TwoTower", lambda d: dict(item_slots=(3,), hidden=(16,)),
+                  "plain", "retrieval"),
+    "longseq_full": ("LongSeqCtrDnn", lambda d: dict(
+        hidden=(16,), max_seq_len=8, n_heads=4, head_dim=4), "seq",
+        "ranking"),
+    "longseq_ring": ("LongSeqCtrDnn", lambda d: dict(
+        hidden=(16,), max_seq_len=8, n_heads=4, head_dim=4,
+        seq_mesh=_axis_mesh(4, "seq", d), seq_impl="ring"), "seq",
+        "ranking"),
+    "longseq_ulysses": ("LongSeqCtrDnn", lambda d: dict(
+        hidden=(16,), max_seq_len=8, n_heads=4, head_dim=4,
+        seq_mesh=_axis_mesh(4, "seq", d), seq_impl="ulysses"), "seq",
+        "ranking"),
+    "pipelined_ctr": ("PipelinedCtrDnn", lambda d: dict(
+        mesh=_axis_mesh(4, "pipe", d), hidden=(16, 8, 8), microbatches=8),
+        "plain", "ranking"),
+    "mmoe_expert": ("MMoE", lambda d: dict(
+        n_tasks=2, n_experts=4, expert_hidden=(16,), expert_dim=8,
+        tower_hidden=(8,), expert_mesh=_axis_mesh(4, "expert", d)),
+        "tasks", "ranking"),
+}
+
+
+def _axis_mesh(n, axis, device):
+    from paddlebox_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n, device=device, axis_name=axis)
+
+
+def _axes_world(tmp_path, name, device, **trkw):
+    from paddlebox_tpu_torch import models
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.scenarios import RetrievalTrainer
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.train import Trainer
+
+    cls, kw, data, kind = AXES[name]
+    d = tmp_path / data
+    files = sorted(str(p) for p in d.glob("part-*")) if d.exists() else \
+        write_synth_files(str(d), n_files=1, ins_per_file=256,
+                          n_sparse_slots=4, vocab_per_slot=60, dense_dim=3,
+                          seed=8, max_keys_per_slot=9 if data == "seq" else 3,
+                          n_task_labels=int(data == "tasks"))
+    data_kw = {"seq": dict(sequence_slot="slot0", max_seq_len=8),
+               "tasks": dict(n_task_labels=1)}.get(data, {})
+    ds = PadBoxSlotDataset(make_synth_config(4, 3, 32, 40, **data_kw),
+                           read_threads=1)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    tconf = SparseTableConfig(embedding_dim=4, hbm_cache_rows=0)
+    table = SparseTable(tconf, seed=5, device=device)
+    model = getattr(models, cls)(n_sparse_slots=4, emb_width=tconf.row_width,
+                                 dense_dim=3, seed=2, device=device,
+                                 **kw(device))
+    trainer_cls = RetrievalTrainer if kind == "retrieval" else Trainer
+    tr = trainer_cls(model, tconf, TrainerConfig(auc_buckets=1 << 10, **trkw),
+                     device=device)
+    return ds, table, tr
+
+
+@pytest.mark.parametrize("name", sorted(AXES))
+def test_parallel_axes_pass_on_the_card_matches_cpu(cuda, tmp_path, name):
+    """One pass of each model of the parallel axes and of the retrieval
+    trainer on the card (the row kernels launched) and on the CPU (the
+    twins) from the same seeds, the zoo's card test bounds: losses within
+    1e-4 relative, AUC within 1e-3, dense parameters and rows within
+    1e-4.  The retrieval loss scales the row gradients by 1/temperature
+    (20), so their accumulated squares, the g2sum column, by 400: that
+    column within 1e-3 relative there."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        ds, table, tr = _axes_world(tmp_path, name, device)
+        sk.reset_launches()
+        table.begin_pass(ds.unique_keys())
+        m = tr.train_from_dataset(ds, table)
+        table.end_pass()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert sk.launches["pull_rows"] == sk.launches[
+                "scatter_add_rows"] == m["steps"] > 0
+        runs[device] = (m, table.state_dict(),
+                        [p.detach().cpu() for p in tr.model.parameters()])
+        table.close()
+        ds.close()
+    (mg, sg, pg), (mc, sc, pc) = runs["cuda"], runs["cpu"]
+    assert np.isfinite(mg["loss"])
+    assert mg["loss"] == pytest.approx(mc["loss"], rel=1e-4)
+    assert abs(mg["auc"] - mc["auc"]) <= 1e-3
+    np.testing.assert_array_equal(sg["keys"], sc["keys"])
+    if AXES[name][3] == "retrieval":
+        np.testing.assert_allclose(sg["values"][:, -1], sc["values"][:, -1],
+                                   rtol=1e-3, atol=1e-4)
+        sg, sc = ({"values": s_["values"][:, :-1]} for s_ in (sg, sc))
+    np.testing.assert_allclose(sg["values"], sc["values"], rtol=0, atol=1e-4)
+    for a, b in zip(pg, pc):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["two_tower", "longseq_ring",
+                                  "longseq_ulysses", "pipelined_ctr"])
+def test_parallel_axes_captured_steps_equal_eager(cuda, tmp_path, name):
+    """The retrieval step and the sequence and pipeline models captured as
+    a CUDA graph (scan_steps 4) equal eager steps under deterministic
+    algorithms: losses, AUC, grad_norm, parameters and table."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for k in (1, 4):
+            ds, table, tr = _axes_world(tmp_path, name, "cuda", scan_steps=k)
+            table.begin_pass(ds.unique_keys())
+            m = tr.train_from_dataset(ds, table)
+            table.end_pass()
+            torch.cuda.synchronize()
+            runs[k] = (m, table.state_dict(), tr)
+            table.close()
+            ds.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (m1, s1, t1), (m4, s4, t4) = runs[1], runs[4]
+    assert t4.graph_captures == 1 and t4.graph_replays >= 1
+    for key in ("loss", "auc", "grad_norm"):
+        assert m1[key] == m4[key], key
+    np.testing.assert_array_equal(s1["values"], s4["values"])
+    for a, b in zip(t1.model.parameters(), t4.model.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_pipeline_trainer_and_aux_tables_on_the_card(cuda):
+    """A PipelineTrainer step on the card against the CPU (SGD: the
+    parameters' difference follows the gradients'), and the aux tables'
+    device gathers against the host."""
+    from paddlebox_tpu_torch.parallel import PipelineTrainer
+    from paddlebox_tpu_torch.parallel.pipeline import init_pipeline_params
+    from paddlebox_tpu_torch.sparse.aux_tables import InputTable, ReplicaCache
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(8, 16, 10)).astype(np.float32)
+    y = (x.mean(-1) > 0).astype(np.float32)
+    params = init_pipeline_params(10, 32, 2, 4, seed=1, device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        tr = PipelineTrainer(_axis_mesh(4, "pipe", device), 10, 32, 2,
+                             params=params, optimizer=lambda ps: (
+                                 torch.optim.SGD(ps, lr=0.1)))
+        out[device] = (tr.train_step(x, y),
+                       {k: v.detach().cpu() for k, v in tr.params.items()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for k, v in out["cpu"][1].items():
+        np.testing.assert_allclose(out["cuda"][1][k].numpy(), v.numpy(),
+                                   rtol=0, atol=1e-5, err_msg=k)
+    table = InputTable(dim=3, device=cuda)
+    table.add_row("a", [1.0, 2.0, 3.0])
+    idx = table.lookup_idx(["a", "missing"])
+    got = table.rows_device().index_select(
+        0, torch.from_numpy(idx).to(cuda))
+    assert torch.equal(got.cpu(), torch.from_numpy(
+        table.lookup_rows(["a", "missing"])))
+    cache = ReplicaCache(np.array([[1.0, 1.0], [2.0, 2.0]]), device=cuda)
+    assert cache.values.is_cuda
+    assert cache.pull([1, 2, 0, 99]).cpu().tolist() == [
+        [1, 1], [2, 2], [0, 0], [0, 0]]
+
+
 def test_a_capture_that_cannot_succeed_raises(cuda, tmp_path):
     """A model whose forward reads a value on the host cannot be captured:
     the trainer raises, and no group runs eagerly in its place."""

@@ -416,8 +416,19 @@ def _error_case(case, files):
     """Runs one misuse through the port; returns the expected exception
     and message pattern."""
     if case == "expert_mesh":
-        with pytest.raises(NotImplementedError, match="expert_mesh"):
-            models.MMoE(S, 6, expert_mesh="inherit", device="cpu")
+        # the expert bank's divisibility, as the reference raises it
+        from jax.sharding import Mesh as JaxMesh
+
+        from paddlebox_tpu_torch.parallel import make_mesh
+
+        match = "n_experts 6 not divisible by the 'expert' axis size 4"
+        with pytest.raises(ValueError, match=match):
+            ref_models.MMoE(S, 6, n_experts=6, expert_mesh=JaxMesh(
+                np.array(jax.devices()[:4]), ("expert",)))
+        with pytest.raises(ValueError, match=match):
+            models.MMoE(S, 6, n_experts=6, device="cpu",
+                        expert_mesh=make_mesh(4, device="cpu",
+                                              axis_name="expert"))
         return
     if case == "counter_len":
         with pytest.raises(ValueError, match="counter_label_tasks has 2"):
