@@ -141,7 +141,8 @@ Phases, each fatal on failure:
                two passes over the first two Zipf sets, MMoE, RankCtrDnn
                (PV-merged) and the conv CtrDnn (counter_label_tasks on a
                cvm_offset 3 table: its conv counters equal a host count of
-               the task labels) two passes over half the logkey set, on
+               the task labels) two passes over the first
+               ZOO_LOGKEY_FILES logkey files, on
                the default table; MMoE and RankCtrDnn on the hybrid world
                over four passes; launch counters reset just before these
                arms and read just after (all six kernels must launch);
@@ -180,6 +181,20 @@ Phases, each fatal on failure:
                and for those two the same bytes moved without the gather or
                the search), and the time the cold and the warm method give
                a launch that does almost nothing.
+  9b. serving — the serving plane (serving): the slice pass's trained
+               table (1 570 824 keys) and tower exported in fp32, int8 and
+               fp8 with a second shape bucket; the launch counters reset
+               just before every batch of one pass goes through the card
+               Predictor and read just after (sorted_search and
+               gather_slots must launch); both kernels bit-exact against
+               their twins at the serving shapes; predict against the
+               trainer's forward and the CPU Predictor, each quantized
+               artifact against the fp32 program fed its dequantized rows;
+               a ScoringServer's /score equal to predict for one and for 8
+               concurrent clients; an ANN index of parallel_axes' TwoTower
+               table behind /retrieve.  Export seconds and bytes, load
+               seconds, predict ms by part, requests/s with p50 and p99,
+               queries/s.
  10. telemetry — the telemetry plane on the default table (telemetry_path):
                two traced passes with an events path and a /metrics
                listener (trace spans, a scrape during the second pass,
@@ -222,8 +237,9 @@ N_SLOTS, DENSE, BATCH, EMB, VOCAB = 16, 13, 2048, 8, 100_000
 HIDDEN = (512, 256, 128)
 KEY_CAPACITY = BATCH * N_SLOTS * 4
 # Depth cut to fit the time limit: 8 files x 25 000 instances (97 full
-# batches and one partial per pass), 3 passes.
-N_FILES, INS_PER_FILE, PASSES = 8, 25_000, 3
+# batches and one partial per pass), 2 passes (3 until the serving phase
+# came; the second pass is the first that consumes a stage).
+N_FILES, INS_PER_FILE, PASSES = 8, 25_000, 2
 
 # The cached path: the reference's default cache, and per pass its own
 # file set of 64 000 instances drawn with Zipf(1.3), the skew of the
@@ -238,6 +254,10 @@ CACHED_PASSES, CACHED_FILES, CACHED_INS_PER_FILE, ZIPF_A = 3, 4, 16_000, 1.3
 # the third begin_pass, so passes 2 and 3 route hot occurrences.
 POSITIONS, HOT_CAPACITY, HYBRID_PASSES = 4, 4096, 4
 ZIPF_SETS = max(CACHED_PASSES, HYBRID_PASSES)
+# Depth cut since the serving phase: the hash placement beside the hybrid
+# one (timed, and deterministic for the loss difference) over the first
+# HASH_PASSES Zipf sets (4 and 3 before)
+HASH_PASSES = 2
 
 # The step policies: scan_steps GRAPH_K (a CUDA graph of 8 steps) on the
 # uncached slice world, against eager steps over GRAPH_PASSES Zipf sets,
@@ -332,7 +352,7 @@ def _write_part(args) -> str:
 def write_data() -> tuple:
     """Synthetic files, one writer process per file (spawned, so no child
     inherits a CUDA context): the uncached path's N_FILES, CACHED_FILES per
-    Zipf file set, the data half's N_FILES with the ins_id and logkey
+    Zipf file set, the data half's DH_FILES with the ins_id and logkey
     prefixes and a task label, and the sequence arm's SEQ_FILES whose slot0
     holds sequences of up to SEQ_T keys.  Returns (files, [files of each set], logkey
     files, sequence files)."""
@@ -343,7 +363,7 @@ def write_data() -> tuple:
                   100 + CACHED_FILES * p + i, ZIPF_A, False, 0)
                  for i in range(CACHED_FILES)]
     jobs += [(os.path.join(WORK_DIR, f"l{i}"), INS_PER_FILE, 300 + i, 0.0,
-              True, 0) for i in range(N_FILES)]
+              True, 0) for i in range(DH_FILES)]
     jobs += [(os.path.join(WORK_DIR, f"s{i}"), SEQ_INS_PER_FILE, 400 + i, 0.0,
               False, SEQ_T) for i in range(SEQ_FILES)]
     ctx = multiprocessing.get_context("spawn")
@@ -353,8 +373,8 @@ def write_data() -> tuple:
     per_pass = [paths[N_FILES + CACHED_FILES * p:
                       N_FILES + CACHED_FILES * (p + 1)]
                 for p in range(ZIPF_SETS)]
-    logkey_end = N_FILES + CACHED_FILES * ZIPF_SETS + N_FILES
-    return (paths[:N_FILES], per_pass, paths[logkey_end - N_FILES:logkey_end],
+    logkey_end = N_FILES + CACHED_FILES * ZIPF_SETS + DH_FILES
+    return (paths[:N_FILES], per_pass, paths[logkey_end - DH_FILES:logkey_end],
             paths[logkey_end:])
 
 
@@ -1538,8 +1558,8 @@ def hybrid_path(datasets) -> dict:
                 fed = prefetched_feeds()
                 sk.reset_launches()
             per_pass = drive_hybrid(
-                datasets[:3] if label == "hash deterministic" else datasets,
-                table, trainer)
+                datasets[:HASH_PASSES] if label.startswith("hash")
+                else datasets, table, trainer)
             if label == "hybrid":
                 launches = dict(sk.launches)
                 runs_trainer = trainer
@@ -2627,6 +2647,10 @@ PV_BATCH, DH_CPU_BATCHES, DH_MS_BATCHES = 1024, 8, 24
 # step groups)
 DH_RERUN_BATCHES, DH_HYBRID_BATCHES = 16, 32
 DH_FIELDS = ("cmatch", "rank", "task_labels")
+# Depth cut since the serving phase: the data half (and every later user
+# of the logkey set) over DH_FILES files of INS_PER_FILE instances (N_FILES
+# before); the shuffle group's 4 datasets take DH_FILES // 4 files each
+DH_FILES = 4
 
 
 def data_conf(**kw):
@@ -2762,10 +2786,11 @@ class _TimedShuffler:
 
 
 def data_shuffle(files, whole) -> tuple:
-    """Four datasets of disjoint file pairs exchange their records through
-    an InProcessShuffleGroup while they preload: each record lands where
-    route_ids says, and the union is the input.  Returns (seconds of the
-    group load, the slowest worker's exchange seconds)."""
+    """Four datasets of disjoint file runs (len(files) // 4 each) exchange
+    their records through an InProcessShuffleGroup while they preload: each
+    record lands where route_ids says, and the union is the input.
+    Returns (seconds of the group load, the slowest worker's exchange
+    seconds)."""
     from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
     from paddlebox_tpu_torch.data.shuffle import InProcessShuffleGroup, route_ids
 
@@ -2773,9 +2798,10 @@ def data_shuffle(files, whole) -> tuple:
     spent: list = []
     dss = []
     t0 = time.perf_counter()
+    per = len(files) // 4
     for w in range(4):
-        d = PadBoxSlotDataset(data_conf(), read_threads=2)
-        d.set_filelist(files[2 * w:2 * w + 2])
+        d = PadBoxSlotDataset(data_conf(), read_threads=per)
+        d.set_filelist(files[per * w:per * (w + 1)])
         d.shuffler = _TimedShuffler(group.shuffler(w), spent)
         d.preload_into_memory()
         dss.append(d)
@@ -2860,12 +2886,12 @@ def _batch_ms(ds) -> tuple:
 
 def data_half(files, plain_load_s: float) -> None:
     """The data half at the slice's width on the default table (HBM cache
-    on, overlapped boundary), over N_FILES x INS_PER_FILE instances with
+    on, overlapped boundary), over DH_FILES x INS_PER_FILE instances with
     the ins_id and logkey prefixes and a task label:
       * load: preload_into_memory through the native parser (seconds beside
         the uncached set's load without the prefixes), the first file with
         the Python parser bit-equal;
-      * shuffle: four datasets of disjoint file pairs through an
+      * shuffle: four datasets of disjoint files through an
         InProcessShuffleGroup: placement by route_ids, the union the input;
       * one pass with the 4-spec metric group (all, cm222, rank1, none) under
         deterministic algorithms; then the same pass with a field dump of
@@ -2912,7 +2938,8 @@ def data_half(files, plain_load_s: float) -> None:
         f"uncached set without the prefixes {plain_load_s!r} s; Python "
         f"parser bit-equal on {files[0]}")
     group_s, exchange_s, sizes = data_shuffle(files, ds._block)
-    log(f"data_half shuffle: 4 datasets of 2 files each exchanged by "
+    log(f"data_half shuffle: 4 datasets of {len(files) // 4} file(s) each "
+        f"exchanged by "
         f"search_id, group preload {group_s!r} s, exchange {exchange_s!r} s "
         f"(slowest worker); worker sizes {sizes}, placement and union "
         f"checked")
@@ -3204,15 +3231,16 @@ ZOO_VARIANTS = {
 }
 ZOO_MULTICHIP = ("mmoe", "rank_ctr")
 # depth cuts to keep the whole run near its earlier length: the logkey
-# arms over the first ZOO_LOGKEY_FILES of the data half's files (100 000
-# instances), the graph against eager steps over the first
-# ZOO_GRAPH_BATCHES batches of an arm's data (a warm-up group, a capture
-# and two replays of GRAPH_K), the card against the CPU over the first
-# ZOO_CPU_BATCHES batches (groups of POSITIONS batches on the multi-chip
-# arms), and the multi-chip arms over the first ZOO_MC_BATCHES batches a
-# pass (8 step groups, as the hybrid path's)
-ZOO_LOGKEY_FILES = 4
-ZOO_GRAPH_BATCHES, ZOO_CPU_BATCHES, ZOO_MC_BATCHES = 3 * GRAPH_K, 2, 32
+# arms over the first ZOO_LOGKEY_FILES of the data half's files (50 000
+# instances; 4 files before the serving phase), the graph against eager
+# steps over the first ZOO_GRAPH_BATCHES batches of an arm's data (a
+# warm-up group, a capture and two replays of GRAPH_K), the card against
+# the CPU over the first ZOO_CPU_BATCHES batches (groups of POSITIONS
+# batches on the multi-chip arms), and the multi-chip arms, and the
+# composed MMoE arms of parallel_axes, over the first ZOO_MC_BATCHES
+# batches a pass (4 step groups; 8 before the serving phase)
+ZOO_LOGKEY_FILES = 2
+ZOO_GRAPH_BATCHES, ZOO_CPU_BATCHES, ZOO_MC_BATCHES = 3 * GRAPH_K, 2, 16
 # the card against the CPU trains the dense side with SGD at this rate:
 # Adam divides each gradient by its own magnitude, so a gradient that
 # cancels to near zero (DeepFM's 400-wide layers) moves its parameter by
@@ -3844,7 +3872,10 @@ def retrieval_arm(zipf_sets) -> dict:
                     table.begin_pass(sets[0].unique_keys())
                     ev = trainer.evaluate(sets[0], table)
                     table.end_pass()
-                table.close()
+                if det or k != 1:
+                    table.close()
+                else:
+                    out["table"] = table  # the serving phase's ANN index
         finally:
             torch.use_deterministic_algorithms(False)
     (pe, se, te), (pg, sg, tg) = runs[1], runs[GRAPH_K]
@@ -3866,7 +3897,7 @@ def retrieval_arm(zipf_sets) -> dict:
                    "deterministic", pg) + "; bit-equal to eager")
     log(f"axes retrieval evaluate: auc {ev['auc']!r} over {ev['count']} "
         "instances")
-    return {"eager": out[1], "graph": out[GRAPH_K]}
+    return {"eager": out[1], "graph": out[GRAPH_K], "table": out["table"]}
 
 
 def composed_arm(logkey, seq_ds) -> dict:
@@ -4137,6 +4168,299 @@ def parallel_axes(zipf_sets, logkey_files, seq_files) -> dict:
     logkey.close()
     out.update(launches=launches, step_ms=ms)
     return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 8c: the serving plane
+# --------------------------------------------------------------------------- #
+# the export's second shape bucket: one /score request of SERVE_INS
+# instances (16 slots of up to 3 keys: at most 3 072 keys); the load test's
+# requests, clients and queries
+SERVE_INS = 64
+SERVE_BUCKET = (SERVE_INS, 4096)
+SERVE_DTYPES = ("fp32", "int8", "fp8")
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCHES = 8, 240, 2
+RETRIEVE_QUERIES, RETRIEVE_REQUESTS, RETRIEVE_K = 16, 200, 10
+# scores of one instance through two float32 towers that sum in another
+# order (the card's index_add, the CPU's): the reference tests' bound
+SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-6
+
+
+def _predict_parts(pred, batch) -> tuple:
+    """Synchronized ms of one predict's parts: host prepare and key upload,
+    the resolve (sorted_search + gather_slots), the program with its host
+    inputs' upload and the scores' readback."""
+    import torch
+
+    t0 = time.perf_counter()
+    b, _, K, program, host = pred.prepare(batch)
+    q = pred.upload_keys(batch.keys, int(batch.n_keys))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    args = pred.resolve(q, K)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with torch.no_grad():
+        program(*args, *[torch.from_numpy(a).cuda() for a in host])[:b].cpu()
+    t3 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3
+
+
+def _post(port: int, path: str, body: bytes) -> tuple:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=body)
+        r = conn.getresponse()
+        data = json.loads(r.read())
+        dt = time.perf_counter() - t0
+    finally:
+        conn.close()
+    if r.status != 200:
+        raise AssertionError(f"POST {path}: {r.status} {data}")
+    return data, dt
+
+
+def _load_test(port: int, bodies: list, clients: int) -> tuple:
+    """``bodies`` posted to /score by ``clients`` threads (each its share,
+    in turn): (responses, latencies s, wall s)."""
+    import threading
+
+    out, lat, errors = [None] * len(bodies), [0.0] * len(bodies), []
+
+    def run(c):
+        try:
+            for i in range(c, len(bodies), clients):
+                out[i], lat[i] = _post(port, "/score", bodies[i])
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(c,), daemon=True)
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out, lat, time.perf_counter() - t0
+
+
+def _rate_line(label: str, n: int, lat: list, wall: float) -> str:
+    import numpy as np
+
+    return (f"{label}: {n / wall!r} requests/s, p50 "
+            f"{float(np.percentile(lat, 50)) * 1e3!r} ms, p99 "
+            f"{float(np.percentile(lat, 99)) * 1e3!r} ms over {n}")
+
+
+def serving(res, ds, axes) -> None:
+    """The serving plane at the slice's width: the slice pass's trained
+    uncached table (1 570 824 keys) and tower exported in fp32, int8 and
+    fp8 with a second bucket SERVE_BUCKET; the launch counters reset, every
+    batch of one pass scored by the card Predictor (sorted_search and
+    gather_slots must launch) and read; both kernels bit-exact against
+    their twins at the serving shapes; predict against the trainer's
+    forward and the CPU Predictor, each quantized artifact against the
+    fp32 program fed its dequantized rows, on SERVE_BATCHES batches; a
+    ScoringServer's /score equal to predict for one client and for
+    SERVE_CLIENTS (max_batch 8); an ANN index of the parallel_axes
+    TwoTower table behind /retrieve.  Prints export seconds and bytes,
+    load seconds, predict ms by part, requests/s with p50 and p99, and
+    queries/s."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.inference import (
+        Predictor,
+        ScoringServer,
+        export_ann_index,
+        export_model,
+        quant,
+    )
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    table, model = res["table"], res["trainer"].model
+    dirs, preds = {}, {}
+    for dtype in SERVE_DTYPES:
+        d = dirs[dtype] = os.path.join(WORK_DIR, f"serve-{dtype}")
+        t0 = time.perf_counter()
+        export_model(model, table, d, batch_size=BATCH,
+                     key_capacity=KEY_CAPACITY, dense_dim=DENSE,
+                     embedding_dtype=dtype, batch_buckets=[SERVE_BUCKET],
+                     feed_conf=ds.conf)
+        export_s = time.perf_counter() - t0
+        sizes = {f: os.path.getsize(os.path.join(r, f))
+                 for r, _, fs in os.walk(d) for f in fs}
+        t0 = time.perf_counter()
+        preds[dtype] = Predictor.load(d)
+        torch.cuda.synchronize()
+        log(f"serve export {dtype}: {export_s!r} s, {sum(sizes.values())} "
+            f"bytes (sparse {sum(v for k, v in sizes.items() if k.endswith('.npy'))}, "
+            f"programs {sum(v for k, v in sizes.items() if k.endswith('.pt2'))}); "
+            f"Predictor.load {time.perf_counter() - t0!r} s, "
+            f"{preds[dtype].n_features} keys")
+    pred = preds["fp32"]
+    if pred.n_features != table.n_features:
+        raise AssertionError(f"artifact holds {pred.n_features} keys")
+
+    # the main path: every batch of one pass through the card Predictor
+    ds.local_shuffle(seed=0)
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    n_ins = n_batches = 0
+    for batch in ds.batches(drop_last=False):
+        p = pred.predict(batch)
+        if p.shape != (batch.n_real_ins,) or not np.isfinite(p).all():
+            raise AssertionError(f"serve predict: {p.shape}, finite "
+                                 f"{np.isfinite(p).all()}")
+        n_ins += p.shape[0]
+        n_batches += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(sk.launches)
+    log(f"serve pass: {n_batches} batches, {n_ins} instances in {wall!r} s "
+        f"({n_ins / wall!r} instances/s); launches {launches}")
+    if launches["sorted_search"] != n_batches or launches[
+            "gather_slots"] != n_batches:
+        raise AssertionError("serve: sorted_search and gather_slots must "
+                             "launch once a batch")
+    batches = list(itertools.islice(ds.batches(), SERVE_BATCHES))
+    parts = np.array([_predict_parts(pred, b) for b in batches * 5])
+    med = [float(x) for x in np.median(parts, axis=0)]
+    log(f"serve predict ms (median of {len(parts)}, {batches[0].n_keys} "
+        f"keys a batch): prepare + key upload {med[0]!r}, resolve "
+        f"{med[1]!r}, program {med[2]!r}, total {sum(med)!r}")
+
+    # the two kernels at the serving shapes: the first batch's keys filled
+    # to the key capacity with unseen ones, above 2^63 among them
+    saved = dict(sk.launches)
+    rng = np.random.default_rng(21)
+    b0 = batches[0]
+    qk = rng.integers(0, 2**64 - 1, size=KEY_CAPACITY, dtype=np.uint64)
+    qk[: b0.n_keys] = b0.keys[: b0.n_keys]
+    q = torch.from_numpy(qk.view(np.int64)).cuda()
+    slots = sk.sorted_search(pred._hay, pred._n_real, q)
+    want = sk.sorted_search_plain(pred._hay.cpu(), pred._n_real, q.cpu())
+    err = {"sorted_search": int((slots.cpu() != want).sum())}
+    for label, t in [("rows", pred._dev[0])] + [
+            (f"{d} {n}", x) for d in ("int8", "fp8")
+            for n, x in zip(("head", "codes", "scales"), preds[d]._dev)]:
+        # bit for bit: the codes' float32 view may hold NaN patterns
+        got = sk.gather_slots(t, slots).cpu().view(torch.int32)
+        plain = sk.gather_slots_plain(t.cpu(), want).view(torch.int32)
+        err[f"gather_slots {label}"] = int((got != plain).sum())
+    sk.launches.update(saved)
+    log(f"serve kernels at the serving shapes (haystack "
+        f"{pred._hay.shape[0]}, {pred._n_real} real; {KEY_CAPACITY} queries, "
+        f"{int((want < 0).sum())} unseen; tables [{pred._n_real}, W] of W "
+        f"10, 3, 2, 1): elements that differ from the twin {err}")
+    if any(err.values()):
+        raise AssertionError(f"serve kernels differ from their twins: {err}")
+
+    # predict against the trainer's forward, the CPU Predictor, and each
+    # quantized artifact against the fp32 program fed its dequantized rows
+    table.begin_pass(ds.unique_keys())
+    try:
+        fwd = [torch.sigmoid(_logits_on(table, [model], b)[0]).cpu().numpy()
+               for b in batches]
+    finally:
+        table.abort_pass()
+    cpu = Predictor.load(dirs["fp32"], device="cpu")
+    rel = {"trainer forward": 0.0, "CPU Predictor": 0.0, "int8": 0.0,
+           "fp8": 0.0}
+    deq = {d: Predictor(pred.meta, preds[d]._keys, quant.dequantize_rows(
+        preds[d]._head, preds[d]._q, preds[d]._scales), dirs["fp32"],
+        pred._buckets, programs=pred._programs) for d in ("int8", "fp8")}
+    for i, b in enumerate(batches):
+        got = pred.predict(b)
+        n = got.shape[0]
+        for label, want in (("trainer forward", fwd[i][:n]),
+                            ("CPU Predictor", cpu.predict(b))):
+            np.testing.assert_allclose(got, want, rtol=SERVE_RTOL,
+                                       atol=SERVE_ATOL, err_msg=label)
+            rel[label] = max(rel[label], float(np.abs(got - want).max()))
+        for d in ("int8", "fp8"):
+            qgot, qwant = preds[d].predict(b), deq[d].predict(b)
+            np.testing.assert_allclose(qgot, qwant, rtol=SERVE_RTOL,
+                                       atol=SERVE_ATOL, err_msg=d)
+            rel[d] = max(rel[d], float(np.abs(qgot - qwant).max()))
+        log(f"serve batch {i}: fp32 against int8 / fp8 scores, max abs "
+            f"{float(np.abs(got - preds['int8'].predict(b)).max())!r} / "
+            f"{float(np.abs(got - preds['fp8'].predict(b)).max())!r}")
+    log(f"serve agreement (max abs over {SERVE_BATCHES} batches, bound "
+        f"{SERVE_RTOL} relative + {SERVE_ATOL}): {rel}")
+
+    # /score: one client, then SERVE_CLIENTS with micro-batching
+    with open(ds.filelist[0]) as f:
+        lines = list(itertools.islice(f, SERVE_INS * SERVE_REQUESTS))
+    bodies = ["".join(lines[i:i + SERVE_INS]).encode()
+              for i in range(0, len(lines), SERVE_INS)]
+    server = ScoringServer(max_batch=8, batch_linger_ms=2.0)
+    server.register("ctr", dirs["fp32"])
+    want = [server.score_lines(body) for body in bodies]
+    port = server.start(port=0)
+    try:
+        _load_test(port, bodies[:8], 1)  # warm-up
+        for clients in (1, SERVE_CLIENTS):
+            out, lat, wall = _load_test(port, bodies, clients)
+            for o, w in zip(out, want):
+                np.testing.assert_allclose(o["scores"], w, rtol=SERVE_RTOL,
+                                           atol=SERVE_ATOL)
+            log(_rate_line(f"serve /score, {clients} client(s), "
+                           f"{SERVE_INS} instances a request", len(bodies),
+                           lat, wall) + "; equal to predict")
+    finally:
+        server.stop()
+
+    # /retrieve over the TwoTower item slot of the parallel_axes table
+    rtable = axes["retrieval"]["table"]
+    lo, hi = (N_SLOTS - 1) * VOCAB + 1, N_SLOTS * VOCAB
+    t0 = time.perf_counter()
+    index = export_ann_index(os.path.join(WORK_DIR, "serve-ann"), rtable,
+                             item_key_lo=lo, item_key_hi=hi)
+    rtable.close()
+    log(f"serve ANN index: {index.n_items} items of dim "
+        f"{index.emb.shape[1]} in {time.perf_counter() - t0!r} s")
+    server = ScoringServer()
+    server.register_predictor("items", index, None)
+    port = server.start(port=0)
+    try:
+        qs = [rng.normal(size=(RETRIEVE_QUERIES, index.emb.shape[1]))
+              .astype(np.float32) for _ in range(RETRIEVE_REQUESTS)]
+        for tier in ("exact", "int8"):
+            lat, t0 = [], time.perf_counter()
+            for qm in qs:
+                data, dt = _post(port, "/retrieve", json.dumps(
+                    {"queries": qm.tolist(), "k": RETRIEVE_K,
+                     "tier": tier}).encode())
+                lat.append(dt)
+            wall = time.perf_counter() - t0
+            keys, scores = index.search(qs[-1], RETRIEVE_K, tier)
+            if [r["keys"] for r in data["results"]] != keys.tolist():
+                raise AssertionError(f"/retrieve {tier} keys differ")
+            np.testing.assert_allclose(
+                [r["scores"] for r in data["results"]], scores, rtol=1e-6)
+            log(f"serve /retrieve {tier}: "
+                f"{RETRIEVE_QUERIES * len(qs) / wall!r} queries/s "
+                f"({RETRIEVE_QUERIES} a request, k {RETRIEVE_K}), p50 "
+                f"{float(np.percentile(lat, 50)) * 1e3!r} ms, p99 "
+                f"{float(np.percentile(lat, 99)) * 1e3!r} ms")
+        qa = np.concatenate(qs[:8])
+        ek, _ = index.search(qa, RETRIEVE_K, "exact")
+        ik, _ = index.search(qa, RETRIEVE_K, "int8")
+        recall = float(np.mean([len(set(a) & set(b)) / RETRIEVE_K
+                                for a, b in zip(ek, ik)]))
+        log(f"serve ANN int8 recall@{RETRIEVE_K} against exact: {recall!r}")
+        if recall < 0.95:
+            raise AssertionError(f"int8 recall@10 {recall} < 0.95")
+    finally:
+        server.stop()
 
 
 # --------------------------------------------------------------------------- #
@@ -4831,9 +5155,10 @@ def main() -> int:
         phase(slot_policy, hybrid)
         phase(data_half, logkey_files, load_s)
         phase(model_zoo, cached_ds, logkey_files)
-        phase(parallel_axes, cached_ds, logkey_files, seq_files)
+        axes = phase(parallel_axes, cached_ds, logkey_files, seq_files)
         rows = phase(kernel_times, res, ds, cached,
                      censuses[CACHED_PASSES - 1], hybrid, errs)
+        phase(serving, res, ds, axes)
         # last: after its device traces, a torch.profiler window of this
         # process listed no CUDA kernel among its events (kernel_times
         # reads the kernels of each wrapper call from such windows)

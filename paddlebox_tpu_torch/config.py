@@ -90,6 +90,27 @@ class _Flags:
         # the event log's and flight recorder's rank (the reference's
         # launcher env)
         "process_id": 0,
+        # admission control of every ScoringServer (inference/server.py):
+        # requests waiting for a scoring slot before new arrivals shed with
+        # 429, and scoring calls in flight at once
+        "serve_max_queue": 64,
+        "serve_max_concurrency": 1,
+        # default request deadline in ms: an arrival whose estimated queue
+        # wait exceeds it sheds with 429 + Retry-After (0 = no deadline;
+        # clients override it with X-Request-Deadline-Ms)
+        "request_deadline_ms": 0,
+        # the largest /score or /retrieve body; a larger one answers 413
+        # unread
+        "serve_max_body_bytes": 8 << 20,
+        # continuous micro-batching: up to this many admitted /score
+        # requests coalesce into one device call (1 = one at a time), and
+        # the longest a forming batch waits to fill, in ms
+        "serve_max_batch": 8,
+        "serve_batch_linger_ms": 2.0,
+        # the serving artifact's embedding payload (inference/export.py):
+        # "fp32", "int8" or "fp8" (per-row scales, dequantized on the card
+        # inside the serving program)
+        "embedding_dtype": "fp32",
     }
 
     def __getattr__(self, name: str):
@@ -392,6 +413,55 @@ class TelemetryConfig:
             raise ValueError(
                 f"metrics_port must be in [0, 65535], got {self.metrics_port}"
             )
+
+
+# --------------------------------------------------------------------------- #
+# Per-scenario serving policy (reference: config.py ScenarioServingConfig).
+# One scenario = one served model name, with its own artifact dtype,
+# micro-batch linger, request deadline and freshness budget.
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass
+class ScenarioServingConfig:
+    """Serving knobs of one scenario's model name.
+
+    * ``embedding_dtype`` — the artifact dtype the scenario publishes;
+    * ``batch_linger_ms`` — the coalescer linger of this model's
+      micro-batches (None = the server-wide default);
+    * ``deadline_ms`` — this model's default request deadline (the
+      X-Request-Deadline-Ms header outranks it; None/0 = server default);
+    * ``max_staleness_s`` — the freshness budget of the streaming plane.
+
+    Attach the request-path knobs with ``ScoringServer.set_serving_policy``.
+    """
+
+    name: str
+    embedding_dtype: str = "fp32"
+    batch_linger_ms: Optional[float] = None
+    deadline_ms: Optional[float] = None
+    max_staleness_s: Optional[float] = None
+
+    def __post_init__(self):
+        if self.embedding_dtype not in ("fp32", "int8", "fp8"):
+            raise ValueError(
+                f"embedding_dtype must be fp32|int8|fp8, got "
+                f"{self.embedding_dtype!r}"
+            )
+        if self.batch_linger_ms is not None and self.batch_linger_ms < 0:
+            raise ValueError("batch_linger_ms must be >= 0")
+        if self.deadline_ms is not None and self.deadline_ms < 0:
+            raise ValueError("deadline_ms must be >= 0")
+        if self.max_staleness_s is not None and self.max_staleness_s <= 0:
+            raise ValueError("max_staleness_s must be positive")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "ScenarioServingConfig":
+        known = {f.name for f in dataclasses.fields(ScenarioServingConfig)}
+        return ScenarioServingConfig(
+            **{k: v for k, v in d.items() if k in known}
+        )
 
 
 @dataclasses.dataclass

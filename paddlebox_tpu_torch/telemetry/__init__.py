@@ -17,9 +17,11 @@ the reference's).
   * :mod:`compiles` — ``jit.compiles``: kernel builds and CUDA graph
     captures by stage.
 
+  * :mod:`context` — the W3C ``traceparent`` trace context of the
+    serving plane; spans under an active context carry its IDs.
+
 The cross-process snapshot gather (the reference's ``fleet.py``) comes
-with the multi-process slice, and the distributed trace context
-(``context.py``) with the serving slice.
+with the multi-process slice.
 """
 
 from paddlebox_tpu_torch.telemetry.metrics import (  # noqa: F401
@@ -56,6 +58,13 @@ from paddlebox_tpu_torch.telemetry.trace import (  # noqa: F401
     get_tracer,
     instant,
     span,
+)
+from paddlebox_tpu_torch.telemetry import context  # noqa: F401
+from paddlebox_tpu_torch.telemetry.context import (  # noqa: F401
+    REPLICA_RESPONSE_HEADER,
+    TRACE_ID_RESPONSE_HEADER,
+    TRACEPARENT_HEADER,
+    TraceContext,
 )
 from paddlebox_tpu_torch.telemetry.flight import (  # noqa: F401
     FlightRecorder,

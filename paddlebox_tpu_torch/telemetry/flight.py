@@ -31,6 +31,7 @@ import time
 from typing import Optional
 
 from paddlebox_tpu_torch.config import flags
+from paddlebox_tpu_torch.telemetry import context as _context
 from paddlebox_tpu_torch.telemetry.metrics import registry
 
 logger = logging.getLogger(__name__)
@@ -149,6 +150,9 @@ class FlightRecorder:
     # -- recording ----------------------------------------------------------- #
     def record(self, kind: str, name: str, /, **fields) -> None:
         rec = {"t": time.time(), "kind": kind, "name": name}
+        # the active distributed trace context's IDs (context.py); a span
+        # passes its own child IDs in ``fields``, which override these
+        rec.update(_context.trace_fields())
         for k, v in fields.items():
             if k in ("kind", "name"):
                 # an event's own "kind"/"name" field (e.g. the published

@@ -13,10 +13,10 @@ still receives every span.  Nesting is tracked with a per-thread span
 stack: children carry their parent's name in ``args``.  Trace files carry
 a wall-clock anchor (``pboxWallT0``) beside the perf-counter timestamps,
 so tools/pbox_doctor.py can merge spans from many processes onto one wall
-time axis.  The reference's distributed trace context (context.py, the
-traceparent carriage of the serving plane) comes with the serving slice
-(item 6); without it a span carries no trace IDs, as a reference span
-outside any context.
+time axis.  Under an active distributed trace context (context.py, the
+traceparent carriage of the serving plane) a span runs under a child span
+ID of it, and both outputs carry ``trace_id``, ``span_id`` and
+``parent_span_id``.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import threading
 import time
 from typing import Iterator, Optional
 
+from paddlebox_tpu_torch.telemetry import context as _context
 from paddlebox_tpu_torch.telemetry import flight as _flight
 
 
@@ -175,15 +176,25 @@ def get_tracer() -> Optional[Tracer]:
 @contextlib.contextmanager
 def _recorded_span(t: Optional[Tracer], name: str, meta: dict):
     """One span, recorded everywhere it belongs: the tracer (when file
-    tracing is on) and the always-on flight ring."""
+    tracing is on), the always-on flight ring, and, when a distributed
+    trace context is active, under a freshly allocated child span ID of it
+    so that the parentage survives into the dump files."""
+    ctx = _context.current()
+    child = ctx.child() if ctx is not None else None
+    tf: dict = {}
+    if child is not None:
+        tf = {"trace_id": child.trace_id, "span_id": child.span_id}
+        if child.parent_span_id:
+            tf["parent_span_id"] = child.parent_span_id
     start_wall = time.time()
     t0 = time.perf_counter()
     try:
-        if t is not None:
-            with t.span(name, **meta):
+        with _context.activate(child):
+            if t is not None:
+                with t.span(name, **{**meta, **tf}):
+                    yield
+            else:
                 yield
-        else:
-            yield
     finally:
         flat = {
             k: v for k, v in meta.items()
@@ -191,13 +202,14 @@ def _recorded_span(t: Optional[Tracer], name: str, meta: dict):
         }
         _flight.record(
             "span", name, t=start_wall,
-            dur_s=time.perf_counter() - t0, **flat,
+            dur_s=time.perf_counter() - t0, **flat, **tf,
         )
 
 
 def span(name: str, **meta):
-    """Record a span: always into the flight ring, and into the
-    Chrome-trace tracer when one is enabled."""
+    """Record a span: always into the flight ring, into the Chrome-trace
+    tracer when one is enabled, and under the active distributed trace
+    context when one is installed."""
     return _recorded_span(_tracer, name, meta)
 
 
@@ -209,7 +221,7 @@ def instant(name: str, **meta) -> None:
     _flight.record("instant", name, **flat)
     t = _tracer
     if t is not None:
-        t.instant(name, **meta)
+        t.instant(name, **{**meta, **_context.trace_fields()})
 
 
 def flush_trace(path: str) -> Optional[str]:

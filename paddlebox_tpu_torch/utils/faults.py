@@ -76,6 +76,9 @@ KNOWN_SITES = {
     # poisons the batch's labels with NaN, so the loss and gradients go
     # non-finite on the device and the configured nan_policy acts
     "train.nan",
+    # one /retrieve query of the scoring server (inference/server.py): a
+    # fired hit answers 500, the server survives
+    "retrieve.query",
 }
 
 

@@ -1319,6 +1319,142 @@ def test_pipeline_trainer_and_aux_tables_on_the_card(cuda):
         [1, 1], [2, 2], [0, 0], [0, 0]]
 
 
+def _serving_world(tmp_path, export_device):
+    """A small CtrDnn trained a pass on the CPU, its model moved to
+    ``export_device``, and the set it trained on."""
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.train import Trainer
+
+    files = write_synth_files(str(tmp_path / "serve"), n_files=1,
+                              ins_per_file=200, n_sparse_slots=4,
+                              vocab_per_slot=60, dense_dim=3, seed=8)
+    conf = make_synth_config(4, 3, 32, 16)
+    ds = PadBoxSlotDataset(conf, read_threads=1)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    tconf = SparseTableConfig(embedding_dim=8, create_threshold=1.0,
+                              pull_embedx_scale=0.5)
+    table = SparseTable(tconf, seed=5, device="cpu")
+    model = CtrDnn(4, tconf.row_width, dense_dim=3, hidden=(32, 16), seed=2,
+                   device="cpu")
+    tr = Trainer(model, tconf, TrainerConfig(auc_buckets=1 << 10),
+                 device="cpu")
+    table.begin_pass(ds.unique_keys())
+    tr.train_from_dataset(ds, table)
+    table.end_pass()
+    return ds, table, model.to(export_device), conf
+
+
+@pytest.mark.parametrize("export_device", ["cpu", "cuda"])
+@pytest.mark.parametrize("dtype", ["fp32", "int8", "fp8"])
+def test_predict_on_the_card_matches_cpu(cuda, tmp_path, export_device,
+                                         dtype):
+    """An artifact exported on either device serves on the card and on the
+    CPU: the card's Predictor resolves every batch with sorted_search and
+    gather_slots (one search and one gather a batch, three gathers when
+    quantized), and its scores agree with the CPU's within 1e-5 relative
+    / 1e-6 absolute (float32 towers, another summation order)."""
+    from paddlebox_tpu_torch.inference import Predictor, export_model
+
+    ds, table, model, conf = _serving_world(tmp_path, export_device)
+    art = str(tmp_path / "art")
+    export_model(model, table, art, batch_size=32, key_capacity=32 * 16,
+                 dense_dim=3, embedding_dtype=dtype, feed_conf=conf,
+                 batch_buckets=[(8, 128)])
+    table.close()
+    preds = {d: Predictor.load(art, device=d) for d in ("cuda", "cpu")}
+    sk.reset_launches()
+    n = 0
+    for batch in ds.batches(drop_last=False):
+        batch.keys = batch.keys.copy()
+        batch.keys[::7] += np.uint64(1 << 63)  # unseen, above 2^63
+        got = preds["cuda"].predict(batch)
+        want = preds["cpu"].predict(batch)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        n += 1
+    torch.cuda.synchronize()
+    assert sk.launches["sorted_search"] == n > 0
+    assert sk.launches["gather_slots"] == n * (1 if dtype == "fp32" else 3)
+    ds.close()
+
+
+def test_serving_kernels_at_the_serving_shapes(cuda):
+    """sorted_search over a 2^21 haystack of 1 570 824 keys (keys at and
+    above 2^63, the all-ones key real) with 131 072 queries, a third
+    unseen; gather_slots over a [1 570 824, 10] table and over 8-byte
+    code rows viewed as float32 [N, 2]: bit-exact against the twins."""
+    n, nq = 1_570_824, 131_072
+    rng = np.random.default_rng(3)
+    keys = np.unique(rng.integers(0, 2 ** 64 - 2, size=n + 4096,
+                                  dtype=np.uint64, endpoint=True))[:n - 1]
+    keys = np.append(keys, np.uint64(2 ** 64 - 1))
+    c = 1 << (n - 1).bit_length()
+    hay = np.full(c, -1, np.int64)
+    hay[:keys.shape[0]] = keys.view(np.int64)
+    q = rng.choice(keys, nq)
+    q[::3] = rng.integers(0, 2 ** 64 - 2, size=q[::3].shape[0],
+                          dtype=np.uint64)
+    hay_t = torch.from_numpy(hay).to(cuda)
+    q_t = torch.from_numpy(q.view(np.int64)).to(cuda)
+    slots = sk.sorted_search(hay_t, keys.shape[0], q_t)
+    want = sk.sorted_search_plain(hay_t.cpu(), keys.shape[0], q_t.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(slots.cpu(), want)
+    assert (want < 0).any() and (want >= 0).any()
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for width in (10, 2):
+        table = torch.randn((keys.shape[0], width), device=cuda,
+                            generator=gen)
+        got = sk.gather_slots(table, slots)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(),
+                           sk.gather_slots_plain(table.cpu(), slots.cpu()))
+
+
+def test_scoring_server_on_the_card(cuda, tmp_path):
+    """/score on the card answers the CPU server's scores; the card is the
+    server's default device."""
+    import http.client
+    import json
+
+    from paddlebox_tpu_torch.inference import ScoringServer, export_model
+
+    ds, table, model, conf = _serving_world(tmp_path, "cpu")
+    art = str(tmp_path / "art")
+    export_model(model, table, art, batch_size=32, key_capacity=32 * 16,
+                 dense_dim=3, feed_conf=conf)
+    table.close()
+    ds.close()
+    rng = np.random.default_rng(1)
+    lines = []
+    for _ in range(50):
+        parts = ["1 0"]
+        for _s in range(4):
+            ks = rng.integers(0, 300, int(rng.integers(1, 4)))
+            parts.append(f"{len(ks)} " + " ".join(map(str, ks)))
+        parts.append("3 0.1 0.2 0.3")
+        lines.append(" ".join(parts))
+    body = ("\n".join(lines) + "\n").encode()
+    out = {}
+    for srv in (ScoringServer(), ScoringServer(device="cpu")):
+        srv.register("m", art)
+        port = srv.start(port=0)
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("POST", "/score", body=body)
+            r = conn.getresponse()
+            assert r.status == 200
+            out[srv.device.type] = json.loads(r.read())["scores"]
+            conn.close()
+        finally:
+            srv.stop()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-6)
+
+
 def test_a_capture_that_cannot_succeed_raises(cuda, tmp_path):
     """A model whose forward reads a value on the host cannot be captured:
     the trainer raises, and no group runs eagerly in its place."""
