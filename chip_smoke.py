@@ -107,6 +107,26 @@ Phases, each fatal on failure:
                POSITIONS: each pass bit-equal to a table rebuilt from
                state_dict at the new count, no kernel built after a
                cutover; rows moved and seconds printed.
+     multiprocess — the sharded world as a job of processes, each rank
+               this script run as its own rank program (``--rank``)
+               through paddlebox_tpu_torch.launch: (a) 2 ranks x 2
+               positions on the one card over gloo, all four passes under
+               deterministic algorithms bit-equal to the sharded phase's
+               deterministic one-process run (loss, AUC, counts, both
+               ranks' dense state, the union of their stores), all six
+               kernels launched in each rank; (d) then, in the same job, a
+               pass under a MP_DEADLINE_S liveness deadline whose first
+               step rank 1 freezes: both ranks must exit with the
+               DistributedStallError naming rank 1 in stage 'step' within
+               twice the deadline; (e) rank 0's log carries the merged
+               fleet view at each pass end; (b) 1 rank x 4 positions on
+               NCCL through the process-group path, started beside (a)
+               and training after it, MP_NCCL_PASSES passes bit-equal; (c)
+               NCCL across cards where there are 2 (else one line says it
+               was not run).  Samples/s against the one-process run, ms
+               and bytes a step of each collective kind, the plan
+               channel's gather ms and the plan and feed stages per rank,
+               beside the card's name and power limit.
      check   — the small hybrid run again with the per-shard caches on,
                card against CPU, hits included.
      dense   — the "kstep" (sync_weight_step 4) and "async" dense sync, two
@@ -268,6 +288,10 @@ HASH_PASSES = 2
 # POLICY_CPU_BATCHES; the slot policy over the first SLOT_BATCHES batches
 # of three Zipf sets (2 step groups of the 4 positions a pass).
 GRAPH_K, GRAPH_PASSES, STEP_MS_BATCHES = 8, 2, 48
+# Depth cut since the multiprocess phase: the stage breakdown, the feed
+# turns and graph_steps' eager and graph turns over the first
+# TURN_BATCHES batches of the uncached set (all 98 before)
+TURN_BATCHES = 49
 POLICY_BATCHES, POLICY_CPU_BATCHES, SLOT_BATCHES = 16, 2, 8
 # Depth cut to keep the run's phases near 350 s since the data half: the
 # passes after a live reshard train the first RESHARD_BATCHES batches of
@@ -1300,10 +1324,10 @@ def lifecycle_check(censuses) -> None:
 
 
 def stage_breakdown(ds, table, trainer) -> None:
-    """One more pass driven stage by stage with a synchronize after each,
-    so the host stages and the device step can be told apart (the device's
-    busy share and its time by kernel come from telemetry_path's device
-    traces)."""
+    """One more pass, its first TURN_BATCHES batches driven stage by stage
+    with a synchronize after each, so the host stages and the device step
+    can be told apart (the device's busy share and its time by kernel come
+    from telemetry_path's device traces)."""
     import torch
 
     from paddlebox_tpu_torch.metrics.auc import init_auc_state
@@ -1317,7 +1341,7 @@ def stage_breakdown(ds, table, trainer) -> None:
     begin_s = time.perf_counter() - t0
     auc = init_auc_state(trainer.conf.auc_buckets, trainer.device)
     acc = dict(batch=0.0, plan=0.0, feed=0.0, step=0.0, step_span=0.0)
-    batches = ds.batches()
+    batches = itertools_head_iter(ds.batches(), TURN_BATCHES)
     n = 0
     while True:
         t0 = time.perf_counter()
@@ -1343,7 +1367,8 @@ def stage_breakdown(ds, table, trainer) -> None:
             acc[k] += v
         n += 1
     native_index_live(table)
-    plan_ms = plan_only(ds.batches(), table.plan_batch, plans_agree)
+    plan_ms = plan_only(itertools_head_iter(ds.batches(), TURN_BATCHES),
+                        table.plan_batch, plans_agree)
     t0 = time.perf_counter()
     table.end_pass()
     end_s = time.perf_counter() - t0
@@ -1358,9 +1383,9 @@ def stage_breakdown(ds, table, trainer) -> None:
 
 
 def feed_turns(ds, table, trainer) -> None:
-    """The trained uncached table, one more pass each fed serially and with
-    the prefetch thread, in turns 0, 2: unsynchronized samples/s of each,
-    as slice_pass reports them."""
+    """The trained uncached table, one more pass of the first TURN_BATCHES
+    batches each fed serially and with the prefetch thread, in turns 0, 2:
+    unsynchronized samples/s of each, as slice_pass reports them."""
     import torch
 
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
@@ -1370,15 +1395,16 @@ def feed_turns(ds, table, trainer) -> None:
     for turn, depth in enumerate((0, 2)):
         trainer.conf.prefetch_batches = depth
         ds.local_shuffle(seed=PASSES + 1 + turn)
-        table.begin_pass(ds.unique_keys())
-        m = trainer.train_from_dataset(ds, table)
+        head = _Batches(itertools_head_iter(ds.batches(), TURN_BATCHES))
+        table.begin_pass(head.unique_keys())
+        m = trainer.train_from_dataset(head, table)
         torch.cuda.synchronize()
         table.end_pass()
         rates.append(m["samples"] / m["duration_s"])
     trainer.conf.prefetch_batches = 2
     sk.launches.update(saved)  # not main-path launches
-    log("feed turns, samples/s of one uncached pass each: serial "
-        f"{rates[0]!r}, prefetch 2 {rates[1]!r}")
+    log(f"feed turns, samples/s of {TURN_BATCHES} uncached batches each: "
+        f"serial {rates[0]!r}, prefetch 2 {rates[1]!r}")
 
 
 def plan_only(batches, plan, agree) -> dict:
@@ -1490,7 +1516,7 @@ def drive_hybrid(datasets, table, trainer) -> list:
     """One pass over each dataset, the AUC streams continued, begin_pass
     and end_pass timed to a synchronize; per pass the census, the hot set,
     the host row traffic, each shard's cache hits and misses, the
-    begin_pass breakdown and the metrics."""
+    begin_pass breakdown, the metrics and the dense state's digest."""
     import torch
 
     out, auc = [], None
@@ -1526,6 +1552,7 @@ def drive_hybrid(datasets, table, trainer) -> list:
             staged=breakdown["staged"], begin_s=begin_s,
             end_s=time.perf_counter() - t0,
             samples_per_s=m["samples"] / m["duration_s"], metrics=m,
+            dense_digest=_dense_digest(trainer.model),
         ))
     return out
 
@@ -1537,8 +1564,9 @@ def hybrid_path(datasets) -> dict:
     hybrid again, was cut to make room for telemetry_path); then
     two hybrid runs under torch.use_deterministic_algorithms over all
     HYBRID_PASSES passes (the hot block realizes in the third and changes
-    in the fourth), which must be bit-equal, and the hash placement under
-    it, over the first three, for the difference."""
+    in the fourth), which must be bit-equal (losses, AUC, the dense state
+    a pass and the table), and the hash placement under it, over the
+    first HASH_PASSES, for the difference."""
     import numpy as np
     import torch
 
@@ -1604,19 +1632,21 @@ def hybrid_path(datasets) -> dict:
     (da, ta), (db, tb) = (runs["hybrid deterministic"],
                           runs["hybrid deterministic rerun"])
     sa, sb = ta.state_dict(), tb.state_dict()
-    auc_a = [r["metrics"]["auc"] for r in da]
-    auc_b = [r["metrics"]["auc"] for r in db]
-    if (auc_a != auc_b or not np.array_equal(sa["keys"], sb["keys"])
+    key = lambda r: (r["metrics"]["loss"], r["metrics"]["auc"],
+                     r["dense_digest"])
+    got_a, got_b = [key(r) for r in da], [key(r) for r in db]
+    if (got_a != got_b or not np.array_equal(sa["keys"], sb["keys"])
             or not np.array_equal(sa["values"], sb["values"])):
-        raise AssertionError(f"deterministic hybrid reruns differ: auc {auc_a} "
-                             f"vs {auc_b}")
+        raise AssertionError(f"deterministic hybrid reruns differ: {got_a} "
+                             f"vs {got_b}")
+    auc_a = [r["metrics"]["auc"] for r in da]
     if len(da) != HYBRID_PASSES or not da[-1]["hot_moved_rows"]:
         raise AssertionError("the deterministic hybrid runs did not reach "
                              "the fourth pass's hot-set change")
     log(f"hybrid deterministic reruns over {len(da)} passes: bit-equal "
         f"({sa['keys'].shape[0]} rows, auc {auc_a}, losses "
-        f"{[r['metrics']['loss'] for r in da]}, hot rows moved "
-        f"{[r['hot_moved_rows'] for r in da]})")
+        f"{[r['metrics']['loss'] for r in da]}, dense state a pass, hot rows "
+        f"moved {[r['hot_moved_rows'] for r in da]})")
     dh = runs["hash deterministic"][0]
     diff = [abs(a["metrics"]["loss"] - b["metrics"]["loss"])
             for a, b in zip(da, dh)]
@@ -1947,8 +1977,13 @@ def sharded_cached_path(hybrid: dict) -> dict:
     for what, key in (("begin_pass s", "begin_s"), ("end_pass s", "end_s"),
                       ("samples/s", "samples_per_s")):
         log(f"sharded cached boundary: {what} {[r[key] for r in per_pass]}")
+    # the one-process reference of the multiprocess phase, taken before the
+    # reshard phase trains this world on
+    one_process = {"passes": det_pass, "state": sd, "dense": {
+        k: v.detach().cpu().numpy().copy()
+        for k, v in det_trainer.model.state_dict().items()}}
     return {"launches": launches, "table": det_table, "trainer": det_trainer,
-            "datasets": datasets}
+            "datasets": datasets, "one_process": one_process}
 
 
 def cpu_agreement(datasets, card_pass, card_state, card_hot) -> None:
@@ -2080,6 +2115,414 @@ def reshard_check(sharded: dict) -> None:
     if sorted(cuda_build.build_log) != built:
         raise AssertionError("a kernel was built after a reshard cutover")
     live.close()
+
+
+# --------------------------------------------------------------------------- #
+# multiprocess: the job of ranks (launch.py) on the card, each rank this
+# script run as its own rank program (``--rank``)
+# --------------------------------------------------------------------------- #
+# arm (a): 2 ranks of 2 positions on the one card over gloo, all the hybrid
+# passes, then in the same job arm (d): one more pass under a MP_DEADLINE_S
+# liveness deadline over the first MP_STALL_BATCHES batches of the first
+# set, whose first step rank 1 freezes; arm (b): 1 rank of 4 positions
+# through the process-group path on NCCL, over the first MP_NCCL_PASSES
+MP_RANKS, MP_NCCL_PASSES, MP_DEADLINE_S, MP_STALL_BATCHES = 2, 2, 5.0, 8
+# the time limit of one launched job (its ranks' start, build check, data
+# load and passes)
+MP_JOB_TIMEOUT_S = 300.0
+
+
+def _dense_digest(model) -> str:
+    """sha256 of the model's dense state, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in sorted(model.state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rank_groups(ds, rank: int, n_local: int) -> list:
+    """The global groups of POSITIONS batches (the ragged tail padded, as
+    the one-process trainer pads it), sliced to this rank's positions."""
+    import itertools
+
+    from paddlebox_tpu_torch.data.feed import empty_like
+
+    out = []
+    it = iter(ds.batches(drop_last=False))
+    while True:
+        group = list(itertools.islice(it, POSITIONS))
+        if not group:
+            return out
+        if len(group) < POSITIONS:
+            group += [empty_like(group[0])] * (POSITIONS - len(group))
+        out.append(group[rank * n_local:(rank + 1) * n_local])
+
+
+def _rank_setup():
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    logging_setup()
+
+
+def logging_setup() -> None:
+    import logging
+
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr,
+                        format="%(name)s: %(message)s")
+
+
+def rank_train(out_dir: str, spec: dict) -> None:
+    """A rank of arms (a) to (c): the sharded phase's world (make_hybrid_world
+    with the per-shard caches) over spec["passes"] file sets, each rank
+    feeding its positions' slice of every global group; launch counters
+    reset just before the passes and read just after.  Writes
+    rank<r>.json (per pass the metrics, the cache hits and the dense
+    digest; the launches, the collectives, the plan channel's gathers and
+    the plan and feed stages) and rank<r>.npz (its store and dense
+    state)."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch import telemetry
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.parallel import collectives
+    from paddlebox_tpu_torch.parallel.mesh import initialize_distributed
+
+    times = {"start": time.time()}
+    job = initialize_distributed()
+    times["joined"] = time.time()
+    datasets = [load(fs, CACHED_FILES) for fs in spec["passes"]]
+    table, trainer = make_hybrid_world("cuda", cache_rows=CACHE_ROWS)
+    times["ready"] = time.time()
+    if spec.get("go_file"):
+        # started beside an earlier job: train once it has ended
+        end = time.monotonic() + MP_JOB_TIMEOUT_S
+        while not os.path.exists(spec["go_file"]):
+            if time.monotonic() > end:
+                raise TimeoutError("no go from the parent")
+            time.sleep(0.05)
+        times["go"] = time.time()
+    if trainer.group is not job or table.n_local != POSITIONS // job.world:
+        raise AssertionError("the world is not laid out over the job")
+    passes, auc = [], None
+    sk.reset_launches()
+    collectives.reset_stats()
+    telemetry.registry.reset()
+    for ds in datasets:
+        groups = _rank_groups(ds, job.rank, table.n_local)
+        census = np.unique(np.concatenate(
+            [b.keys[: b.n_keys] for g in groups for b in g]))
+        t0 = time.perf_counter()
+        table.begin_pass(census)
+        torch.cuda.synchronize()
+        begin_s = time.perf_counter() - t0
+        hits = int(sum(table.last_shard_hits))
+        m = trainer.train_groups(table, iter(groups), auc_state=auc)
+        auc = trainer.last_metric_state
+        torch.cuda.synchronize()
+        table.end_pass()
+        passes.append({
+            "loss": m["loss"], "auc": m["auc"], "count": m["count"],
+            "steps": m["steps"], "samples": m["samples"],
+            "samples_per_s": m["samples"] / m["duration_s"],
+            "hot_occ": m["hot_occurrences"], "hits": hits,
+            "hot": int(table.hot_resident_keys().shape[0]),
+            "begin_s": begin_s, "dense_digest": _dense_digest(trainer.model),
+        })
+    times["trained"] = time.time()
+    launches = dict(sk.launches)
+    hist = telemetry.registry.get("hostplane.gather_seconds")
+    plan_gather = hist.summary(channel="plan") if hist is not None else {}
+    stages = telemetry.registry.get("trainer.stage_seconds")
+    state = table.state_dict()
+    np.savez(os.path.join(out_dir, f"rank{job.rank}.npz"),
+             keys=state["keys"], values=state["values"],
+             **{f"dense/{k}": v.cpu().numpy()
+                for k, v in trainer.model.state_dict().items()})
+    times["written"] = time.time()
+    with open(os.path.join(out_dir, f"rank{job.rank}.json"), "w") as f:
+        json.dump({
+            "passes": passes, "launches": launches,
+            "collectives": collectives.stats(), "plan_gather": plan_gather,
+            "stages": {s: stages.summary(stage=s) for s in ("plan", "feed")},
+            "backend": job.backend, "host_staged": job.host_staged,
+            "times": times,
+        }, f)
+    if spec.get("stall"):
+        rank_stall(out_dir, table, trainer, datasets[0])
+
+
+def rank_stall(out_dir: str, table, trainer, ds) -> None:
+    """Arm (d) in a rank of arm (a)'s job: one more pass over the first
+    MP_STALL_BATCHES batches of ``ds`` under a liveness watchdog with
+    heartbeats on the job's store and the serial feed; rank 1 arms a hang
+    at the train.step site (its first step).  Writes stall<r>.json with
+    the DistributedStallError's fields and exits with code 7 on it;
+    raises when the pass completes."""
+    from paddlebox_tpu_torch.config import LivenessConfig
+    from paddlebox_tpu_torch.parallel.watchdog import DistributedStallError
+    from paddlebox_tpu_torch.utils import faults
+
+    rank = trainer.group.rank
+    batches = _Batches(itertools_head(ds.batches(), MP_STALL_BATCHES))
+    trainer.conf.liveness = LivenessConfig(
+        deadline_s=MP_DEADLINE_S, heartbeat_interval_s=MP_DEADLINE_S / 6,
+        poll_interval_s=0.2, hard_exit_grace_s=30.0)
+    trainer.conf.prefetch_batches = 0
+    table.begin_pass(batches.unique_keys())
+    if rank == 1:
+        faults.install(faults.FaultPlan({"train.step": "hang:first:1"}))
+    t_start = time.time()
+    try:
+        trainer.train_groups(table, iter(_rank_groups(batches, rank,
+                                                      table.n_local)))
+    except DistributedStallError as e:
+        with open(os.path.join(out_dir, f"stall{rank}.json"), "w") as f:
+            json.dump({"culprit": e.culprit, "stage": e.stage,
+                       "kind": e.kind, "t_start": t_start,
+                       "t_abort": time.time()}, f)
+        print(f"STALL-ABORT rank={rank}: {e}", flush=True)
+        os._exit(7)  # the peer's half of a collective may be pending
+    raise AssertionError("the frozen rank's pass completed")
+
+
+def itertools_head(it, n: int) -> list:
+    return list(itertools_head_iter(it, n))
+
+
+def itertools_head_iter(it, n: int):
+    import itertools
+
+    return itertools.islice(it, n)
+
+
+def rank_main(argv: list) -> int:
+    """``chip_smoke.py --rank <out_dir> <spec.json>``: one rank of the
+    multiprocess phase's jobs, started by launch.py."""
+    out_dir, spec_path = argv
+    _rank_setup()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank_train(out_dir, spec)
+    return 0
+
+
+def _start_job(label: str, spec: dict, nproc: int, backend: str):
+    """_run_job on a thread: (thread, a list the result lands in)."""
+    import threading
+
+    box: list = []
+    t = threading.Thread(target=lambda: box.append(
+        _run_job(label, spec, nproc, backend)), daemon=True)
+    t.start()
+    return t, box
+
+
+def _run_job(label: str, spec: dict, nproc: int, backend: str):
+    """Launch one job of this script's rank program; (rc, out_dir,
+    seconds, rank logs, the launch's wall-clock start)."""
+    from paddlebox_tpu_torch.launch import launch
+
+    out = os.path.join(WORK_DIR, f"mp-{label}")
+    os.makedirs(out, exist_ok=True)
+    spec_path = os.path.join(out, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    t_wall = time.time()
+    t0 = time.perf_counter()
+    rc = launch([os.path.abspath(__file__), "--rank", out, spec_path],
+                nproc=nproc, positions_per_proc=POSITIONS // nproc,
+                device="cuda", backend=backend,
+                log_dir=os.path.join(out, "logs"),
+                job_timeout_s=MP_JOB_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    logs = [open(os.path.join(out, "logs", f"rank{r}.log")).read()
+            for r in range(nproc)]
+    return rc, out, secs, logs, t_wall
+
+
+def _job_failed(label, rc, logs) -> AssertionError:
+    tails = "\n".join(f"--- rank {r} ---\n{t[-3000:]}"
+                      for r, t in enumerate(logs))
+    return AssertionError(f"multiprocess {label}: launch rc {rc}\n{tails}")
+
+
+def _check_train_job(label: str, out: str, nproc: int, ref: dict,
+                     n_passes: int, full: bool) -> list:
+    """Each rank's passes bit-equal to the one-process deterministic run
+    (metrics and dense digest per pass; with ``full`` also its final dense
+    state and the union of the ranks' stores); returns the ranks'
+    reports."""
+    import numpy as np
+
+    ranks = [json.load(open(os.path.join(out, f"rank{r}.json")))
+             for r in range(nproc)]
+    want = [(r["metrics"]["loss"], r["metrics"]["auc"], r["metrics"]["count"],
+             r["metrics"]["steps"], r["dense_digest"])
+            for r in ref["passes"][:n_passes]]
+    for r, rep in enumerate(ranks):
+        got = [(p["loss"], p["auc"], p["count"], p["steps"],
+                p["dense_digest"]) for p in rep["passes"]]
+        if got != want:
+            raise AssertionError(f"multiprocess {label}: rank {r}'s passes "
+                                 f"differ from one process: {got} vs {want}")
+    if full:
+        zs = [np.load(os.path.join(out, f"rank{r}.npz"))
+              for r in range(nproc)]
+        for r, z in enumerate(zs):
+            for k, v in ref["dense"].items():
+                if not np.array_equal(z[f"dense/{k}"], v):
+                    raise AssertionError(f"multiprocess {label}: rank {r}'s "
+                                         f"dense {k} differs")
+        keys = np.concatenate([z["keys"] for z in zs])
+        vals = np.concatenate([z["values"] for z in zs])
+        order = np.argsort(keys)
+        if (np.unique(keys).shape[0] != keys.shape[0]
+                or not np.array_equal(keys[order], ref["state"]["keys"])
+                or not np.array_equal(vals[order], ref["state"]["values"])):
+            raise AssertionError(f"multiprocess {label}: the union of the "
+                                 "ranks' stores differs from one process's")
+    return ranks
+
+
+def _report_train_job(label: str, ranks: list, ref: dict, card: str,
+                      t_wall: float) -> None:
+    """The arm's numbers beside the card's name and power limit."""
+    for r, rep in enumerate(ranks):
+        steps = sum(p["steps"] for p in rep["passes"])
+        log(f"multiprocess {label} rank {r}: s after the launch: " + ", ".join(
+            f"{k} {v - t_wall!r}" for k, v in rep["times"].items()))
+        log(f"multiprocess {label} rank {r} ({card}): samples/s per pass "
+            f"{[p['samples_per_s'] for p in rep['passes']]} against one "
+            f"process's {[p['samples_per_s'] for p in ref['passes']]}; "
+            f"cache hits {[p['hits'] for p in rep['passes']]}, hot rows "
+            f"{[p['hot'] for p in rep['passes']]}, hot occurrences "
+            f"{[p['hot_occ'] for p in rep['passes']]}; begin_pass s "
+            f"{[p['begin_s'] for p in rep['passes']]}")
+        coll = rep["collectives"]
+        log(f"multiprocess {label} rank {r} ({card}): {rep['backend']} "
+            f"collectives over {steps} steps: " + "; ".join(
+                f"{k} {v['calls'] / steps!r} calls, "
+                f"{1e3 * v['seconds'] / steps!r} ms, "
+                f"{v['bytes'] / steps!r} B sent, "
+                f"{v['host_bytes'] / steps!r} B through host memory a step"
+                for k, v in sorted(coll.items())))
+        total = sum(v["bytes"] for v in coll.values())
+        pg = rep["plan_gather"]
+        log(f"multiprocess {label} rank {r} ({card}): "
+            f"{total / steps!r} B a step through the process group; plan "
+            f"channel gathers {pg.get('count')}, "
+            f"{1e3 * pg.get('sum', 0.0) / max(pg.get('count') or 1, 1)!r} "
+            f"ms each; stages " + ", ".join(
+                f"{s} {1e3 * st['sum'] / max(st['count'], 1)!r} ms x "
+                f"{st['count']}" for s, st in rep["stages"].items()))
+
+
+def multiprocess(sharded: dict, files: list) -> None:
+    """The multi-process plane on the card (module docstring, phase
+    multiprocess): arm (a) gloo 2 x 2 on one card and, in the same job,
+    arm (d) liveness; arm (e) the fleet view of arm (a); arm (b) NCCL at
+    world 1; arm (c) NCCL across cards (needs 2 cards).  Every job's ranks
+    are this script's rank program."""
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+
+    card = card_line()
+    ref = sharded["one_process"]
+    # (b)'s rank starts now, loads and builds its world, and trains once
+    # (a) has ended: its start-up hides behind (a)'s run
+    go_file = os.path.join(WORK_DIR, "mp-go")
+    b_thread, b_box = _start_job(
+        "nccl1", {"passes": files[:MP_NCCL_PASSES], "go_file": go_file}, 1,
+        "nccl")
+    # (a) two ranks on one card: gloo (NCCL refuses two ranks on one card),
+    # then (d) in the same job: rank 1 freezes its first step
+    try:
+        rc, out, secs, logs, t_wall = _run_job(
+            "gloo", {"passes": files, "stall": True}, MP_RANKS, "gloo")
+    finally:
+        open(go_file, "w").close()
+    if rc != 7:
+        b_thread.join(MP_JOB_TIMEOUT_S)
+        raise _job_failed("arms (a) and (d)", rc, logs)
+    ranks = _check_train_job("arm (a)", out, MP_RANKS, ref, len(files), True)
+    for r, rep in enumerate(ranks):
+        if not rep["host_staged"]:
+            raise AssertionError("arm (a) did not stage through host memory")
+        lacking = [k for k in sk.KERNELS if rep["launches"].get(k, 0) <= 0]
+        if lacking:
+            raise AssertionError(f"arm (a) rank {r} never launched {lacking}")
+        log(f"multiprocess arm (a) rank {r} launches {rep['launches']}")
+    if not (any(p["hits"] for p in ranks[0]["passes"])
+            and ranks[0]["passes"][-1]["hot_occ"] > 0):
+        raise AssertionError("arm (a): no cache hit or no hot occurrence")
+    log(f"multiprocess arm (a): {MP_RANKS} ranks x {POSITIONS // MP_RANKS} "
+        f"positions on one card over gloo, {len(files)} passes bit-equal to "
+        f"one process of {POSITIONS} positions under deterministic "
+        f"algorithms (loss, AUC, counts, dense state of both ranks, the "
+        f"union of their stores); job with arm (d) {secs!r} s")
+    _report_train_job("arm (a)", ranks, ref, card, t_wall)
+    # (d) liveness: both ranks exit with the error naming rank 1 and its
+    # stage within twice the deadline of the pass's start
+    got = [json.load(open(os.path.join(out, f"stall{r}.json")))
+           if os.path.exists(os.path.join(out, f"stall{r}.json")) else None
+           for r in range(MP_RANKS)]
+    ok = all(
+        g is not None and g["culprit"] == 1 and g["stage"] == "step"
+        and g["t_abort"] - g["t_start"] < 2 * MP_DEADLINE_S for g in got)
+    if not ok or not all("STALL-ABORT" in t for t in logs):
+        raise _job_failed(f"arm (d) (results {got})", rc, logs)
+    log(f"multiprocess arm (d): rank 1 hung at train.step; both ranks exited "
+        f"with DistributedStallError naming rank 1 in stage 'step' "
+        f"({[g['kind'] for g in got]}), "
+        f"{[g['t_abort'] - g['t_start'] for g in got]} s after their pass "
+        f"began (deadline {MP_DEADLINE_S} s)")
+    # (e) the fleet view: rank 0 printed the merged view at every pass end
+    views = [ln for ln in logs[0].splitlines()
+             if ln.startswith("[fleet pass step=")]
+    if len(views) != len(files) or not all(
+            f"world={MP_RANKS}" in v for v in views):
+        raise AssertionError(f"arm (e): rank 0 logged {len(views)} fleet "
+                             f"views for {len(files)} passes")
+    log(f"multiprocess arm (e): rank 0's fleet view at each pass end, the "
+        f"last: {views[-1][:600]}")
+    # (b) NCCL at world 1: the process-group path, one rank of 4 positions
+    b_thread.join(MP_JOB_TIMEOUT_S)
+    if not b_box:
+        raise AssertionError("arm (b)'s job did not end")
+    rc, out, secs, logs, t_wall = b_box[0]
+    if rc != 0:
+        raise _job_failed("arm (b)", rc, logs)
+    (rep,) = _check_train_job("arm (b)", out, 1, ref, MP_NCCL_PASSES, False)
+    log(f"multiprocess arm (b): 1 rank x {POSITIONS} positions through the "
+        f"process-group path on NCCL, {MP_NCCL_PASSES} passes bit-equal to "
+        f"the in-process run (metrics and dense state a pass); job {secs!r} "
+        "s, started beside arm (a)'s")
+    log(f"multiprocess arm (b) launches {rep['launches']}")
+    _report_train_job("arm (b)", [rep], ref, card, t_wall)
+    # (c) NCCL across cards
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        rc, out, secs, logs, t_wall = _run_job(
+            "nccl2", {"passes": files}, MP_RANKS, "nccl")
+        if rc != 0:
+            raise _job_failed("arm (c)", rc, logs)
+        ranks = _check_train_job("arm (c)", out, MP_RANKS, ref, len(files),
+                                 True)
+        log(f"multiprocess arm (c): {MP_RANKS} ranks on their own cards over "
+            f"NCCL bit-equal to one process; job {secs!r} s")
+        _report_train_job("arm (c)", ranks, ref, card, t_wall)
+    else:
+        log(f"multiprocess arm (c): not run: NCCL across cards needs 2 cards "
+            f"and this machine has {n_cards}; unverified")
 
 
 def dense_sync_agreement() -> None:
@@ -2287,10 +2730,11 @@ def graph_steps(ds, zipf_sets) -> dict:
     pass and the expected replays; launch counters reset just before the
     graph run and read just after (wrapper calls: eager steps and
     captures; replays run the captured launches again).  Then, without
-    deterministic algorithms, one pass of the uncached set each in turns
-    eager, graph, graph, eager: samples/s and the host seconds the
-    consumer thread spends in the step (dispatch or replay) a step; and
-    the synchronized ms per step of each."""
+    deterministic algorithms, one pass of the uncached set's first
+    TURN_BATCHES batches each in turns eager, graph, graph, eager:
+    samples/s and the host seconds the consumer thread spends in the step
+    (dispatch or replay) a step; and the synchronized ms per step of
+    each."""
     import numpy as np
     import torch
 
@@ -2353,13 +2797,17 @@ def graph_steps(ds, zipf_sets) -> dict:
         return spent
 
     turns = []
+    head = _Batches(itertools_head_iter(ds.batches(), TURN_BATCHES))
     for label, k in (("eager", 1), ("graph", GRAPH_K), ("graph", GRAPH_K),
                      ("eager", 1)):
         _, table, trainer = make_world(N_SLOTS, DENSE, BATCH, EMB, HIDDEN,
                                        "cuda", KEY_CAPACITY,
                                        trainer_kw=dict(scan_steps=k))
         spent = timed(trainer)
-        (m,) = run_passes(ds, table, trainer, 1)
+        table.begin_pass(head.unique_keys())
+        m = trainer.train_from_dataset(head, table)
+        torch.cuda.synchronize()
+        table.end_pass()
         table.close()
         turns.append((label, m["samples"] / m["duration_s"],
                       spent[0] / m["steps"] * 1e3))
@@ -5062,6 +5510,9 @@ def kernel_times(res: dict, ds, cached: dict, census, hybrid: dict,
 
 
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--rank":
+        # a rank of the multiprocess phase's jobs (launch.py starts it)
+        return rank_main(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -5148,6 +5599,7 @@ def main() -> int:
         phase(small_hybrid_agreement)
         sharded = phase(sharded_cached_path, hybrid)
         phase(reshard_check, sharded)
+        phase(multiprocess, sharded, cached_files[:HYBRID_PASSES])
         phase(dense_sync_agreement)
         phase(dense_sync_full, cached_ds[:2])
         phase(graph_steps, ds, cached_ds[:GRAPH_PASSES])

@@ -1,7 +1,9 @@
 """Configuration for the PyTorch port: the dataclasses and the flag shim.
 
 A copy of the fields of ``paddlebox_tpu/config.py`` that the ported paths
-read; every other feature of the reference is absent here (ROADMAP.md,
+read (its note on overrides holds here too: an active LivenessConfig's
+``hostplane_timeout_s`` outranks ``TrainerConfig.host_plane_timeout_s``);
+every other feature of the reference is absent here (ROADMAP.md,
 Queue A, names the slice that brings it).
 """
 
@@ -47,8 +49,10 @@ class _Flags:
         # process-wide kill switch of the realized hot block: 0 keeps the
         # planner and the census wire but places every row by hash
         "placement_realize": True,
-        # census wire codec: "varint" (sorted-delta LEB128), "raw" (8-byte
-        # keys) or "legacy" (the same as varint in one process)
+        # host-plane wire codec of the census and the KvChannel payloads:
+        # "varint" (sorted-delta / zigzag-delta LEB128), "raw" (framed,
+        # uncompressed) or "legacy" (unframed bytes; the census keeps
+        # varint).  Must match on every rank
         "hostplane_codec": "varint",
         # process-wide kill switch of the overlapped pass boundary: 0 runs
         # the serial lifecycle whatever
@@ -87,9 +91,34 @@ class _Flags:
         "health_ewma_alpha": 0.3,
         "health_warmup": 3,
         "health_max_alerts": 256,
-        # the event log's and flight recorder's rank (the reference's
-        # launcher env)
+        # the multi-process job (launch.py sets these for every rank;
+        # parallel/mesh.py:initialize_distributed reads them): the TCPStore
+        # address "host:port", the process count and this process's rank,
+        # which is also the event log's and flight recorder's rank
+        "coordinator_address": "",
+        "num_processes": 0,
         "process_id": 0,
+        # 1 when the launcher itself serves the job's TCPStore (every rank
+        # connects as a client), 0 when rank 0 serves it
+        "store_hosted": False,
+        # the data plane's process-group backend: "nccl" (each rank owns a
+        # card), "gloo" (CPU ranks, or ranks sharing one card) or "" (gloo
+        # on the CPU, nccl on the card)
+        "backend": "",
+        # a launched rank's device, "cuda" or "cpu" ("" = "cuda"), and
+        # the card index on it (-1 = the current card)
+        "device": "",
+        "local_device": -1,
+        # data positions of each process (launch.py --positions-per-proc)
+        "positions_per_proc": 0,
+        # distributed liveness (parallel/watchdog.py): the stall deadline
+        # of any stage (feed, step, a host-plane gather), the heartbeat
+        # and detector cadences
+        "liveness_deadline_s": 3600.0,
+        "liveness_heartbeat_s": 15.0,
+        "liveness_poll_s": 1.0,
+        # how long one host-plane KvChannel gather waits for its peers
+        "hostplane_timeout_s": 3600.0,
         # admission control of every ScoringServer (inference/server.py):
         # requests waiting for a scoring slot before new arrivals shed with
         # 429, and scoring calls in flight at once
@@ -383,6 +412,53 @@ class SparseTableConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LivenessConfig:
+    """Deadlines and cadences of the distributed-liveness layer
+    (reference: config.py LivenessConfig; parallel/watchdog.py).
+
+    deadline_s: a process (local check) or a peer (heartbeat check) with
+    no stage progress for this long is declared stalled.
+    heartbeat_interval_s / poll_interval_s: the heartbeat publisher's and
+    the detector's cadence.  hostplane_timeout_s: the KvChannel wait bound
+    while this config's watchdog is active.  shuffle_timeout_s: read by
+    the shuffle transport of ROADMAP item 8b, kept for the reference's
+    surface.  rollback_on_abort: on a stall abort the single-chip trainer
+    restores its checkpointer's last pass (PassRolledBack).
+    hard_exit_grace_s: multi-process only, a process that has not unwound
+    this long after an abort exits with code 124 (<= 0 disables)."""
+
+    enabled: bool = True
+    deadline_s: float = 3600.0
+    heartbeat_interval_s: float = 15.0
+    poll_interval_s: float = 1.0
+    hostplane_timeout_s: float = 3600.0
+    shuffle_timeout_s: float = 120.0
+    rollback_on_abort: bool = False
+    hard_exit_grace_s: float = 60.0
+
+    @staticmethod
+    def from_flags() -> "LivenessConfig":
+        return LivenessConfig(
+            deadline_s=flags.liveness_deadline_s,
+            heartbeat_interval_s=flags.liveness_heartbeat_s,
+            poll_interval_s=flags.liveness_poll_s,
+            hostplane_timeout_s=flags.hostplane_timeout_s,
+        )
+
+    def __post_init__(self):
+        if self.deadline_s <= 0:
+            raise ValueError("deadline_s must be positive")
+        if self.heartbeat_interval_s <= 0 or self.poll_interval_s <= 0:
+            raise ValueError("heartbeat/poll intervals must be positive")
+        if self.heartbeat_interval_s >= self.deadline_s:
+            raise ValueError(
+                f"heartbeat_interval_s ({self.heartbeat_interval_s}) must be "
+                f"< deadline_s ({self.deadline_s}) or every peer always "
+                "looks stale"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class TelemetryConfig:
     """Observability knobs for one process (reference: config.py
     TelemetryConfig).
@@ -390,9 +466,10 @@ class TelemetryConfig:
     metrics_port: serve Prometheus text on ``127.0.0.1:<port>/metrics``
     (0 = off).  trace_dir: write a host span trace (Chrome-trace JSON) a
     pass here ("" = off).  events_path: append rank-tagged JSONL records
-    here ("" = off).  fleet_snapshot: the cross-process snapshot gather,
-    which comes with the multi-process slice (item 8); one process reads
-    nothing of it.
+    here ("" = off).  fleet_snapshot: in a multi-process job, gather every
+    rank's metric snapshot at each pass end of the multi-chip trainer and
+    print one merged fleet view on rank 0 (telemetry/fleet.py); one
+    process has nothing to gather.
     """
 
     metrics_port: int = 0
@@ -512,6 +589,14 @@ class TrainerConfig:
     # flags once a replay, and ticks after a non-finite one leave every
     # state untouched.  A pass that dumps fields runs one step at a time.
     scan_steps: int = 1
+    # multi-process planning-plane patience: how long one host-plane
+    # KvChannel gather waits for a straggling peer; an active
+    # LivenessConfig's hostplane_timeout_s supersedes it
+    host_plane_timeout_s: float = 3600.0
+    # distributed liveness (parallel/watchdog.py): None = no watchdog; a
+    # LivenessConfig gives heartbeats, local and peer stall detection
+    # naming the culprit, and the coordinated abort
+    liveness: Optional[LivenessConfig] = None
     # telemetry policy (telemetry/): None = the PADDLEBOX_TORCH_METRICS_PORT,
     # _TRACE_DIR and _EVENTS_PATH flags (TelemetryConfig.from_flags())
     telemetry: Optional[TelemetryConfig] = None

@@ -15,6 +15,8 @@ merge), ``seq_pos`` (``sequence_slot``), ``task_labels``
 
 Fixed shapes keep every device tensor of a pass the same size.  Pooling on
 the device is one segment sum over ``key_segments`` (ops/seqpool_cvm.py).
+Every batch built reports the ``feed`` stage to the active liveness
+watchdog (parallel/watchdog.py), so a slow but live feed is not a stall.
 """
 
 from __future__ import annotations
@@ -26,6 +28,20 @@ import numpy as np
 
 from paddlebox_tpu_torch.config import DataFeedConfig
 from paddlebox_tpu_torch.data.record import RecordBlock
+
+_beat = None  # resolved on first use: the liveness stage beat
+
+
+def _liveness_beat(stage: str) -> None:
+    """Report feed-assembly progress to the active liveness watchdog
+    (parallel/watchdog.py; a no-op outside a guarded pass).  Imported on
+    first use: the data plane loads without the parallel package."""
+    global _beat
+    if _beat is None:
+        from paddlebox_tpu_torch.parallel.watchdog import beat
+
+        _beat = beat
+    _beat(stage)
 
 
 @dataclasses.dataclass
@@ -161,6 +177,7 @@ class BatchBuilder:
         return batch
 
     def build(self, block: RecordBlock, ids: np.ndarray) -> HostBatch:
+        _liveness_beat("feed")
         B = self.conf.batch_size
         S = block.n_sparse_slots
         K = self.key_capacity

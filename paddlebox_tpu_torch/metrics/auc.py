@@ -155,6 +155,20 @@ def merge_auc_states(*states: AucState) -> AucState:
     return AucState(*(sum(xs[1:], start=xs[0]) for xs in zip(*states)))
 
 
+def psum_auc_state(state: AucState, group=None) -> AucState:
+    """The cross-position merge of a stacked [L, ...] state over every
+    position of the job (reference: psum_auc_state, the collect_data_nccl
+    allreduce): each field gathered over the job's process group and
+    summed in ascending position order, the order ``merge_auc_states``
+    and ``compute_metrics`` sum a stacked state in, so the merge of a
+    2-process run equals the 1-process one bit for bit.  Counts stay
+    int64.  ``group``: the job (parallel/mesh.py), None in one process.
+    A process-group collective: the step's thread only."""
+    from paddlebox_tpu_torch.parallel import collectives
+
+    return AucState(*(collectives.psum(t, group)[0] for t in state))
+
+
 def compute_metrics_stacked(state: AucState, names) -> dict:
     """compute_metrics of each stream of a stacked state, keys
     ``<name>/<metric>``."""

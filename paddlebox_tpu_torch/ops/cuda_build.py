@@ -6,14 +6,19 @@ headers, so a build takes seconds).  Libraries land in
 ``paddlebox_tpu_torch/_build/`` under a name that carries a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing builds at import time: the first launch of a kernel, or
-``build()``, compiles it.  The first load of a kernel in a process (with
+``build()``, compiles it.  Processes that build at once (the ranks of a
+job on a cold tree) take turns on a lock file in the build directory, and
+each library lands by an atomic rename, so a process loads a whole
+library or builds it itself.  The first load of a kernel in a process (with
 the build it needed, if any) counts once in ``jit.compiles`` under the
 stage of the reference kernel it ports (telemetry/compiles.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -64,11 +69,31 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_dir_lock():
+    """Exclusive hold of the build directory across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names) -> dict:
     """Compile every listed kernel that is not built yet, one nvcc process
     per source, all started together.  Returns {name: build seconds} for the
-    ones compiled now; raises with nvcc's output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ones compiled now; raises with nvcc's output if any build fails.  A
+    process that finds another building waits for it and reuses what it
+    built."""
+    if all(library_path(n).exists() for n in names):
+        return {}
+    with _build_dir_lock():
+        return _build_missing(names)
+
+
+def _build_missing(names) -> dict:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
@@ -92,6 +117,8 @@ def build(names) -> dict:
         build_log[name] = {"seconds": seconds[name], "log": log}
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{log}")
+            if tmp.exists():
+                tmp.unlink()
             continue
         os.replace(tmp, out)  # atomic: a concurrent builder sees all or none
     if errors:

@@ -30,12 +30,18 @@ import torch
 
 def seqpool(rows: torch.Tensor, key_segments: torch.Tensor, batch_size: int,
             n_slots: int) -> torch.Tensor:
-    """Sum-pool pulled rows [K, W] into [batch_size, n_slots, W]."""
+    """Sum-pool pulled rows [K, W] into [batch_size, n_slots, W].  The
+    overflow bin's padding spreads over dropped rows
+    (sparse/table.py:spread_sink): the same sums, without one bin of every
+    padding occurrence for a deterministic index_add to serialize."""
+    from paddlebox_tpu_torch.sparse.table import SINK_SPREAD, spread_sink
+
+    bins = batch_size * n_slots
     pooled = torch.zeros(
-        (batch_size * n_slots + 1, rows.shape[1]),
+        (bins + SINK_SPREAD, rows.shape[1]),
         dtype=rows.dtype, device=rows.device,
-    ).index_add(0, key_segments, rows)
-    return pooled[: batch_size * n_slots].reshape(batch_size, n_slots, -1)
+    ).index_add(0, spread_sink(key_segments, bins), rows)
+    return pooled[:bins].reshape(batch_size, n_slots, -1)
 
 
 def _quant_round(v: torch.Tensor, quant_ratio: int) -> torch.Tensor:

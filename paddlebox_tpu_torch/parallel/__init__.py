@@ -1,15 +1,18 @@
-"""The parallel axes over positions of one device (reference:
-paddlebox_tpu/parallel): the mesh, the key-sharded table with the realized
-hybrid placement, the multi-chip trainer, the sequence-parallel attention
-and the pipeline trainer."""
+"""The parallel axes (reference: paddlebox_tpu/parallel): the mesh and the
+multi-process job, the key-sharded table with the realized hybrid
+placement, the multi-chip trainer, the sequence-parallel attention and the
+pipeline trainer; the host plane (KvChannel on the job's TCPStore) and the
+liveness watchdog of a multi-process job."""
 
 import importlib
 
 from paddlebox_tpu_torch.parallel.mesh import (
     Mesh,
     data_axis_size,
+    initialize_distributed,
     make_composed_mesh,
     make_mesh,
+    shutdown_distributed,
 )
 from paddlebox_tpu_torch.parallel.pipeline import PipelineTrainer
 from paddlebox_tpu_torch.parallel.sequence import (
@@ -25,6 +28,9 @@ _LAZY = {
     "ShardedBatchPlan": "sharded_table",
     "MultiChipTrainer": "trainer",
     "AsyncDenseTable": "async_dense",
+    "KvChannel": "host_plane",
+    "Watchdog": "watchdog",
+    "DistributedStallError": "watchdog",
 }
 
 
@@ -43,6 +49,11 @@ __all__ = [
     "make_mesh",
     "make_composed_mesh",
     "data_axis_size",
+    "initialize_distributed",
+    "shutdown_distributed",
+    "KvChannel",
+    "Watchdog",
+    "DistributedStallError",
     "ShardedSparseTable",
     "ShardedBatchPlan",
     "MultiChipTrainer",

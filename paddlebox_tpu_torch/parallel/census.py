@@ -13,9 +13,9 @@ raises :class:`CensusProtocolError` instead of mis-decoding.  The wire bytes
 are identical to the reference's.
 
 Transports: :class:`LoopbackTransport` (one process: the encode -> decode
-path still runs) and :class:`InProcessCensusGroup` (N simulated ranks on
-threads, for tests).  The reference's multi-host ``KvGatherTransport``
-comes with the multi-process slice.
+path still runs), :class:`InProcessCensusGroup` (N simulated ranks on
+threads, for tests) and :class:`KvGatherTransport` (a job's processes: one
+``KvChannel.gather_bytes`` on the job's TCPStore an exchange).
 
 Telemetry (the reference's names): each exchange observes its payload
 bytes, raw and encoded, in ``hostplane.gather_bytes`` and the keys that
@@ -156,6 +156,20 @@ class _GroupTransport:
 
     def gather(self, payload: bytes) -> List[bytes]:
         return self.group._gather(self.rank, payload)
+
+
+class KvGatherTransport:
+    """The multi-process transport: one ``KvChannel.gather_bytes`` an
+    exchange (parallel/host_plane.py: the job's TCPStore, a host-side
+    transport, so begin_pass's exchange on the main thread never races the
+    step's process-group collectives)."""
+
+    def __init__(self, channel):
+        self.channel = channel
+        self.world = channel._world
+
+    def gather(self, payload: bytes) -> List[bytes]:
+        return self.channel.gather_bytes(payload)
 
 
 # --------------------------------------------------------------------------- #

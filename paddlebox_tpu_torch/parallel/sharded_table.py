@@ -1,5 +1,5 @@
 """Multi-chip sparse table: the pass working set sharded by ``key % n``
-(reference: paddlebox_tpu/parallel/sharded_table.py, single-process).
+(reference: paddlebox_tpu/parallel/sharded_table.py).
 
 Every shard position owns the rows whose key hashes to it.  The host half
 mirrors the single-chip ``SparseTable`` (same host store, same pass
@@ -70,8 +70,27 @@ Telemetry: the single-chip table's metrics, summed over the shards
 the reshard's ``reshard.migrate`` / ``reshard.cutover`` spans with its
 ``reshard.*`` metrics, under the reference's names.
 
-Not ported here: multi-process ownership (every shard lives in this
-process and its one host store).
+Multi-process ownership (a mesh built inside a job, parallel/mesh.py): each
+process holds and plans only its local positions ``[p * L, (p + 1) * L)``,
+while shard ownership stays ``key % n`` over all n positions.  The host
+plane glues the plans together: begin_pass exchanges the local censuses
+into the one global census (``KvGatherTransport`` on a ``census-<k>``
+KvChannel, so the row numbering agrees everywhere), and plan_group gathers
+the capacity need and the want matrices through the gather it is handed
+(the trainer's per-pass ``plan-<k>`` channel), so each local shard knows
+the rows remote requesters want before the step's all_to_all.  Each process
+materializes, serves, persists and checkpoints only its own shards in its
+own host store; every process resolves the shared hot set's promotions
+from the owners' frames on the census channel and assembles the identical
+replicated block, and only a key's owner writes it back.  The stacked
+arrays hold the local positions: ``values [L, cap, W]``, ``hot_values
+[L, H, W]``; the plan arrays ``[L, ...]``.  The per-shard caches serve the
+local shards only: the reference's ``_assemble_cached_multihost`` (each
+shard's hit fill as a single-device op, then a global array) is
+``_cached_sync_resolve`` + ``_cache_hit_fill`` over the local shards here,
+since a process's stacked arrays are its own.  prepare_pass does not stage
+there (the census exchange is a lockstep gather on the main thread), and
+a live reshard across processes is ROADMAP item 8b (it raises).
 """
 
 from __future__ import annotations
@@ -90,6 +109,7 @@ from paddlebox_tpu_torch.data.feed import HostBatch
 from paddlebox_tpu_torch.parallel.census import (
     CensusExchange,
     FleetCacheMirror,
+    KvGatherTransport,
     LoopbackTransport,
 )
 from paddlebox_tpu_torch.parallel.mesh import Mesh
@@ -117,6 +137,10 @@ from paddlebox_tpu_torch.utils.monitor import stats
 # f32 rows
 _RESHARD_MAGIC = b"PBR1"
 _RESHARD_HEAD = "<4sIII"
+
+# lockstep census-channel naming: every process builds its sharded tables
+# in the same order, so the counter agrees across the job
+_CENSUS_CHANNEL_SEQ = [0]
 
 
 def _encode_migration(keys: np.ndarray, rows: np.ndarray) -> bytes:
@@ -230,6 +254,33 @@ class ShardedSparseTable(SparseTable):
         self.last_promotion_rows = 0
         self.last_hot_moved_rows = 0
         self.last_reshard_s = 0.0
+        self._census_channel = None
+
+    @property
+    def _local_pos(self) -> np.ndarray:
+        """This process's positions (== global shard ids), contiguous; in
+        one process every position (a reshard swaps the mesh)."""
+        return np.asarray(self.mesh.local_positions, np.int64)
+
+    @property
+    def n_local(self) -> int:
+        """Shard positions this process holds."""
+        return self.mesh.n_local
+
+    @property
+    def multiprocess(self) -> bool:
+        """True when the mesh was built inside a job: the host plane runs
+        over the job's store (even at one process)."""
+        return bool(self.mesh.distributed)
+
+    def _proc_of(self, shard: np.ndarray) -> np.ndarray:
+        """Owning process of each shard id (contiguous runs of n_local)."""
+        return shard // self.n_local
+
+    def _owned(self, keys: np.ndarray) -> np.ndarray:
+        """Mask of the keys whose shard this process owns."""
+        shard = (keys % np.uint64(self.n_shards)).astype(np.int64)
+        return self._proc_of(shard) == self.mesh.proc_index
 
     def _get_cache(self):
         """Unused here: the sharded lifecycle goes through the per-shard
@@ -237,9 +288,9 @@ class ShardedSparseTable(SparseTable):
         return None
 
     def _caches(self) -> list:
-        """One HbmCache per shard position, built on first use (empty when
-        the cache is off): ``hbm_cache_rows`` split evenly over the
-        shards, every one on the mesh's device."""
+        """One HbmCache per local shard position, built on first use (empty
+        when the cache is off): ``hbm_cache_rows`` split evenly over all
+        the shards, every one on the mesh's device."""
         if not self._cache_tried:
             with self._cache_lock:
                 if not self._cache_tried:
@@ -249,17 +300,20 @@ class ShardedSparseTable(SparseTable):
                             HbmCache(per_shard, self.conf.row_width + 1,
                                      aging=self.conf.hbm_cache_aging,
                                      device=self.device)
-                            for _ in range(self.n_shards)
+                            for _ in range(self.n_local)
                         ]
                     self._cache_tried = True
         return self._shard_cache_list
 
     # -- census wire (placement + compression) ----------------------------- #
     def _census_exchange_obj(self) -> CensusExchange:
-        """The CensusExchange over a loopback transport, with the placement
-        planner unless placement is "hash", seeded from the caches' LFU
-        evidence and from a reshard's carried tracker, and with the fleet
-        cache mirror when the caches are on."""
+        """The CensusExchange over a loopback transport (a dedicated
+        ``census-<k>`` KvChannel in a job), with the placement planner
+        unless placement is "hash", seeded from the caches' LFU evidence
+        and from a reshard's carried tracker, and with the fleet cache
+        mirror when the caches are on.  Deterministic across ranks: the
+        channel name rides a lockstep counter and the sizes come from the
+        (identical) config."""
         if self._census is None:
             planner = None
             mirror = None
@@ -282,16 +336,36 @@ class ShardedSparseTable(SparseTable):
                                               caches[0].capacity,
                                               self.conf.hbm_cache_aging)
             codec = "raw" if flags.hostplane_codec == "raw" else "varint"
+            if self.multiprocess:
+                from paddlebox_tpu_torch.parallel.host_plane import KvChannel
+
+                _CENSUS_CHANNEL_SEQ[0] += 1
+                self._census_channel = KvChannel(
+                    f"census-{_CENSUS_CHANNEL_SEQ[0]}")
+                transport = KvGatherTransport(self._census_channel)
+            else:
+                transport = LoopbackTransport()
             self._census = CensusExchange(
-                LoopbackTransport(), planner=planner, mirror=mirror,
+                transport, planner=planner, mirror=mirror,
                 codec=codec, realize=self._hot_realize,
             )
         return self._census
 
     def _exchange_census(self, pk: np.ndarray) -> np.ndarray:
         """Local census -> the global census (in one process, the same
-        keys).  Realization needs the planner even under "hybrid";
-        "loopback" is the mode that exists to run the wire round trip."""
+        keys; in a job the exchange on the census channel, in lockstep on
+        the main thread, and under the "legacy" codec the plain union of
+        the local censuses).  Realization needs the planner even under
+        "hybrid"; "loopback" is the mode that exists to run the wire round
+        trip."""
+        if self.multiprocess:
+            if flags.hostplane_codec == "legacy":
+                from paddlebox_tpu_torch.parallel.multiprocess import (
+                    host_allgather_varlen,
+                )
+
+                return np.unique(host_allgather_varlen(pk))
+            return self._census_exchange_obj().exchange(pk)
         if self._placement_mode == "loopback" or self._hot_realize:
             return self._census_exchange_obj().exchange(pk)
         return pk
@@ -350,7 +424,12 @@ class ShardedSparseTable(SparseTable):
             or not self._hot_keys.shape[0]
         ):
             return
-        self._write_back(self._hot_keys, self._hot_rows())
+        keys, rows = self._hot_keys, self._hot_rows()
+        if self.multiprocess:
+            # every replica holds the same rows; only the owner persists
+            own = self._owned(keys)
+            keys, rows = keys[own], rows[own]
+        self._write_back(keys, np.ascontiguousarray(rows))
         self._hot_dirty = False
 
     def _sync_hot_block(self) -> None:
@@ -384,7 +463,7 @@ class ShardedSparseTable(SparseTable):
         to their new slots on the device (no host bytes for survivors)."""
         w = self.conf.row_width
         H = self.conf.placement_hot_capacity
-        n = self.n_shards
+        n = self.n_local
         host_bytes = telemetry.counter(
             "placement.hot_row_host_bytes",
             "hot-tier row bytes crossing the host plane (promotions + "
@@ -394,8 +473,13 @@ class ShardedSparseTable(SparseTable):
         old = self._hot_keys
         if demote.shape[0] and self.hot_values is not None:
             rows = self._hot_rows(np.searchsorted(old, demote))
-            self._write_back(demote, rows)
-            host_bytes.inc(rows.nbytes)
+            dk = demote
+            if self.multiprocess:  # the owner writes back
+                own = self._owned(demote)
+                dk, rows = demote[own], rows[own]
+            if dk.shape[0]:
+                self._write_back(dk, np.ascontiguousarray(rows))
+                host_bytes.inc(rows.nbytes)
         promo_rows = self._fetch_hot_rows(promote)
         if promo_rows.shape[0]:
             host_bytes.inc(promo_rows.nbytes)
@@ -434,16 +518,17 @@ class ShardedSparseTable(SparseTable):
         self._hot_keys = np.asarray(target, np.uint64).copy()
 
     def _fetch_owned_hot_rows(self, keys: np.ndarray) -> np.ndarray:
-        """Promotion read-through, shard by shard: cache hits come out of
-        the cache and leave its directory (``take_rows``: the hot block is
-        their truth now), misses resolve from the store and the overlay,
-        unseen keys init key-deterministically."""
+        """Promotion read-through for keys this process's shards own, shard
+        by shard: cache hits come out of the cache and leave its directory
+        (``take_rows``: the hot block is their truth now), misses resolve
+        from the store and the overlay, unseen keys init
+        key-deterministically."""
         caches = self._caches()
         if not caches:
             return self._resolve_or_init(keys)
         out = np.zeros((keys.shape[0], self.conf.row_width + 1), np.float32)
         owner = keys % np.uint64(self.n_shards)
-        for o, cache in enumerate(caches):
+        for cache, o in zip(caches, self._local_pos):
             pos = np.nonzero(owner == np.uint64(o))[0]
             if not pos.shape[0]:
                 continue
@@ -456,12 +541,33 @@ class ShardedSparseTable(SparseTable):
                 out[pos[~hit]] = self._resolve_or_init(sk[~hit])
         return out
 
+    def broadcast_hot_rows(self, payload: bytes) -> list:
+        """Host gather (a job's begin_pass, lockstep): every rank
+        contributes its owned shards' promoted rows as one migration frame
+        on the census channel and receives every rank's frame."""
+        self._census_exchange_obj()
+        return self._census_channel.gather_bytes(payload)
+
     def _fetch_hot_rows(self, promote: np.ndarray) -> np.ndarray:
-        """[P, W+1] rows for the sorted promoted keys (in one process every
-        shard is owned).  Under "loopback" the rows ride the migration
-        frame's encode -> decode round trip and must come back bit-exact."""
+        """[P, W+1] rows for the sorted promoted keys, identical on every
+        rank.  One process: every shard is owned, and under "loopback" the
+        rows ride the migration frame's encode -> decode round trip and
+        must come back bit-exact.  A job: the owners frame their rows, the
+        frames cross the census channel and every rank decodes all of
+        them."""
         if not promote.shape[0]:
             return _empty_rows(self.conf.row_width + 1)
+        if self.multiprocess:
+            own = self._owned(promote)
+            payload = _encode_migration(
+                promote[own], self._fetch_owned_hot_rows(promote[own]))
+            out = np.zeros((promote.shape[0], self.conf.row_width + 1),
+                           np.float32)
+            for buf in self.broadcast_hot_rows(payload):
+                k, v = _decode_migration(buf)
+                if k.shape[0]:
+                    out[np.searchsorted(promote, k)] = v
+            return out
         rows = self._fetch_owned_hot_rows(promote)
         if self._placement_mode == "loopback":
             dk, drows = _decode_migration(_encode_migration(promote, rows))
@@ -476,6 +582,23 @@ class ShardedSparseTable(SparseTable):
     def abort_pass(self) -> None:
         self._cache_plans = None
         super().abort_pass()
+
+    def close(self) -> None:
+        """Retire the census channel (its keys) on top of the base table's
+        quiesce."""
+        ch, self._census_channel = self._census_channel, None
+        if ch is not None:
+            self._census = None
+            ch.close()
+        super().close()
+
+    def prepare_pass(self, pass_keys) -> None:
+        """Stage the next pass in the background; in a job a no-op (the
+        census exchange is a lockstep gather on the main thread, so
+        begin_pass resolves synchronously there)."""
+        if self.multiprocess:
+            return
+        super().prepare_pass(pass_keys)
 
     # -- live reshard ------------------------------------------------------- #
     def reshard(self, new_mesh: Mesh) -> int:
@@ -498,6 +621,11 @@ class ShardedSparseTable(SparseTable):
         the new shard count from a checkpoint."""
         if self._in_pass:
             raise RuntimeError("reshard between passes, never inside one")
+        if self.mesh.n_proc > 1 or new_mesh.n_proc > 1:
+            raise NotImplementedError(
+                "a live reshard across processes (the migration over a "
+                "KvChannel) is ROADMAP item 8b, not ported yet: checkpoint, "
+                "then restore into tables built on the new mesh")
         if new_mesh.n < 1:
             raise ValueError("the new mesh has no shard positions")
         if new_mesh.device != self.device:
@@ -694,17 +822,19 @@ class ShardedSparseTable(SparseTable):
         leaves every cache) and returns None: no hit-fill then."""
         try:
             plans = []
-            for o, sk in enumerate(shard_keys):
-                plan = caches[o].lookup(sk)
+            for i, o in enumerate(self._local_pos):
+                sk = shard_keys[o]
+                plan = caches[i].lookup(sk)
                 miss_pos = np.nonzero(~plan.hit_mask)[0]
                 if miss_pos.shape[0]:
-                    lvals[o, miss_pos] = self._cache_fetch_rows(sk[miss_pos])
+                    lvals[i, miss_pos] = self._cache_fetch_rows(sk[miss_pos])
                 plans.append(plan)
         except faults.FaultInjected:
             self._cache_degrade(pk)
             lvals[:] = 0.0
-            for o, sk in enumerate(shard_keys):
-                lvals[o, : sk.shape[0]] = self._resolve_or_init(sk)
+            for i, o in enumerate(self._local_pos):
+                sk = shard_keys[o]
+                lvals[i, : sk.shape[0]] = self._resolve_or_init(sk)
             return None
         return plans
 
@@ -716,13 +846,14 @@ class ShardedSparseTable(SparseTable):
         Credits each census (``touch``), keeps the pass's plans for
         end_pass and returns the hits."""
         self._cache_plans = []
-        for o, sk in enumerate(shard_keys):
-            plan = plans[o] if plans is not None else caches[o].lookup(sk)
+        for i, o in enumerate(self._local_pos):
+            sk = shard_keys[o]
+            plan = plans[i] if plans is not None else caches[i].lookup(sk)
             if plan.n_hits:
                 pos = torch.from_numpy(plan.hit_pos.astype(np.int64))
-                buf[o].index_copy_(0, pos.to(self.device),
-                                   caches[o].gather_rows(plan.hit_slots))
-            caches[o].touch(plan)
+                buf[i].index_copy_(0, pos.to(self.device),
+                                   caches[i].gather_rows(plan.hit_slots))
+            caches[i].touch(plan)
             self._cache_plans.append(plan)
             self.last_shard_hits.append(plan.n_hits)
             self.last_shard_misses.append(int(sk.shape[0]) - plan.n_hits)
@@ -757,29 +888,36 @@ class ShardedSparseTable(SparseTable):
         else:
             _, shard_keys, row_within = self._shard_split(cold_pk)
             cap = self._sharded_cap(shard_keys)
-            lvals = np.zeros((self.n_shards, cap, w + 1), dtype=np.float32)
+            # only the local shards materialize: rows come from this
+            # process's store and new keys init key-deterministically, so
+            # any process layout gives identical rows
+            lvals = np.zeros((self.n_local, cap, w + 1), dtype=np.float32)
             if caches:
                 plans = self._cached_sync_resolve(caches, shard_keys, lvals,
                                                   cold_pk)
                 if plans is None:
                     caches = []
             else:
-                for o, sk in enumerate(shard_keys):
-                    lvals[o, : sk.shape[0]] = self._resolve_or_init(sk)
+                for i, o in enumerate(self._local_pos):
+                    sk = shard_keys[o]
+                    lvals[i, : sk.shape[0]] = self._resolve_or_init(sk)
         t4 = self._stamp()
         buf = torch.from_numpy(lvals).to(self.device)
         t5 = self._stamp()
         self._cache_plans = None
         self.last_shard_hits, self.last_shard_misses = [], []
         hits = 0
+        # the cold keys this process's shards own (the whole cold census
+        # in one process)
+        owned = sum(int(shard_keys[o].shape[0]) for o in self._local_pos)
         if caches:
             hits = self._cache_hit_fill(caches, plans, shard_keys, buf)
             self.last_cache_hits = hits
-            self.last_cache_misses = int(cold_pk.shape[0]) - hits
+            self.last_cache_misses = owned - hits
             telemetry.gauge(
                 "cache.hit_rate",
                 "fraction of the pass census served from the HBM cache",
-            ).set(hits / max(cold_pk.shape[0], 1))
+            ).set(hits / max(owned, 1))
         # boundary host traffic: the rows that crossed host -> device (the
         # cache misses; everything with the caches off).  The hot tier
         # never lands here
@@ -787,7 +925,7 @@ class ShardedSparseTable(SparseTable):
             "pass.host_row_bytes_in",
             "embedding-row bytes promoted host->device at begin_pass "
             "(cache misses + cold materialization)",
-        ).inc(max(int(cold_pk.shape[0]) - hits, 0) * 4 * (w + 1))
+        ).inc(max(owned - hits, 0) * 4 * (w + 1))
         # two contiguous tensors: the kernels take no strided views
         self.values = buf[:, :, :w].contiguous()
         self.g2sum = buf[:, :, w].contiguous()
@@ -797,16 +935,24 @@ class ShardedSparseTable(SparseTable):
             "stage_wait_s": t2 - t1, "patch_s": t3 - t2,
             "resolve_s": t4 - t3, "h2d_s": t5 - t4, "cache_fill_s": t6 - t5,
         }
-        self.last_promotion_rows = int(cold_pk.shape[0]) - hits
+        self.last_promotion_rows = owned - hits
         self._shard_keys = shard_keys
         self._shard_live = np.asarray(
-            [sk.shape[0] for sk in shard_keys], np.int32
-        )  # per-shard scratch base
+            [shard_keys[o].shape[0] for o in self._local_pos], np.int32
+        )  # per-local-shard scratch base
         self._pass_row = row_within
         self._pass_keys = cold_pk
         self._census_index = None  # stale: it indexes the previous census
         self._in_pass = True
-        self._delta_keys.append(pk)
+        if self.multiprocess:
+            # this process's delta: its shards' cold keys and the hot keys
+            # it owns (every replica trains them, one owner persists them)
+            local = [shard_keys[o] for o in self._local_pos]
+            if self._hot_keys.shape[0]:
+                local.append(self._hot_keys[self._owned(self._hot_keys)])
+            self._delta_keys.append(np.concatenate(local))
+        else:
+            self._delta_keys.append(pk)
         self._observe_gap()
 
     def _sorted_write_back(self, ks: list, vs: list) -> None:
@@ -822,14 +968,15 @@ class ShardedSparseTable(SparseTable):
             self._write_back(k[order], v[order])
 
     def _live_rows(self) -> tuple:
-        """(keys, rows) of every shard's live working-set rows."""
+        """(keys, rows) of every local shard's live working-set rows."""
         ks, vs = [], []
-        for o, sk in enumerate(self._shard_keys):
+        for i, o in enumerate(self._local_pos):
+            sk = self._shard_keys[o]
             m = sk.shape[0]
             if m:
                 ks.append(sk)
                 vs.append(torch.cat(
-                    [self.values[o, :m], self.g2sum[o, :m, None]], dim=1
+                    [self.values[i, :m], self.g2sum[i, :m, None]], dim=1
                 ).cpu().numpy())
         return ks, vs
 
@@ -842,8 +989,8 @@ class ShardedSparseTable(SparseTable):
         the caches, as on an uncached table."""
         try:
             faults.inject("cache.admit")
-            upds = [c.plan_update(self._shard_keys[o], plans[o])
-                    for o, c in enumerate(caches)]
+            upds = [c.plan_update(self._shard_keys[o], plans[i])
+                    for i, (c, o) in enumerate(zip(caches, self._local_pos))]
         except faults.FaultInjected:
             telemetry.counter(
                 "cache.admit_fallbacks",
@@ -851,9 +998,9 @@ class ShardedSparseTable(SparseTable):
             ).inc()
             ks, vs = self._live_rows()
             with self._cache_lock:
-                for o, c in enumerate(caches):
+                for i, (c, o) in enumerate(zip(caches, self._local_pos)):
                     sk = self._shard_keys[o]
-                    c.evict_keys(sk[plans[o].hit_mask])
+                    c.evict_keys(sk[plans[i].hit_mask])
                 self._sorted_write_back(ks, vs)
             self.last_write_back_rows = int(sum(k.shape[0] for k in ks))
             return
@@ -862,9 +1009,9 @@ class ShardedSparseTable(SparseTable):
             self.device)
         ks, vs = [], []
         n_evicted = 0
-        for o, c in enumerate(caches):
+        for i, (c, o) in enumerate(zip(caches, self._local_pos)):
             sk = self._shard_keys[o]
-            plan, upd = plans[o], upds[o]
+            plan, upd = plans[i], upds[i]
             if not sk.shape[0]:
                 continue
             upd_pos = np.concatenate([plan.hit_pos, upd.admit_pos])
@@ -875,14 +1022,14 @@ class ShardedSparseTable(SparseTable):
                     vs.append(c.gather_rows(upd.victim_slots).cpu().numpy())
                     n_evicted += int(upd.victim_slots.shape[0])
                 c.set_rows(np.concatenate([plan.hit_slots, upd.admit_slots]),
-                           full[o].index_select(0, dev_idx(upd_pos)))
+                           full[i].index_select(0, dev_idx(upd_pos)))
             if upd.cold_pos.shape[0]:
                 ks.append(sk[upd.cold_pos])
-                vs.append(full[o].index_select(
+                vs.append(full[i].index_select(
                     0, dev_idx(upd.cold_pos)).cpu().numpy())
         with self._cache_lock:
-            for o, c in enumerate(caches):
-                c.commit_update(plans[o], upds[o])
+            for i, c in enumerate(caches):
+                c.commit_update(plans[i], upds[i])
             self._sorted_write_back(ks, vs)
         self.last_evicted_rows = n_evicted
         self.last_write_back_rows = int(sum(k.shape[0] for k in ks))
@@ -917,13 +1064,19 @@ class ShardedSparseTable(SparseTable):
 
     def pass_state_dict(self) -> dict:
         """Snapshot usable mid-pass: the live cold rows and the resident hot
-        rows when a pass is open, the host store otherwise."""
+        rows when a pass is open, the host store otherwise.  In a job this
+        process's shards only (checkpoints are per process)."""
         if not self._in_pass:
             return self.state_dict()
         keys, rows = self._live_rows()
         if self._hot_keys.shape[0] and self.hot_values is not None:
-            keys.append(self._hot_keys)
-            rows.append(self._hot_rows())
+            hk, hr = self._hot_keys, self._hot_rows()
+            if self.multiprocess:
+                own = self._owned(hk)
+                hk, hr = hk[own], hr[own]
+            if hk.shape[0]:
+                keys.append(hk)
+                rows.append(hr)
         if not keys:
             return {
                 "keys": np.empty(0, np.uint64),
@@ -967,11 +1120,21 @@ class ShardedSparseTable(SparseTable):
 
     def plan_group(self, batches: Sequence[HostBatch],
                    slot_lr_vec: Optional[np.ndarray] = None,
-                   n_slots: Optional[int] = None) -> ShardedBatchPlan:
-        """Resolve one batch group (one batch per shard position) into the
-        stacked all_to_all plan.  The bucket capacity is exact-fit, never
-        lossy: the worst per-shard occupancy is found first, and the bucket
-        grows in power-of-two steps above the base when a group needs it.
+                   n_slots: Optional[int] = None,
+                   gather=None) -> ShardedBatchPlan:
+        """Resolve one batch group (one batch per LOCAL shard position)
+        into the stacked all_to_all plan; every plan array carries this
+        process's leading axis [L, ...].  The bucket capacity is exact-fit,
+        never lossy: the worst per-shard occupancy is found first (in a job
+        agreed over every process), and the bucket grows in power-of-two
+        steps above the base when a group needs it.
+
+        ``gather``: the allgather of the two planning exchanges in a job
+        (the capacity need, then the want matrices in process order);
+        default ``multiprocess.host_allgather``.  The multi-chip trainer's
+        producer thread hands its per-pass ``plan-<k>`` KvChannel, so
+        planning never issues a process-group collective.  One process
+        needs no gather.
 
         ``slot_lr_vec`` + ``n_slots``: the per-slot LR map ([S] float32 of
         train/slot_policy.py).  Each occurrence's slot lr is resolved on the
@@ -986,10 +1149,18 @@ class ShardedSparseTable(SparseTable):
                              "occurrence slots from key_segments")
         default_lr = float(self.conf.learning_rate)
         n = self.n_shards
-        if len(batches) != n:
+        L = self.n_local
+        if len(batches) != L:
             raise ValueError(
-                f"need {n} batches (one per shard position), got {len(batches)}"
+                f"need {L} batches (one per local shard position), got "
+                f"{len(batches)}"
             )
+        if self.multiprocess and gather is None:
+            from paddlebox_tpu_torch.parallel.multiprocess import (
+                host_allgather,
+            )
+
+            gather = host_allgather
         K = batches[0].keys.shape[0]
         dead = self.shard_capacity - 1
 
@@ -1046,6 +1217,10 @@ class ShardedSparseTable(SparseTable):
             if cold_slot.shape[0]:
                 needed = max(needed, int(cold_slot.max()) + 1)
 
+        if self.multiprocess:
+            # every process builds the same [L, n, C] want shape: agree on
+            # the worst need first (8 bytes a process)
+            needed = int(gather(np.asarray([needed], np.int64)).max())
         # floor of 8: a K = 0 batch would give base 0, and 0 * 2 == 0
         base = max(self.bucket_capacity(K), 8)
         C = base
@@ -1054,19 +1229,19 @@ class ShardedSparseTable(SparseTable):
         if C > base:
             self.capacity_bumps += 1
 
-        want = np.full((n, n, C), dead, dtype=np.int32)
+        want = np.full((L, n, C), dead, dtype=np.int32)
         want_lr = (None if slot_lr_vec is None
-                   else np.full((n, n, C), default_lr, dtype=np.float32))
-        occ = np.full((n, K), n * C, dtype=np.int32)
-        mask = np.zeros((n, K), dtype=np.float32)
+                   else np.full((L, n, C), default_lr, dtype=np.float32))
+        occ = np.full((L, K), n * C, dtype=np.int32)
+        mask = np.zeros((L, K), dtype=np.float32)
         # every occurrence also carries a hot slot (H = sink for cold and
         # padding) and each referenced hot slot its lr (0.0 where this
         # position has no occurrence: the step's pmax fold recovers it);
         # shapes depend only on the padded capacity H
         hot_occ = hot_lr = None
         if self._hot_realize:
-            hot_occ = np.full((n, K), H, dtype=np.int32)
-            hot_lr = np.zeros((n, H), dtype=np.float32)
+            hot_occ = np.full((L, K), H, dtype=np.int32)
+            hot_lr = np.zeros((L, H), dtype=np.float32)
         for d, resolved in enumerate(per_dev):
             if resolved is None:
                 continue
@@ -1089,15 +1264,32 @@ class ShardedSparseTable(SparseTable):
                 ).astype(np.int32)[inv]
                 if ishot.any():
                     hot_lr[d, hp_c[ishot]] = klr[ishot]
-        # the serve side: shard o serves want[:, o, :]; dedup the rows so
-        # the push updates each row once (the dead row shares one segment;
-        # it is scrubbed after every push)
-        serve_rows = np.ascontiguousarray(want.transpose(1, 0, 2))
-        serve_map = np.empty((n, n, C), dtype=np.int32)
+        # every requester's want matrix in position order (processes hold
+        # contiguous runs); one process: want itself.  Under an LR map the
+        # float lrs travel bit-packed beside the row ids, so a job still
+        # pays one want gather
+        if not self.multiprocess:
+            want_all, lr_all = want, want_lr
+        elif want_lr is None:
+            want_all, lr_all = gather(want).reshape(n, n, C), None
+        else:
+            packed = np.concatenate(
+                [want[..., None], want_lr.view(np.int32)[..., None]], axis=-1
+            )  # [L, n, C, 2] int32
+            packed_all = gather(packed).reshape(n, n, C, 2)
+            want_all = np.ascontiguousarray(packed_all[..., 0])
+            lr_all = np.ascontiguousarray(packed_all[..., 1]).view(np.float32)
+        # the serve side: local shard o serves want_all[:, o, :]; dedup the
+        # rows so the push updates each row once (the dead row shares one
+        # segment; it is scrubbed after every push)
+        serve_rows = np.ascontiguousarray(
+            want_all[:, self._local_pos, :].transpose(1, 0, 2))  # [L, n, C]
+        serve_map = np.empty((L, n, C), dtype=np.int32)
         serve_lr = lr_serve = None
-        if want_lr is not None:
-            lr_serve = want_lr.transpose(1, 0, 2)  # aligned with serve_rows
-            serve_lr = np.full((n, n * C), default_lr, np.float32)
+        if lr_all is not None:
+            # aligned with serve_rows
+            lr_serve = lr_all[:, self._local_pos, :].transpose(1, 0, 2)
+            serve_lr = np.full((L, n * C), default_lr, np.float32)
         # padding tail: every slot its OWN scratch row (live + j), so
         # serve_uniq is unique apart from np.unique's single dead entry and
         # the slots past the scratch region clamped to the dead row, whose
@@ -1108,7 +1300,7 @@ class ShardedSparseTable(SparseTable):
             + np.arange(n * C, dtype=np.int32)[None, :],
             dead,
         )
-        for o in range(n):
+        for o in range(L):
             out = None
             if ix is not None:  # the same switch as the request side
                 from paddlebox_tpu_torch._native import dedup_rows_native

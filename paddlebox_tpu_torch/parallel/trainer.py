@@ -77,8 +77,32 @@ built (its ``bind_composed_mesh``) and splits its dense compute over the
 inner positions inside each data position (reference: the
 ``axis_names={"data"}`` binding of the step's shard_map).
 
-Not ported: the host plane; the watchdog; the cross-process fleet
-snapshot.
+A multi-process job (a mesh built inside ``initialize_distributed``,
+parallel/mesh.py; launch with ``python -m paddlebox_tpu_torch.launch``):
+each process runs the step body for its ``n_local`` positions, its feeds
+and plans ``[n_local, ...]``, and the data-axis collectives cross the
+processes through the job's process group (parallel/collectives.py,
+``group=``), the sums in the same ascending-position order as in one
+process, so N processes of L positions train the same global batch stream
+bit-equal to one process of N * L positions.  Every process holds an
+identical dense replica fed identical summed gradients ("step"; "kstep"
+averages over all positions of all processes; "async" runs one identical
+``AsyncDenseTable`` a process), checked once by a digest exchange at the
+first pass.  The producer thread never calls ``torch.distributed``: its
+gathers (the ragged-tail barrier, the capacity need, the want matrices)
+ride a per-pass ``plan-<k>`` KvChannel on the job's TCPStore
+(parallel/host_plane.py), and only the step thread issues process-group
+collectives, in the same order on every rank.  The pass end merges the
+positions' metric streams, losses and counts over the process group; with
+``TelemetryConfig.fleet_snapshot`` every rank's metric snapshot is
+gathered over the store and rank 0 prints the merged fleet view
+(telemetry/fleet.py); field dumps go to ``dump-<step>-r<rank>.txt``.
+
+Liveness (``TrainerConfig.liveness``): a watchdog (parallel/watchdog.py)
+runs around each pass, the producer reports ``feed`` and the step thread
+``step`` (the fault site ``train.step`` precedes every step); in a job it
+publishes heartbeats on the store and a stall anywhere aborts every rank
+with the same ``DistributedStallError`` naming the culprit.
 """
 
 from __future__ import annotations
@@ -104,6 +128,7 @@ from paddlebox_tpu_torch.metrics.auc import (
     compute_metrics_stacked,
     init_auc_state,
     merge_auc_states,
+    psum_auc_state,
     stack_auc_states,
     unstack_auc_state,
     update_auc_state_,
@@ -116,6 +141,8 @@ from paddlebox_tpu_torch.models.layers import (
 )
 from paddlebox_tpu_torch.ops import sparse_kernels
 from paddlebox_tpu_torch.parallel import collectives
+from paddlebox_tpu_torch.parallel import mesh as _mesh
+from paddlebox_tpu_torch.parallel import watchdog as _wd
 from paddlebox_tpu_torch.parallel.async_dense import AsyncDenseTable
 from paddlebox_tpu_torch.parallel.mesh import Mesh, data_axis_size
 from paddlebox_tpu_torch.parallel.sharded_table import (
@@ -123,7 +150,11 @@ from paddlebox_tpu_torch.parallel.sharded_table import (
     ShardedSparseTable,
 )
 from paddlebox_tpu_torch.sparse.optimizer import sparse_adagrad_update
-from paddlebox_tpu_torch.sparse.table import _segment_sum, gather_rows, scatter_add_rows
+from paddlebox_tpu_torch.sparse.table import (
+    gather_rows,
+    scatter_add_rows,
+    segment_sum_before_sink,
+)
 from paddlebox_tpu_torch.train.slot_policy import (
     normalize_slot_mask,
     resolve_slot_lr_vec,
@@ -143,7 +174,14 @@ from paddlebox_tpu_torch.train.trainer import (
     sum_squares,
     to_device,
 )
+from paddlebox_tpu_torch.utils import faults
+from paddlebox_tpu_torch.utils.monitor import stats
 from paddlebox_tpu_torch.utils.profiler import StatsProfiler
+
+# lockstep naming of the per-pass plan channels and fleet gathers: every
+# process runs its passes in the same order, so the counters agree
+_PLAN_CHANNEL_SEQ = [0]
+_FLEET_SNAP_SEQ = [0]
 
 
 def _stack_group(batches: Sequence[HostBatch], plan: ShardedBatchPlan,
@@ -193,34 +231,36 @@ def _apply_threshold(rows: torch.Tensor, create_threshold: float,
 
 def sharded_pull(values: torch.Tensor, serve_rows: torch.Tensor,
                  occ_flat: torch.Tensor, create_threshold: float,
-                 cvm_offset: int) -> list:
+                 cvm_offset: int, group=None) -> list:
     """The cross-shard pull.  The host plan already told each shard which
     rows to serve, so there is no key exchange: local gather -> one
     all_to_all -> occurrence gather.
 
-    values: [n, cap, W]; serve_rows: [n, n, C], the rows shard o serves to
-    each requester; occ_flat: [n, K] into the received [n, C] response.
-    Returns one [K, W] tensor of pulled rows per position."""
-    n, _, C = serve_rows.shape
+    values: [L, cap, W] (L = the local positions, all n in one process);
+    serve_rows: [L, n, C], the rows local shard o serves to each of the n
+    requesters; occ_flat: [L, K] into the received [n, C] response.
+    ``group``: the job when the positions span processes.  Returns one
+    [K, W] tensor of pulled rows per local position."""
+    L, n, C = serve_rows.shape
     W = values.shape[2]
     served = torch.stack([
-        gather_rows(values[o], serve_rows[o].reshape(-1)) for o in range(n)
-    ]).view(n, n, C, W)
-    got = collectives.all_to_all(served)  # got[d, s] = served[s, d]
+        gather_rows(values[o], serve_rows[o].reshape(-1)) for o in range(L)
+    ]).view(L, n, C, W)
+    got = collectives.all_to_all(served, group)  # got[d, s] = served[s, d]
     sink = values.new_zeros((1, W))
     return [
         _apply_threshold(
             torch.cat([got[d].view(n * C, W), sink]).index_select(
                 0, occ_flat[d]),
             create_threshold, cvm_offset)
-        for d in range(n)
+        for d in range(L)
     ]
 
 
 def hybrid_pull(values: torch.Tensor, hot_values: torch.Tensor,
                 serve_rows: torch.Tensor, occ_flat: torch.Tensor,
                 hot_occ: torch.Tensor, create_threshold: float,
-                cvm_offset: int) -> list:
+                cvm_offset: int, group=None) -> list:
     """The hybrid-placement pull: cold occurrences take the all_to_all
     path, hot occurrences read the position's copy of the replicated hot
     block (hot_values [n, H, W]; hot_occ [n, K] in [0, H], H = cold or
@@ -228,7 +268,7 @@ def hybrid_pull(values: torch.Tensor, hot_values: torch.Tensor,
     occurrences carry the n*C sink, so the two selects partition).
     create_threshold applies after the select, so hot and cold rows see
     the same visibility rule."""
-    rows = sharded_pull(values, serve_rows, occ_flat, 0.0, cvm_offset)
+    rows = sharded_pull(values, serve_rows, occ_flat, 0.0, cvm_offset, group)
     return [
         _apply_threshold(
             sparse_kernels.hot_cold_select(hot_values[d], hot_occ[d], r),
@@ -239,16 +279,17 @@ def hybrid_pull(values: torch.Tensor, hot_values: torch.Tensor,
 
 def _counter_contrib(row_grads: torch.Tensor, segments: torch.Tensor,
                      key_mask: torch.Tensor, key_clicks: torch.Tensor,
-                     n_seg: int, co: int) -> torch.Tensor:
-    """[n_seg, W]: show, click (and zero extra counters) beside the merged
-    embedding gradient, segment-summed in occurrence order."""
-    merged = _segment_sum(row_grads, segments, n_seg)
-    counters = [_segment_sum(key_mask, segments, n_seg),
-                _segment_sum(key_clicks, segments, n_seg)]
+                     sink: int, co: int) -> torch.Tensor:
+    """[sink, W]: show, click (and zero extra counters) beside the merged
+    embedding gradient, segment-summed in occurrence order; the sink
+    segment (padding and routed-away occurrences) is dropped."""
+    merged = segment_sum_before_sink(row_grads, segments, sink)
+    counters = [segment_sum_before_sink(key_mask, segments, sink),
+                segment_sum_before_sink(key_clicks, segments, sink)]
     counters = torch.stack(counters, dim=1)
     if co > 2:
         counters = torch.cat(
-            [counters, counters.new_zeros((n_seg, co - 2))], dim=1)
+            [counters, counters.new_zeros((sink, co - 2))], dim=1)
     return torch.cat([counters, merged[:, co:]], dim=1)
 
 
@@ -257,9 +298,10 @@ def hybrid_hot_update(hot_values: torch.Tensor, hot_g2sum: torch.Tensor,
                       row_grads: Sequence[torch.Tensor],
                       hot_occ: torch.Tensor, hot_lr: torch.Tensor,
                       key_mask: torch.Tensor, key_clicks: torch.Tensor,
-                      conf: SparseTableConfig) -> None:
-    """Replica-identical hot-block update, IN PLACE on hot_values [n, H, W]
-    and hot_g2sum [n, H].
+                      conf: SparseTableConfig, group=None) -> None:
+    """Replica-identical hot-block update, IN PLACE on hot_values [L, H, W]
+    and hot_g2sum [L, H] (the local positions' copies; ``group``: the job
+    when the positions span processes).
 
     Level 1 merges each position's occurrences in occurrence order, as the
     cold path does; level 2 is an all_gather followed by an unrolled
@@ -270,18 +312,18 @@ def hybrid_hot_update(hot_values: torch.Tensor, hot_g2sum: torch.Tensor,
     its delta, so padding and unreferenced residents stay bitwise
     unchanged.  hot_lr is 0.0 on positions without an occurrence of the
     slot; the pmax fold recovers the one real lr."""
-    n, H, _ = hot_values.shape
+    L, H, _ = hot_values.shape
     co = conf.cvm_offset
     contrib = torch.stack([
         _counter_contrib(row_grads[d], hot_occ[d], key_mask[d],
-                         key_clicks[d], H + 1, co)[:H]
-        for d in range(n)
-    ])  # [n, H, W]
-    gathered = collectives.all_gather(contrib)  # [n, n, H, W]
-    lr = collectives.pmax(hot_lr)
-    for d in range(n):
+                         key_clicks[d], H, co)
+        for d in range(L)
+    ])  # [L, H, W]
+    gathered = collectives.all_gather(contrib, group)  # [L, n, H, W]
+    lr = collectives.pmax(hot_lr, group)
+    for d in range(L):
         acc = gathered[d, 0]
-        for i in range(1, n):  # unrolled: fixed fold order
+        for i in range(1, gathered.shape[1]):  # unrolled: fixed fold order
             acc = acc + gathered[d, i]
         w_delta, g2_delta = sparse_adagrad_update(
             hot_g2sum[d], acc[:, co:], lr[d], conf.initial_g2sum,
@@ -298,27 +340,35 @@ def sharded_push_and_update(values: torch.Tensor, g2sum: torch.Tensor,
                             serve_uniq: torch.Tensor, key_mask: torch.Tensor,
                             key_clicks: torch.Tensor,
                             conf: SparseTableConfig,
-                            uniq_lr: Optional[torch.Tensor] = None) -> None:
-    """The cross-shard push, IN PLACE on values [n, cap, W] and g2sum
-    [n, cap]: merge occurrence gradients into per-owner buckets, exchange
-    them (the push all_to_all), fold requesters of the same row into one
-    segment (serve_map / serve_uniq), and apply the counters and sparse
-    adagrad to exactly the touched rows.  ``uniq_lr`` [n, n*C]: the lr of
-    each served unique row (the LR map), else ``conf.learning_rate``."""
-    n, _, C = serve_map.shape
+                            uniq_lr: Optional[torch.Tensor] = None,
+                            group=None) -> None:
+    """The cross-shard push, IN PLACE on values [L, cap, W] and g2sum
+    [L, cap] (the local shards): merge occurrence gradients into per-owner
+    buckets, exchange them (the push all_to_all), fold requesters of the
+    same row into one segment (serve_map / serve_uniq), and apply the
+    counters and sparse adagrad to exactly the touched rows.  ``uniq_lr``
+    [L, n*C]: the lr of each served unique row (the LR map), else
+    ``conf.learning_rate``.  ``group``: the job when the positions span
+    processes."""
+    L, n, C = serve_map.shape
     co = conf.cvm_offset
     cap, W = values.shape[1:]
     US = serve_uniq.shape[1]
-    # last segment = the padding and hot-occurrence sink, dropped
+    # segment n * C = the padding and hot-occurrence sink, dropped
     send = torch.stack([
         _counter_contrib(row_grads[d], occ_flat[d], key_mask[d],
-                         key_clicks[d], n * C + 1, co)[: n * C]
-        for d in range(n)
-    ]).view(n, n, C, W)
-    recv = collectives.all_to_all(send)  # [n, n, C, W]
-    for o in range(n):
-        acc = _segment_sum(recv[o].view(n * C, W), serve_map[o].view(-1), US)
+                         key_clicks[d], n * C, co)
+        for d in range(L)
+    ]).view(L, n, C, W)
+    recv = collectives.all_to_all(send, group)  # [L, n, C, W]
+    for o in range(L):
         uniq = serve_uniq[o]
+        # every padding slot folds into the dead row's segment, whose delta
+        # is zeroed below: its entries are dropped instead
+        seg = serve_map[o].view(-1)
+        acc = segment_sum_before_sink(
+            recv[o].view(n * C, W), seg, US,
+            dropped=uniq.index_select(0, seg) == cap - 1)
         w_delta, g2_delta = sparse_adagrad_update(
             g2sum[o].index_select(0, uniq), acc[:, co:],
             conf.learning_rate if uniq_lr is None else uniq_lr[o],
@@ -354,6 +404,11 @@ class MultiChipTrainer:
         # data positions; a composed mesh's inner axis splits the dense
         # compute inside the step, unseen by the feeds and the table
         self.n_dev = data_axis_size(mesh)
+        # this process's positions (all of them in one process) and the
+        # job the data axis spans (None: the in-process collectives)
+        self.n_local = mesh.n_local
+        self.group = _mesh.job() if mesh.distributed else None
+        self._digest_checked = False
         self.conf = trainer_conf or TrainerConfig()
         self.metric_group = metric_group
         n_slots = model.n_sparse_slots
@@ -371,10 +426,11 @@ class MultiChipTrainer:
                 raise ValueError(
                     f"model parameters on {p.device}, mesh on {self.device}"
                 )
-        # one dense copy per position in "kstep" mode (position 0 is the
-        # caller's model; the copies start equal), one shared copy else.
-        # the optimizers match optax's (train/trainer.py:_dense_opt)
-        n_copies = self.n_dev if self.conf.sync_dense_mode == "kstep" else 1
+        # one dense copy per local position in "kstep" mode (position 0 is
+        # the caller's model; the copies start equal), one shared copy
+        # else.  the optimizers match optax's (train/trainer.py:_dense_opt)
+        n_copies = (self.n_local if self.conf.sync_dense_mode == "kstep"
+                    else 1)
         self.models = [model] + [copy.deepcopy(model)
                                  for _ in range(n_copies - 1)]
         self.optimizers = [_dense_opt(self.conf.dense_optimizer,
@@ -401,9 +457,9 @@ class MultiChipTrainer:
         stacked per-position state, ``weights.params_from_jax_stacked``),
         which must be equal where the mode keeps one shared copy."""
         if isinstance(params, (list, tuple)):
-            if len(params) != self.n_dev:
+            if len(params) != self.n_local:
                 raise ValueError(f"{len(params)} dense states for "
-                                 f"{self.n_dev} positions")
+                                 f"{self.n_local} positions")
             if len(self.models) == 1:
                 if not all(torch.equal(params[0][k], p[k])
                            for p in params[1:] for k in params[0]):
@@ -433,11 +489,12 @@ class MultiChipTrainer:
     @torch.no_grad()
     def _average_copies(self) -> None:
         """The "kstep" sync: every floating leaf of the position copies and
-        of their Adam states becomes the copies' mean (an ascending psum
-        over n); Adam's step counts are equal on every copy and stay."""
-        n = len(self.models)
+        of their Adam states becomes the mean over all n positions (an
+        ascending psum over every process's copies); Adam's step counts
+        are equal on every copy and stay."""
+        n, pg = self.n_dev, self.group
         for group in zip(*(m.parameters() for m in self.models)):
-            mean = collectives.psum(torch.stack(group))[0] / n
+            mean = collectives.psum(torch.stack(group), pg)[0] / n
             for p in group:
                 p.copy_(mean)
         states = [[o.state[p] for p in m.parameters()]
@@ -445,8 +502,8 @@ class MultiChipTrainer:
         for per_param in zip(*states):
             for key in ("exp_avg", "exp_avg_sq"):
                 group = [st[key] for st in per_param if key in st]
-                if len(group) == n:
-                    mean = collectives.psum(torch.stack(group))[0] / n
+                if len(group) == len(self.models):
+                    mean = collectives.psum(torch.stack(group), pg)[0] / n
                     for t in group:
                         t.copy_(mean)
 
@@ -479,9 +536,9 @@ class MultiChipTrainer:
 
     # -- state -------------------------------------------------------------- #
     def init_auc(self) -> AucState:
-        """Fresh AUC streams, one per position, stacked [n, ...]."""
+        """Fresh AUC streams, one per local position, stacked [L, ...]."""
         return stack_auc_states(
-            init_auc_state(self.conf.auc_buckets, self.device), self.n_dev)
+            init_auc_state(self.conf.auc_buckets, self.device), self.n_local)
 
     def _ensure_hot_block(self, table: ShardedSparseTable, hot_cap: int) -> None:
         """Give the table an all-zero hot block before the first plan
@@ -489,10 +546,33 @@ class MultiChipTrainer:
         (all-sink), and a zero block receives exactly-zero updates."""
         if table.hot_values is None:
             w = self.table_conf.row_width
-            table.hot_values = torch.zeros((self.n_dev, hot_cap, w),
+            table.hot_values = torch.zeros((self.n_local, hot_cap, w),
                                            device=self.device)
-            table.hot_g2sum = torch.zeros((self.n_dev, hot_cap),
+            table.hot_g2sum = torch.zeros((self.n_local, hot_cap),
                                           device=self.device)
+
+    def _check_dense_digest(self) -> None:
+        """Every process must start from the same dense replica (the same
+        seed): one digest exchange on the store at the first pass."""
+        import hashlib
+
+        from paddlebox_tpu_torch.parallel.multiprocess import host_allgather
+
+        self._digest_checked = True
+        if self.group is None or self.group.world == 1:
+            return
+        h = hashlib.sha256()
+        for _, t in sorted(self.model.state_dict().items()):
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        mine = np.frombuffer(h.digest(), np.uint8)
+        every = host_allgather(mine)
+        if not (every == mine[None]).all():
+            differ = [r for r in range(every.shape[0])
+                      if not np.array_equal(every[r], mine)]
+            raise RuntimeError(
+                f"the dense replica of process {self.group.rank} differs "
+                f"from processes {differ}: build the model from the same "
+                "seed on every rank")
 
     def _to_device(self, host: dict) -> dict:
         return to_device(host, self.device)
@@ -512,25 +592,26 @@ class MultiChipTrainer:
         positions' predictions [n, B]) on the device: the psummed loss, or
         in "kstep" mode each position's own loss [n]."""
         tconf = self.table_conf
-        n = self.n_dev
+        n = self.n_local
+        pg = self.group
         mode = self.conf.sync_dense_mode
         hot = "hot_occ" in feed
         if hot:
             rows = hybrid_pull(table.values, table.hot_values,
                                feed["serve_rows"], feed["occ_flat"],
                                feed["hot_occ"], tconf.create_threshold,
-                               tconf.cvm_offset)
+                               tconf.cvm_offset, pg)
         else:
             rows = sharded_pull(table.values, feed["serve_rows"],
                                 feed["occ_flat"], tconf.create_threshold,
-                                tconf.cvm_offset)
+                                tconf.cvm_offset, pg)
         mask = feed["ins_mask"]
         cnt = mask.sum(1)
         if mode == "kstep":
             # each copy trains on its own batch's mean
             denoms = torch.clamp(cnt, min=1.0)
         else:
-            denoms = torch.clamp(collectives.psum(cnt), min=1.0)
+            denoms = torch.clamp(collectives.psum(cnt, pg), min=1.0)
         key_mask, key_clicks = feed["key_mask"], feed["key_clicks"]
         key_part = None
         if self._part_vec is not None:
@@ -567,9 +648,10 @@ class MultiChipTrainer:
             loss = torch.stack(losses)
             dense_grads = [g for gs in pgrads for g in gs]
         else:
-            summed = [collectives.psum(torch.stack(g))[0]
-                      for g in zip(*pgrads)]
-            loss = collectives.psum(torch.stack(losses))[0]
+            # the positions' gradients and losses, one gather in a job
+            *summed, loss = collectives.psum_many(
+                [torch.stack(g) for g in zip(*pgrads)]
+                + [torch.stack(losses)], pg)
             dense_grads = summed
         if gn is not None:
             # per position: the gradient its dense update sees (summed in
@@ -582,6 +664,11 @@ class MultiChipTrainer:
             finite = torch.isfinite(loss).all()
             for g in dense_grads + row_grads:
                 finite &= torch.isfinite(g).all()
+            if pg is not None:
+                # every process must take the same branch: a bad position
+                # anywhere stops them all
+                bad = (~finite).to(torch.int32).reshape(1).expand(n)
+                finite = collectives.pmax(bad, pg)[0] == 0
             if not bool(finite):
                 raise NonFiniteBatchError(
                     f"non-finite loss/grad at step {self.global_step}"
@@ -599,7 +686,7 @@ class MultiChipTrainer:
         sharded_push_and_update(
             table.values, table.g2sum, row_grads, feed["occ_flat"],
             feed["serve_map"], feed["serve_uniq"], key_mask, key_clicks,
-            tconf, uniq_lr=feed.get("uniq_lr"),
+            tconf, uniq_lr=feed.get("uniq_lr"), group=pg,
         )
         if hot:
             # hot occurrences carried the cold sink above, so each gradient
@@ -607,6 +694,7 @@ class MultiChipTrainer:
             hybrid_hot_update(
                 table.hot_values, table.hot_g2sum, row_grads,
                 feed["hot_occ"], feed["hot_lr"], key_mask, key_clicks, tconf,
+                group=pg,
             )
         for d in range(n):
             update_auc_state_(aucs[d], preds[d], feed["labels"][d], mask[d])
@@ -623,42 +711,56 @@ class MultiChipTrainer:
     def train_from_dataset(self, dataset, table: ShardedSparseTable,
                            auc_state=None, drop_last: bool = False,
                            next_pass_keys=None) -> dict:
-        """One pass over the dataset, one batch per position at a time (the
-        caller owns begin_pass/end_pass, as with the single-chip Trainer).
+        """One pass over the dataset, one batch per local position at a
+        time (the caller owns begin_pass/end_pass, as with the single-chip
+        Trainer; in a job each process passes its own dataset shard).
         ``auc_state`` (a stacked AucState or ``last_metric_state``)
         continues an earlier pass's metric streams.  ``next_pass_keys``
         (an array or a zero-argument callable) goes to
         ``table.prepare_pass`` once the groups are exhausted."""
         return self.train_groups(
             table, _group_batches(dataset.batches(drop_last=drop_last),
-                                  self.n_dev),
+                                  self.n_local),
             auc_state=auc_state, next_pass_keys=next_pass_keys,
         )
+
+    def _gather_positions(self, x: torch.Tensor) -> torch.Tensor:
+        """[L, ...] of this process -> [n, ...] of every position (the
+        process group's gather; the local value in one process)."""
+        if self.group is None:
+            return x
+        return collectives.gather_positions(self.group, x)
 
     def train_groups(self, table: ShardedSparseTable,
                      groups: Iterator[Sequence[HostBatch]],
                      auc_state=None, next_pass_keys=None) -> dict:
-        """Train over explicit groups of n batches: plan, copy, step, with
-        the plan and the copy on the prefetch producer when
-        ``prefetch_batches`` > 0."""
+        """Train over explicit groups of n_local batches: plan, copy, step,
+        with the plan and the copy on the prefetch producer when
+        ``prefetch_batches`` > 0.  In a job a process whose groups run out
+        steps on with empty batches until every process's have (the
+        ragged-tail barrier on the plan channel)."""
         if not table._in_pass:
             raise RuntimeError("begin_pass before training")
         if table.mesh.n != self.n_dev or table.device != self.device:
             raise ValueError("the table and the trainer use different meshes")
+        if not self._digest_checked:
+            self._check_dense_digest()
         t0 = time.monotonic()
+        pg = self.group
+        L = self.n_local
         hot_cap = table.hot_block_capacity
         if hot_cap:
             self._ensure_hot_block(table, hot_cap)
-        gn = torch.zeros((self.n_dev, 2), device=self.device)
+        gn = torch.zeros((L, 2), device=self.device)
         group_state = task_state = None
         if self.metric_group is not None:
             group_state = stack_auc_states(
-                self.metric_group.init_state(self.device), self.n_dev)
+                self.metric_group.init_state(self.device), L)
         if self.n_tasks > 1:
-            # [n, n_tasks, ...]: per position, one stream per task
+            # [L, n_tasks, ...]: per position, one stream per task
             task_state = stack_auc_states(stack_auc_states(
                 init_auc_state(self.conf.auc_buckets, self.device),
-                self.n_tasks), self.n_dev)
+                self.n_tasks), L)
         if isinstance(auc_state, dict):
             if "gn" in auc_state:
                 gn.copy_(auc_state["gn"])
@@ -678,22 +780,23 @@ class MultiChipTrainer:
         # per-position views of the stacked group and task states, updated
         # in place
         group_views = (None if group_state is None else
-                       [unstack_auc_state(group_state, d)
-                        for d in range(self.n_dev)])
+                       [unstack_auc_state(group_state, d) for d in range(L)])
         task_views = (None if task_state is None else
-                      [unstack_auc_state(task_state, d)
-                       for d in range(self.n_dev)])
+                      [unstack_auc_state(task_state, d) for d in range(L)])
         # the grad-norm stream carries across continued passes: the pass
         # reads a float64 delta of the positions' sum
-        gn_base = gn.sum(0).double().cpu()
+        with collectives.counted_as("merge"):
+            gn_base = self._gather_positions(gn).sum(0).double().cpu()
         stacked = auc_state if auc_state is not None else self.init_auc()
         aucs = [AucState(*(t.clone() for t in unstack_auc_state(stacked, d)))
-                for d in range(self.n_dev)]
+                for d in range(L)]
         losses, counts = [], []
         hot_occurrences = [0]
         depth = self.conf.prefetch_batches
         mode = self.conf.sync_dense_mode
         if mode == "async" and self.async_dense is None:
+            # one identical host table a process, fed identical summed
+            # gradients (the reference runs one a node the same way)
             self.async_dense = AsyncDenseTable(
                 dict(self.model.named_parameters()),
                 optimizer=self.conf.dense_optimizer, lr=self.conf.dense_lr)
@@ -712,21 +815,69 @@ class MultiChipTrainer:
         if self.conf.need_dump_field and self.conf.dump_fields_path:
             from paddlebox_tpu_torch.train.dump import FieldDumper
 
+            # one file a process in a job: each dumps its positions'
+            # instances
+            suffix = "" if pg is None else f"-r{pg.rank}"
             dumper = FieldDumper(
                 os.path.join(self.conf.dump_fields_path,
-                             f"dump-{self.global_step}.txt"),
+                             f"dump-{self.global_step}{suffix}.txt"),
                 self.conf.dump_fields,
             )
+        # the liveness watchdog around the pass, namespaced by the global
+        # step (which advances in lockstep), so keys of an aborted pass
+        # never poison a fresh one
+        wd = _wd.for_trainer(self.conf.liveness,
+                             namespace=f"train-{self.global_step}")
+        if wd is not None:
+            wd.start()
+        # the producer's gathers ride the store, never the process group
+        # (parallel/host_plane.py); one channel a pass, named in lockstep
+        plan_channel = None
+        if pg is not None:
+            from paddlebox_tpu_torch.parallel.host_plane import KvChannel
+
+            _PLAN_CHANNEL_SEQ[0] += 1
+            plan_channel = KvChannel(
+                f"plan-{_PLAN_CHANNEL_SEQ[0]}",
+                timeout_s=(self.conf.liveness.hostplane_timeout_s
+                           if self.conf.liveness is not None
+                           else self.conf.host_plane_timeout_s))
 
         def feeds():
             """(device feed, ready event, the batches when dumping) per
             group; on the producer thread when prefetching."""
-            for batches in groups:
+            it = iter(groups)
+            template = None  # a real batch: the shapes of tail padding
+            while True:
+                if wd is not None:
+                    wd.report("feed")
+                batches = next(it, None)
+                if plan_channel is not None:
+                    # the ragged-tail barrier: a process out of groups
+                    # steps on with empty batches while any peer has data,
+                    # or the peers would hang in the next all_to_all
+                    left = plan_channel.allgather(np.asarray(
+                        [0 if batches is None else 1], np.int64))
+                    if int(left.sum()) == 0:
+                        return
+                    if batches is None:
+                        if template is None:
+                            raise RuntimeError(
+                                "this process received no batches at all: "
+                                "give every process at least one file")
+                        batches = [empty_like(template)] * L
+                    else:
+                        template = batches[0]
+                elif batches is None:
+                    return
                 check_model_inputs(self.model, batches[0])
                 check_task_labels(self.n_tasks, batches[0])
                 with sprof.stage("plan"):
-                    plan = table.plan_group(batches, self._slot_lr_vec,
-                                            batches[0].n_sparse_slots)
+                    plan = table.plan_group(
+                        batches, self._slot_lr_vec,
+                        batches[0].n_sparse_slots,
+                        gather=(None if plan_channel is None
+                                else plan_channel.allgather))
                 if plan.hot_occ is not None:
                     hot_occurrences[0] += int((plan.hot_occ < hot_cap).sum())
                 with sprof.stage("feed"):
@@ -740,9 +891,17 @@ class MultiChipTrainer:
         feed_iter, prefetcher = prefetched(feeds(), depth)
         try:
             for feed, ready, batches in feed_iter:
+                # entering the step stage; a hang at the chaos site here is
+                # a stalled step of this process, which the watchdog bounds
+                # job-wide
+                if wd is not None:
+                    wd.report("step")
+                faults.inject("train.step")
                 loss, cnt, grads, preds = self._step(
                     table, await_feed(feed, ready), aucs, gn, group_views,
                     task_views)
+                if wd is not None:
+                    wd.report("step")
                 if dumper is not None:
                     # a padding batch has no real instance: it dumps nothing
                     for b, p in zip(batches, preds):
@@ -766,12 +925,24 @@ class MultiChipTrainer:
                 pending.clear()
                 self.async_dense.drain()
                 self._pull_async()
+        except _wd.DistributedStallError:
+            # the coordinated abort: every process raises the same error;
+            # the finally below retires the producer.  Recovery is the
+            # caller's (restart and resume from the last checkpoint: the
+            # aborted pass never reached its end)
+            stats.add("train.stall_aborts")
+            raise
         finally:
+            # the watchdog retires first, so its latch cannot fire into
+            # the teardown
+            if wd is not None:
+                wd.close()
             if prefetcher is not None:
                 prefetcher.close()
             if dumper is not None:
                 dumper.close()
-        # the staging window, as in the single-chip Trainer
+        # the staging window, as in the single-chip Trainer (a job's table
+        # does not stage)
         if next_pass_keys is not None:
             table.prepare_pass(next_pass_keys)
         if self.conf.need_dump_param and self.conf.dump_fields_path:
@@ -783,47 +954,107 @@ class MultiChipTrainer:
                 self.model.state_dict(), table=table,
                 select=self.conf.dump_param,
             )
-        merged = AucState(*(torch.stack(ts) for ts in zip(*aucs)))
-        metrics = compute_metrics(merged)
-        if task_state is not None:
-            # the positions' streams summed in ascending order, per task
-            metrics.update(compute_metrics_stacked(
-                merge_auc_states(*task_views),
-                [f"task{t}" for t in range(self.n_tasks)]))
-        if group_state is not None:
-            # the positions' streams summed in ascending order, per spec
-            metrics.update(self.metric_group.compute(
-                merge_auc_states(*group_views)))
-        metrics["loss"] = 0.0
-        if losses and mode == "kstep":
-            # local means, recombined weighted by the real instance counts
-            # so that padded empty batches do not bias the pass
-            per_step = torch.stack(losses).double().cpu().numpy()
-            cnts = torch.stack(counts).double().cpu().numpy()
-            num = (per_step * cnts).sum(axis=1)
-            metrics["loss"] = float(
-                (num / np.maximum(cnts.sum(axis=1), 1.0)).mean())
-        elif losses:
-            metrics["loss"] = float(torch.stack(losses).mean())
-        metrics["samples"] = float(torch.stack(counts).sum()) if counts else 0.0
-        metrics["steps"] = len(losses)
+        with collectives.counted_as("merge"):
+            metrics = self._pass_end_metrics(
+                table, aucs, task_state, task_views, group_state,
+                group_views, losses, counts, mode, hot_occurrences[0],
+                gn, gn_base)
         metrics["duration_s"] = time.monotonic() - t0
-        metrics["missing_keys"] = table.missing_key_count
-        metrics["capacity_bumps"] = table.capacity_bumps
-        metrics["hot_occurrences"] = hot_occurrences[0]
-        metrics.update(pass_norms(gn.sum(0).double().cpu() - gn_base,
-                                  self.model.parameters()))
+        if plan_channel is not None:
+            # after the pass-end collectives: every peer is past the
+            # channel's last gather
+            plan_channel.close()
+        merged = AucState(*(torch.stack(ts) for ts in zip(*aucs)))
         self.last_auc_state = merged
         self.last_metric_state = {"auc": merged, "gn": gn}
         if task_state is not None:
             self.last_metric_state["task"] = task_state
         if group_state is not None:
             self.last_metric_state["group"] = group_state
-        # the cross-process fleet snapshot gather comes with the
-        # multi-process slice; one process has nothing to gather
+        if pg is not None and pg.world > 1 and tele.fleet_snapshot:
+            self._log_fleet_view()
         finish_pass_telemetry(metrics, sprof, False, "", event_log, table,
                               self.global_step, global_step=self.global_step)
         return metrics
+
+    def _pass_end_metrics(self, table, aucs, task_state, task_views,
+                          group_state, group_views, losses, counts,
+                          mode: str, hot_occ: int, gn, gn_base) -> dict:
+        """The pass's metrics: the positions' streams, losses and counts
+        merged over every process (process-group collectives, the step
+        thread's)."""
+        pg = self.group
+        merged = AucState(*(torch.stack(ts) for ts in zip(*aucs)))
+        # the positions' streams summed in ascending order over every
+        # process (one process: compute_metrics merges the stacked state
+        # in the same order)
+        metrics = compute_metrics(merged if pg is None
+                                  else psum_auc_state(merged, pg))
+        if task_state is not None:
+            # per task, the positions' streams summed in ascending order
+            metrics.update(compute_metrics_stacked(
+                merge_auc_states(*task_views) if pg is None
+                else psum_auc_state(task_state, pg),
+                [f"task{t}" for t in range(self.n_tasks)]))
+        if group_state is not None:
+            # per spec, the positions' streams summed in ascending order
+            metrics.update(self.metric_group.compute(
+                merge_auc_states(*group_views) if pg is None
+                else psum_auc_state(group_state, pg)))
+        metrics["loss"] = 0.0
+        if losses and mode == "kstep":
+            # local means, recombined weighted by the real instance counts
+            # so that padded empty batches do not bias the pass
+            per_step = self._gather_positions(
+                torch.stack(losses).t().contiguous()).t().double().cpu().numpy()
+            cnts = self._gather_positions(
+                torch.stack(counts).t().contiguous()).t().double().cpu().numpy()
+            num = (per_step * cnts).sum(axis=1)
+            metrics["loss"] = float(
+                (num / np.maximum(cnts.sum(axis=1), 1.0)).mean())
+        elif losses:
+            metrics["loss"] = float(torch.stack(losses).mean())
+        all_counts = (self._gather_positions(
+            torch.stack(counts).t().contiguous()) if counts else None)
+        metrics["samples"] = (float(all_counts.sum()) if counts else 0.0)
+        metrics["steps"] = len(losses)
+        missing = table.missing_key_count
+        if pg is not None:
+            # per-process counters summed over the processes
+            tot = collectives.gather_positions(pg, torch.tensor(
+                [[missing, hot_occ]], dtype=torch.int64,
+                device=self.device)).sum(0)
+            missing, hot_occ = int(tot[0]), int(tot[1])
+        metrics["missing_keys"] = missing
+        metrics["capacity_bumps"] = table.capacity_bumps
+        metrics["hot_occurrences"] = hot_occ
+        metrics.update(pass_norms(
+            self._gather_positions(gn).sum(0).double().cpu() - gn_base,
+            self.model.parameters()))
+        return metrics
+
+    def _log_fleet_view(self) -> None:
+        """The pass-end fleet view: every rank's metric snapshot gathered
+        over the store, merged, and printed by rank 0 (the reference's
+        PrintSyncTimer analog).  Telemetry never kills a healthy pass: a
+        failure logs and moves on."""
+        from paddlebox_tpu_torch.parallel.host_plane import StoreKv
+
+        _FLEET_SNAP_SEQ[0] += 1
+        pg = self.group
+        try:
+            merged = telemetry.gather_fleet_snapshot(
+                StoreKv(pg.store), rank=pg.rank, world=pg.world,
+                seq=_FLEET_SNAP_SEQ[0], namespace="pass", timeout_s=60.0)
+            if pg.rank == 0:
+                print(telemetry.format_fleet_view(
+                    merged, prefix=f"fleet pass step={self.global_step}"),
+                    flush=True)
+        except Exception:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "fleet snapshot gather failed", exc_info=True)
 
     # -- evaluation --------------------------------------------------------- #
     @torch.no_grad()
@@ -831,18 +1062,40 @@ class MultiChipTrainer:
                  drop_last: bool = False) -> dict:
         """Forward-only pass over every position (reference:
         parallel/trainer.py evaluate): no table, parameter or counter
-        change, one AUC stream per position, merged.  Needs an open
-        pass."""
+        change, one AUC stream per position, merged over every process.
+        Needs an open pass.  In a job each process evaluates its own
+        dataset shard, with the ragged-tail barrier on the store."""
         if not table._in_pass:
             raise RuntimeError("begin_pass before evaluating")
+        from paddlebox_tpu_torch.parallel.multiprocess import host_allgather
+
         tconf = self.table_conf
+        pg = self.group
+        L = self.n_local
         hot_cap = table.hot_block_capacity
         if hot_cap:
             self._ensure_hot_block(table, hot_cap)
         aucs = [init_auc_state(self.conf.auc_buckets, self.device)
-                for _ in range(self.n_dev)]
-        for group in _group_batches(dataset.batches(drop_last=drop_last),
-                                    self.n_dev):
+                for _ in range(L)]
+        groups = _group_batches(dataset.batches(drop_last=drop_last), L)
+        template = None
+        while True:
+            group = next(groups, None)
+            if pg is not None:
+                left = host_allgather(
+                    np.asarray([0 if group is None else 1], np.int64))
+                if int(left.sum()) == 0:
+                    break
+                if group is None:
+                    if template is None:
+                        raise RuntimeError(
+                            "this process received no batches at all: "
+                            "give every process at least one file")
+                    group = [empty_like(template)] * L
+                else:
+                    template = group[0]
+            elif group is None:
+                break
             check_model_inputs(self.model, group[0])
             feed = self._to_device(_stack_group(group,
                                                 table.plan_group(group)))
@@ -850,13 +1103,13 @@ class MultiChipTrainer:
                 rows = hybrid_pull(table.values, table.hot_values,
                                    feed["serve_rows"], feed["occ_flat"],
                                    feed["hot_occ"], tconf.create_threshold,
-                                   tconf.cvm_offset)
+                                   tconf.cvm_offset, pg)
             else:
                 rows = sharded_pull(table.values, feed["serve_rows"],
                                     feed["occ_flat"], tconf.create_threshold,
-                                    tconf.cvm_offset)
+                                    tconf.cvm_offset, pg)
             mask = feed["ins_mask"]
-            for d in range(self.n_dev):
+            for d in range(L):
                 model = self.models[d % len(self.models)]
                 logits = model(rows[d], feed["key_segments"][d],
                                feed["dense"][d], mask.shape[1],
@@ -865,8 +1118,9 @@ class MultiChipTrainer:
                     logits = logits[:, 0]  # the primary task
                 update_auc_state_(aucs[d], torch.sigmoid(logits),
                                   feed["labels"][d], mask[d])
-        return compute_metrics(AucState(*(torch.stack(ts)
-                                          for ts in zip(*aucs))))
+        merged = AucState(*(torch.stack(ts) for ts in zip(*aucs)))
+        return compute_metrics(merged if pg is None
+                               else psum_auc_state(merged, pg))
 
 
 def _position_extras(model, feed: dict, d: int) -> dict:

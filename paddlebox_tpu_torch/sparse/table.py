@@ -1109,6 +1109,40 @@ def _segment_sum(x: torch.Tensor, segments: torch.Tensor, n: int) -> torch.Tenso
     ).index_add_(0, segments, x)
 
 
+# Padding and routed-away occurrences all fall into one dropped sink
+# segment.  Under torch.use_deterministic_algorithms the card's index_add_
+# sums each segment's entries one after another in one thread, so a sink of
+# ~10^5 entries serialized the multi-chip step (98.6 % of a deterministic
+# pass's device time on an H100, chip_smoke.py's profile).  The sink's
+# entries spread over this many dropped segments instead.
+SINK_SPREAD = 1024
+
+
+def spread_sink(segments: torch.Tensor, sink: int,
+                dropped: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``segments`` with each dropped entry (``dropped``, default the
+    entries equal to ``sink``) moved to ``sink + (i % SINK_SPREAD)`` (index
+    ``i``): every kept segment keeps the same entries in the same order, so
+    its sum is unchanged bit for bit; the caller drops the rows from
+    ``sink`` on."""
+    if dropped is None:
+        dropped = segments == sink
+    pos = torch.arange(segments.shape[0], device=segments.device,
+                       dtype=segments.dtype) % SINK_SPREAD
+    return torch.where(dropped, sink + pos, segments)
+
+
+def segment_sum_before_sink(x: torch.Tensor, segments: torch.Tensor,
+                            sink: int,
+                            dropped: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The segment sum of the segments below ``sink`` (``[sink, ...]``),
+    the dropped entries spread and dropped (``spread_sink``)."""
+    return torch.zeros(
+        (sink + SINK_SPREAD, *x.shape[1:]), dtype=x.dtype, device=x.device
+    ).index_add_(0, spread_sink(segments, sink, dropped), x)[:sink]
+
+
 @torch.no_grad()
 def push_and_update(
     values: torch.Tensor,

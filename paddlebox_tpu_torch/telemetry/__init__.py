@@ -20,8 +20,8 @@ the reference's).
   * :mod:`context` — the W3C ``traceparent`` trace context of the
     serving plane; spans under an active context carry its IDs.
 
-The cross-process snapshot gather (the reference's ``fleet.py``) comes
-with the multi-process slice.
+  * :mod:`fleet` — the cross-rank snapshot gather over the job's KV store
+    and the merged fleet view rank 0 logs at each pass end.
 """
 
 from paddlebox_tpu_torch.telemetry.metrics import (  # noqa: F401
@@ -73,6 +73,13 @@ from paddlebox_tpu_torch.telemetry.flight import (  # noqa: F401
     run_identity,
     set_process_name,
     set_run_backend,
+)
+from paddlebox_tpu_torch.telemetry.fleet import (  # noqa: F401
+    FleetGatherTimeout,
+    format_fleet_view,
+    gather_fleet_snapshot,
+    log_fleet_view,
+    merge_snapshots,
 )
 from paddlebox_tpu_torch.telemetry.health import (  # noqa: F401
     HealthAlert,

@@ -3,8 +3,9 @@
 
 Record always, into a cheap bounded ring in memory, and dump the ring to a
 timestamped JSON file only when something goes wrong: a ``PassRolledBack``
-(the trainer dumps before raising), a critical health alert, SIGTERM
-(:func:`install_signal_dump`).
+(the trainer dumps before raising), a ``DistributedStallError`` (the
+liveness watchdog dumps as it trips the abort, parallel/watchdog.py), a
+critical health alert, SIGTERM (:func:`install_signal_dump`).
 
 Each record is a dict ``{"t": wall, "kind": span|event|instant, "name",
 ...fields}``.  The ring is a ``deque(maxlen=N)`` behind one lock;

@@ -86,7 +86,15 @@ Telemetry (reference: train/trainer.py; telemetry/, utils/profiler.py):
     delta snapshot, and the ``pass_end`` event record.  A rollback dumps
     the flight recorder before it raises.
 
-The watchdog is a later slice.
+Liveness (``TrainerConfig.liveness``, parallel/watchdog.py): a watchdog
+runs around each pass, the producer reports ``feed`` before each batch and
+the step thread ``step`` after each step group (the fault site
+``train.step`` precedes it), so a frozen stage is detected locally past the
+deadline; the prefetch queue's get is bounded and checks the watchdog
+between polls, so an abort interrupts a consumer waiting on a stalled
+producer.  A stall raises ``DistributedStallError`` after the teardown;
+with ``LivenessConfig.rollback_on_abort`` and an attached checkpointer the
+pass rolls back to the last completed pass first (``PassRolledBack``).
 """
 
 from __future__ import annotations
@@ -140,6 +148,14 @@ from paddlebox_tpu_torch.utils.profiler import (
 from paddlebox_tpu_torch.utils.queues import bounded_put
 
 logger = logging.getLogger(__name__)
+
+
+def _watchdog_mod():
+    """The liveness watchdog module (parallel/watchdog.py), imported on
+    first use: the parallel package imports this module."""
+    from paddlebox_tpu_torch.parallel import watchdog
+
+    return watchdog
 
 
 class NonFiniteBatchError(FloatingPointError):
@@ -351,9 +367,11 @@ class _FeedPrefetcher:
     def __next__(self):
         if self._done:  # the producer will never put again
             raise StopIteration
+        wd_mod = _watchdog_mod()
         while True:
-            # a bounded get, as in the reference, where it lets a liveness
-            # abort interrupt a consumer waiting on a stalled producer
+            # a bounded get: a coordinated liveness abort interrupts a
+            # consumer waiting on a stalled producer within one poll slice
+            wd_mod.check()
             try:
                 item = self._q.get(timeout=0.2)
                 break
@@ -922,6 +940,13 @@ class Trainer:
              else max(1, self.conf.scan_steps))
         if prof.enabled:
             depth = 0
+        # the liveness watchdog of the pass: local stall detection in one
+        # process, heartbeats and the coordinated abort in a job
+        wd_mod = _watchdog_mod()
+        wd = wd_mod.for_trainer(self.conf.liveness,
+                                namespace=f"train-{self.global_step}")
+        if wd is not None:
+            wd.start()
 
         def feeds():
             """Groups of k (device feed, ready event, instances, batch), the
@@ -930,6 +955,8 @@ class Trainer:
             prefetching.  The batch rides along only for the dump."""
             group_items = []
             for batch in batches:
+                if wd is not None:
+                    wd.report("feed")
                 check_model_inputs(self.model, batch)
                 check_task_labels(self.n_tasks, batch)
                 with prof.stage("plan"):
@@ -969,14 +996,27 @@ class Trainer:
                         device_trace(self.conf.trace_dir or None):
                     n_steps = self._train_loop(table, feed_iter, auc, gn,
                                                group, dumper, prof, sync,
-                                               losses, task)
+                                               losses, task, wd)
             finally:
+                # the watchdog retires first, so its latch cannot fire into
+                # the teardown
+                if wd is not None:
+                    wd.close()
                 if prefetcher is not None:
                     prefetcher.close()
                 if dumper is not None:
                     dumper.close()
         except NonFiniteBatchError:
             if self.conf.nan_policy == "rollback":
+                self._rollback_to_checkpoint(table)  # raises PassRolledBack
+            raise
+        except wd_mod.DistributedStallError:
+            # the pass is torn down (producer closed); with
+            # rollback_on_abort and a checkpointer the last completed pass
+            # comes back first, so nothing partial survives the replay
+            stats.add("train.stall_aborts")
+            if (self.conf.liveness is not None
+                    and self.conf.liveness.rollback_on_abort):
                 self._rollback_to_checkpoint(table)  # raises PassRolledBack
             raise
         # the feed is done (the producer closed) while the card still runs
@@ -1026,12 +1066,17 @@ class Trainer:
         return metrics
 
     def _train_loop(self, table, feed_iter, auc, gn, group, dumper, prof,
-                    sync: bool, losses: list, task=None) -> int:
+                    sync: bool, losses: list, task=None, wd=None) -> int:
         """The pass's steps over its feed, each group's losses appended to
         ``losses``; returns the steps counted."""
         check_nan, skip = self._check_nan, self._skip_batches
         n_steps = 0
         for items in feed_iter:
+            # entering the step stage; a hang at the chaos site here is a
+            # stalled step, which the watchdog bounds and names
+            if wd is not None:
+                wd.report("step")
+            faults.inject("train.step")
             devs = [await_feed(d, r) for d, r, _, _ in items]
             preds = [] if dumper is not None else None
             with prof.stage("step"):
@@ -1039,6 +1084,8 @@ class Trainer:
                                                 preds, task)
                 if sync:
                     torch.cuda.synchronize(self.device)  # honest timing
+            if wd is not None:
+                wd.report("step")
             prof.step_done()
             n = len(items)
             good = None

@@ -1,5 +1,5 @@
 """Deterministic, seeded fault injection for chaos tests (reference:
-paddlebox_tpu/utils/faults.py, the part the port's persistence uses).
+paddlebox_tpu/utils/faults.py, the part the port uses).
 
 A ``FaultPlan`` maps site names to a failure spec, and each instrumented
 site calls ``inject(site)``: a no-op unless a plan is active and the spec
@@ -13,7 +13,10 @@ Spec forms (string or FaultSpec):
                    per-site stream seeded by (plan seed, site)
     "hang:<sel>"   selected hits HANG instead of raising, until
                    ``release_hangs()`` (a new ``install()``/``clear()``
-                   releases implicitly)
+                   releases implicitly) or until a registered hang
+                   interrupt raises: the liveness watchdog registers its
+                   abort check, so a simulated freeze ends with the
+                   structured DistributedStallError at the frozen site
 
 Activation: ``install(plan)`` / the ``fault_plan`` context manager, or the
 environment: ``PADDLEBOX_TORCH_FAULT_PLAN`` holds a ';'-separated spec list
@@ -76,6 +79,12 @@ KNOWN_SITES = {
     # poisons the batch's labels with NaN, so the loss and gradients go
     # non-finite on the device and the configured nan_policy acts
     "train.nan",
+    # the distributed plane (parallel/): a hang at "train.step" freezes a
+    # step of either trainer (the stall the liveness watchdog must bound),
+    # "hostplane.allgather" one KvChannel gather (raise or hang), and
+    # "watchdog.heartbeat" one heartbeat publish (a hang there freezes the
+    # publisher: the dead-process signature peers must catch)
+    "train.step", "hostplane.allgather", "watchdog.heartbeat",
     # one /retrieve query of the scoring server (inference/server.py): a
     # fired hit answers 500, the server survives
     "retrieve.query",
@@ -190,9 +199,26 @@ _active: Optional[FaultPlan] = None
 _env_checked = False
 _lock = threading.Lock()
 
-# a "hang:" spec waits in _hang until released
+# a "hang:" spec waits in _hang until released or interrupted: the hooks
+# are how the liveness watchdog reaches into a simulated freeze (its
+# registered check raises DistributedStallError on the hung thread)
 _hang_release = threading.Event()
+_hang_hooks: list = []
 _hang_lock = threading.Lock()
+
+
+def register_hang_interrupt(fn) -> "callable":
+    """Register ``fn``, polled by hung sites; ``fn`` raising ends the hang
+    with that exception.  Returns the unregister callable."""
+    with _hang_lock:
+        _hang_hooks.append(fn)
+
+    def unregister() -> None:
+        with _hang_lock:
+            if fn in _hang_hooks:
+                _hang_hooks.remove(fn)
+
+    return unregister
 
 
 def release_hangs() -> None:
@@ -208,7 +234,12 @@ def _hang(site: str) -> None:
     stats.add(f"faults.hung.{site}")
     with _hang_lock:
         release = _hang_release  # the latch armed when the hang began
-    release.wait()
+    while not release.is_set():
+        with _hang_lock:
+            hooks = list(_hang_hooks)
+        for fn in hooks:
+            fn()  # may raise (a watchdog abort)
+        release.wait(0.05)
 
 
 def install(plan: Optional[FaultPlan]) -> None:

@@ -186,3 +186,26 @@ def decode_u64_with_perm(buf, rank: np.ndarray) -> np.ndarray:
     if r.shape[0] and (int(r.min()) < 0 or int(r.max()) >= srt.shape[0]):
         raise KeyCodecError("count-mismatch", "perm index out of range")
     return srt[r]
+
+
+def encode_zigzag_delta(vals: np.ndarray) -> bytes:
+    """Delta + zigzag + varint of a signed integer vector (int64-safe
+    inputs; the caller restores shape and dtype).  A want matrix flattens
+    to long runs of equal dead-row ids, whose deltas are zero: one byte
+    each instead of four (the KvChannel's "varint" codec)."""
+    v = np.ascontiguousarray(vals, dtype=np.int64).ravel()
+    if v.shape[0] == 0:
+        return b""
+    d = np.empty_like(v)
+    d[0] = v[0]
+    d[1:] = v[1:] - v[:-1]
+    zz = ((d << 1) ^ (d >> 63)).view(_U64)
+    return encode_varints(zz)
+
+
+def decode_zigzag_delta(buf, n: int) -> np.ndarray:
+    """Inverse of :func:`encode_zigzag_delta` -> int64 [n]."""
+    zz = decode_varints(buf, expect=n)
+    z = zz.view(np.int64)
+    d = (z >> 1) ^ -(z & 1)
+    return np.cumsum(d, dtype=np.int64)

@@ -1455,6 +1455,45 @@ def test_scoring_server_on_the_card(cuda, tmp_path):
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_collectives_over_a_one_rank_group_on_the_card(cuda, backend):
+    """The four data-axis collectives through a 1-rank process group on
+    the card (NCCL, and gloo through pinned host copies) equal the
+    in-process tensor operations bit for bit, and count their bytes."""
+    from paddlebox_tpu_torch.launch import find_free_port
+    from paddlebox_tpu_torch.parallel import collectives
+    from paddlebox_tpu_torch.parallel import mesh as mesh_mod
+
+    job = mesh_mod.initialize_distributed(
+        f"127.0.0.1:{find_free_port()}", 1, 0, backend=backend,
+        device="cuda", timeout_s=120.0)
+    try:
+        assert job.backend == backend
+        assert job.host_staged == (backend == "gloo")
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        x = torch.randn((4, 4, 3, 10), device=cuda, generator=gen)
+        y = torch.randn((4, 1000), device=cuda, generator=gen)
+        z = torch.randint(-9, 9, (4, 6), device=cuda, generator=gen)
+        collectives.reset_stats()
+        assert torch.equal(collectives.all_to_all(x, job),
+                           collectives.all_to_all(x))
+        assert torch.equal(collectives.all_gather(y, job),
+                           collectives.all_gather(y))
+        assert torch.equal(collectives.psum(y, job), collectives.psum(y))
+        assert torch.equal(collectives.pmax(y, job), collectives.pmax(y))
+        assert torch.equal(collectives.psum(z, job), collectives.psum(z))
+        a, b = collectives.psum_many([y, 2 * y], job)
+        assert torch.equal(a, collectives.psum(y)[0])
+        assert torch.equal(b, collectives.psum(2 * y)[0])
+        st = collectives.stats()
+        assert st["all_to_all"]["calls"] == 1
+        assert st["all_to_all"]["bytes"] == x.numel() * 4
+        assert st["all_gather"]["calls"] == 5
+        assert (st["all_gather"]["host_bytes"] > 0) == (backend == "gloo")
+    finally:
+        mesh_mod.shutdown_distributed()
+
+
 def test_a_capture_that_cannot_succeed_raises(cuda, tmp_path):
     """A model whose forward reads a value on the host cannot be captured:
     the trainer raises, and no group runs eagerly in its place."""
