@@ -16,11 +16,13 @@ after the first consumed its stage.
 Phases, each fatal on failure:
   1. build   — compile every CUDA kernel of the paths from csrc/ (one nvcc
                per source, all started together) and, beside them, the two
-               host libraries from _native/ with g++; print the g++ version,
-               the build times and each kernel's registers and spills.
+               host libraries from _native/ with g++ and the data files
+               (writer processes); print the g++ version, the build times
+               and each kernel's registers and spills.
      load    — load the data sets through the native parser (seconds
-               printed), and the uncached set once more with the Python
-               parser: both times, and the blocks must be bit-equal.
+               printed), and the uncached set's first file once more with
+               the Python parser: both times, and the blocks must be
+               bit-equal.
   2. parity  — hold each kernel against its plain PyTorch twin on the card,
                at the main paths' shapes, at a ragged size and at size 0
                (pull_rows and scatter_add_rows on their float2 and their
@@ -158,28 +160,31 @@ Phases, each fatal on failure:
                kernels at 12, 14 and 19) and pull_rows / scatter_add_rows
                timed at widths 10, 11 and 13; DeepFM, WideDeep, XDeepFM,
                DCN and CtrDnn's expand_dim and slot_embed_dims options
-               two passes over the first two Zipf sets, MMoE, RankCtrDnn
-               (PV-merged) and the conv CtrDnn (counter_label_tasks on a
-               cvm_offset 3 table: its conv counters equal a host count of
-               the task labels) two passes over the first
-               ZOO_LOGKEY_FILES logkey files, on
-               the default table; MMoE and RankCtrDnn on the hybrid world
-               over four passes; launch counters reset just before these
+               two passes over the first ZOO_ARM_BATCHES batches of the
+               first two Zipf sets, MMoE, RankCtrDnn (PV-merged) and the
+               conv CtrDnn (counter_label_tasks on a cvm_offset 3 table:
+               its conv counters equal a host count of the task labels)
+               two passes over the first ZOO_ARM_BATCHES batches of the
+               first ZOO_LOGKEY_FILES logkey files, on the default table;
+               MMoE and RankCtrDnn on the hybrid world over four passes of
+               ZOO_MC_BATCHES batches; launch counters reset just before these
                arms and read just after (all six kernels must launch);
                every arm card against CPU, and every single-chip arm's
                scan_steps GRAPH_K graph bit-equal to eager steps under
                deterministic algorithms.  Samples/s, loss, AUC and the
                per-task AUCs of every pass.
   8b. axes   — this slice's models and parallel axes (parallel_axes) at
-               the slice's width: TwoTower under RetrievalTrainer over two
-               Zipf sets, eager and as a CUDA graph (timed, then again
-               under deterministic algorithms, bit-equal), and evaluate; LongSeqCtrDnn on a
+               the slice's width: TwoTower under RetrievalTrainer, eager
+               and as a CUDA graph (timed over a Zipf set, then over two
+               under deterministic algorithms, bit-equal), and evaluate;
+               LongSeqCtrDnn on a
                behaviour-sequence set with full attention and on 4 seq
                positions with ring and Ulysses attention; PipelinedCtrDnn
                on 4 pipe positions (f32 and bf16) beside CtrDnn; MMoE on 4
                expert positions beside the serial bank; MMoE and the ring
                LongSeqCtrDnn on composed 4 x 2 meshes of the hybrid world
-               over four passes beside data-only runs (counters bit-equal,
+               over four passes of ZOO_MC_BATCHES batches beside data-only
+               runs (counters bit-equal,
                loss within 5e-3, AUC within 2e-2); launch counters reset
                before these arms and read after (all six kernels must
                launch); then each sharded model's forward against its
@@ -215,6 +220,36 @@ Phases, each fatal on failure:
                table behind /retrieve.  Export seconds and bytes, load
                seconds, predict ms by part, requests/s with p50 and p99,
                queries/s.
+ 9c. online — the online loop (online) on the slice world with the
+               default cache: (a) under deterministic algorithms the
+               mini-pass replay of the first 2 windows (8 batches each, cut
+               by count) equals one pass over the same records bit for bit
+               (state dict, delta, AUC); then a writer thread lands the
+               slice pass's records as shards in a stream directory, a
+               TailingFileSource and the mini-pass scheduler cut windows of
+               8 batches, a StreamingTrainer trains them on the card, and a
+               DeadlinePublishPolicy publishes to a local root (a warm fp32
+               base, then sparse row deltas; the hot pattern's and a last
+               one after the drain with their re-exported programs); a card
+               ScoringServer's Syncer hot-applies each one, its applied_seq
+               closing the freshness loop; the launch counters reset just
+               before the loop and read after.  (b) after the drain, the
+               final publish and sync, the served rows (host copy and card)
+               equal the table's bit for bit, and a pass of batches scores
+               as a Predictor exported from the final table within 1e-5
+               relative + 1e-6; (c) with the counters reset, serving
+               launches sorted_search and gather_slots once a batch, both
+               bit-exact against their twins at the haystack after the last
+               delta; (d) the hot probe's served score rises after windows
+               of the hot pattern labelled 1 and falls after windows
+               labelled 0 (bounds ONLINE_RISE, ONLINE_DROP); (e) a corrupted
+               delta takes the full reload while 4 clients score, none
+               failing; (f) every window launches pull_rows and
+               scatter_add_rows.  Records/s, seconds a window and its
+               boundary, stream.freshness_seconds p50 and p99, publish_delta
+               s and bytes, the Syncer's apply split into fetch, merge,
+               upload and swap, and predict ms after a delta, each beside
+               the card's name and power limit.
  10. telemetry — the telemetry plane on the default table (telemetry_path):
                two traced passes with an events path and a /metrics
                listener (trace spans, a scrape during the second pass,
@@ -287,12 +322,18 @@ HASH_PASSES = 2
 # one), the compute dtypes and SGD card against CPU over
 # POLICY_CPU_BATCHES; the slot policy over the first SLOT_BATCHES batches
 # of three Zipf sets (2 step groups of the 4 positions a pass).
-GRAPH_K, GRAPH_PASSES, STEP_MS_BATCHES = 8, 2, 48
-# Depth cut since the multiprocess phase: the stage breakdown, the feed
+GRAPH_K, GRAPH_PASSES, STEP_MS_BATCHES = 8, 2, 24
+# Depth cuts since the multiprocess phase: the stage breakdown, the feed
 # turns and graph_steps' eager and graph turns over the first
-# TURN_BATCHES batches of the uncached set (all 98 before)
-TURN_BATCHES = 49
+# TURN_BATCHES batches of the uncached set (all 98 before it, 49 before
+# the online phase); since the online phase graph_steps' synchronized ms
+# a step over STEP_MS_BATCHES (48 before)
+TURN_BATCHES = 32
 POLICY_BATCHES, POLICY_CPU_BATCHES, SLOT_BATCHES = 16, 2, 8
+# Depth cut since the online phase: the sharded cached path against the
+# CPU over the first CPU_AGREE_BATCHES batches of each Zipf set (2 step
+# groups a pass; the whole sets before)
+CPU_AGREE_BATCHES = 2 * POSITIONS
 # Depth cut to keep the run's phases near 350 s since the data half: the
 # passes after a live reshard train the first RESHARD_BATCHES batches of
 # their Zipf set (of 32)
@@ -1973,7 +2014,7 @@ def sharded_cached_path(hybrid: dict) -> dict:
     log(f"sharded cached vs uncached hybrid, without deterministic "
         f"algorithms, losses per pass: {[r['metrics']['loss'] for r in per_pass]}"
         f" vs {unc}")
-    cpu_agreement(datasets, det_pass, sd, det_table.hot_resident_keys())
+    cpu_agreement(datasets)
     for what, key in (("begin_pass s", "begin_s"), ("end_pass s", "end_s"),
                       ("samples/s", "samples_per_s")):
         log(f"sharded cached boundary: {what} {[r[key] for r in per_pass]}")
@@ -1986,25 +2027,40 @@ def sharded_cached_path(hybrid: dict) -> dict:
             "datasets": datasets, "one_process": one_process}
 
 
-def cpu_agreement(datasets, card_pass, card_state, card_hot) -> None:
-    """The sharded cached path at full width on the CPU over the
-    deterministic card run's HYBRID_PASSES passes (the hot block realizes
-    in the third and changes in the fourth), from the same seeds: each
-    shard's hits
-    and misses and the hot set equal to the card's, losses within 1e-4
-    relative, AUC within 1e-3 and every table row within 1e-4 (the
-    tolerances of small_agreement: the two devices sum the tower's
-    products in different orders, each step's float32 difference is a few
-    ulps and Adam and AdaGrad carry it only a few steps' worth)."""
+def cpu_agreement(datasets) -> None:
+    """The sharded cached path at full width on the card under
+    deterministic algorithms and on the CPU, from the same seeds, over the
+    first CPU_AGREE_BATCHES batches of each of the HYBRID_PASSES Zipf sets
+    (the hot block realizes in the third pass and changes in the fourth;
+    depth cut since the online phase: the whole sets before, against the
+    sharded phase's deterministic run): each shard's hits and misses and
+    the hot set equal, losses within 1e-4 relative, AUC within 1e-3 and
+    every table row within 1e-4 (the tolerances of small_agreement: the
+    two devices sum the tower's products in different orders, each step's
+    float32 difference is a few ulps and Adam and AdaGrad carry it only a
+    few steps' worth)."""
+    import itertools
+
     import numpy as np
     import torch
 
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
 
     saved = dict(sk.launches)
+    heads = [_Batches(itertools.islice(ds.batches(), CPU_AGREE_BATCHES))
+             for ds in datasets]
+    torch.use_deterministic_algorithms(True)
+    try:
+        table, trainer = make_hybrid_world("cuda", cache_rows=CACHE_ROWS)
+        card_pass = drive_hybrid(heads, table, trainer)
+        card_state = table.state_dict()
+        card_hot = table.hot_resident_keys()
+        table.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
     t0 = time.perf_counter()
     table, trainer = make_hybrid_world("cpu", cache_rows=CACHE_ROWS)
-    cpu_pass = drive_hybrid(datasets, table, trainer)
+    cpu_pass = drive_hybrid(heads, table, trainer)
     state, hot = table.state_dict(), table.hot_resident_keys()
     table.close()
     secs = time.perf_counter() - t0
@@ -2666,6 +2722,9 @@ class _Batches:
 
     def unique_keys(self):
         return self._census
+
+    def get_memory_data_size(self) -> int:
+        return sum(int(b.n_real_ins) for b in self._batches)
 
 
 def _sync_equal(label, a_state, b_state, a_metrics=(), b_metrics=()):
@@ -3688,7 +3747,15 @@ ZOO_MULTICHIP = ("mmoe", "rank_ctr")
 # composed MMoE arms of parallel_axes, over the first ZOO_MC_BATCHES
 # batches a pass (4 step groups; 8 before the serving phase)
 ZOO_LOGKEY_FILES = 2
-ZOO_GRAPH_BATCHES, ZOO_CPU_BATCHES, ZOO_MC_BATCHES = 3 * GRAPH_K, 2, 16
+# Depth cuts since the online phase: the graph against eager steps over 2
+# step groups (a warm-up group, then a capture and its replay; 3 before),
+# the card against the CPU over 1 batch (a group of POSITIONS on the
+# multi-chip arms; 2 before), the multi-chip and composed arms over 8
+# batches a pass (2 step groups; 16 before), each single-chip arm's
+# passes over the first ZOO_ARM_BATCHES batches of its set (all of them
+# before: 32 Zipf, 25 logkey)
+ZOO_GRAPH_BATCHES, ZOO_CPU_BATCHES, ZOO_MC_BATCHES = 2 * GRAPH_K, 1, 8
+ZOO_ARM_BATCHES = 16
 # the card against the CPU trains the dense side with SGD at this rate:
 # Adam divides each gradient by its own magnitude, so a gradient that
 # cancels to near zero (DeepFM's 400-wide layers) moves its parameter by
@@ -4126,6 +4193,8 @@ def model_zoo(zipf_sets, logkey_files) -> dict:
     launch counters reset just before these arms and read just after
     (all six kernels must launch); then every arm card against CPU, and
     graph against eager steps."""
+    import itertools
+
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
 
     t0 = time.perf_counter()
@@ -4134,8 +4203,10 @@ def model_zoo(zipf_sets, logkey_files) -> dict:
     log(f"zoo data: the logkey set, {logkey.get_memory_data_size()} "
         f"instances, and PV-merged ({pv.get_pv_data_size()} page-views); "
         f"{time.perf_counter() - t0!r} s with the parity")
-    data = {"zipf": list(zipf_sets[:2]), "logkey": [logkey, logkey],
-            "pv": [pv, pv]}
+    head = lambda d: _Batches(itertools.islice(d.batches(), ZOO_ARM_BATCHES))
+    lk, pvb = head(logkey), head(pv)
+    data = {"zipf": [head(d) for d in zipf_sets[:2]], "logkey": [lk, lk],
+            "pv": [pvb, pvb]}
     sk.reset_launches()
     single = zoo_single(data)
     multi = zoo_multichip({n: (zoo_sets(n, data)[0], ZOO_MC_BATCHES)
@@ -4204,7 +4275,8 @@ PIPE_D_IN, PIPE_WIDTH, PIPE_DEPTH = 173, 512, 2
 # arms over the first AXES_LOGKEY_FILES logkey files (50 000 instances),
 # card against CPU over AXES_CPU_BATCHES batches, synchronized ms a step
 # over AXES_MS_STEPS steps
-AXES_LOGKEY_FILES, AXES_CPU_BATCHES, AXES_MS_STEPS = 2, 2, 8
+# (AXES_CPU_BATCHES 1 since the online phase's depth cuts; 2 before)
+AXES_LOGKEY_FILES, AXES_CPU_BATCHES, AXES_MS_STEPS = 2, 1, 8
 # sharded against serial, one forward: the reference tests' bound; bf16
 # against the bf16 CtrDnn: the reference's bf16 bound
 AXES_FWD_TOL, AXES_BF16_TOL = 2e-5, 2e-2
@@ -4294,21 +4366,28 @@ def _pass_line(label: str, per_pass: list) -> str:
 
 
 def retrieval_arm(zipf_sets) -> dict:
-    """TwoTower under RetrievalTrainer on the default table over the first
-    two Zipf sets (32 steps a pass, [2048, 2048] similarities): eager steps
-    and scan_steps GRAPH_K as a CUDA graph, timed at the defaults; the same
-    two runs again under deterministic algorithms, bit-equal; then evaluate
-    in a pass of its own."""
+    """TwoTower under RetrievalTrainer on the default table ([2048, 2048]
+    similarities): eager steps and scan_steps GRAPH_K as a CUDA graph,
+    timed at the defaults over the first Zipf set (32 steps; both sets
+    until the online phase's depth cuts); the same two runs over the first
+    ZOO_ARM_BATCHES batches of the first two sets under deterministic
+    algorithms, bit-equal; then evaluate in a pass of its own."""
+    import itertools
+
     import torch
 
-    sets = list(zipf_sets[:2])
+    # the deterministic runs over the first ZOO_ARM_BATCHES batches of each
+    # set (depth cut since the online phase; all 32 before)
+    sets = [_Batches(itertools.islice(d.batches(), ZOO_ARM_BATCHES))
+            for d in zipf_sets[:2]]
     out, runs = {}, {}
     for det in (False, True):
         torch.use_deterministic_algorithms(det)
         try:
             for k in (1, GRAPH_K):
                 table, trainer = zoo_world("retrieval", "cuda", scan_steps=k)
-                per_pass = drive_passes(sets, table, trainer)
+                per_pass = drive_passes(sets if det else zipf_sets[:1],
+                                        table, trainer)
                 for p, r in enumerate(per_pass):
                     _check_zoo_pass(f"retrieval k={k} pass {p}",
                                     r["metrics"], 1)
@@ -4358,7 +4437,8 @@ def composed_arm(logkey, seq_ds) -> dict:
 
     import numpy as np
 
-    sources = {"mmoe": (logkey, ZOO_MC_BATCHES), "longseq_full": (seq_ds, 16)}
+    sources = {"mmoe": (logkey, ZOO_MC_BATCHES),
+               "longseq_full": (seq_ds, ZOO_MC_BATCHES)}
     seq_spans("axes composed longseq_full",
               itertools.islice(seq_ds.batches(), 16), 2)
     runs = {c: zoo_multichip(sources, c, "axes composed" if c else "axes")
@@ -4587,7 +4667,11 @@ def parallel_axes(zipf_sets, logkey_files, seq_files) -> dict:
         f"{logkey.get_memory_data_size()} instances; "
         f"{time.perf_counter() - t0!r} s")
     spans = seq_spans("axes sequence set", seq_ds.batches(), AXIS_POSITIONS)
-    data = {"zipf": list(zipf_sets[:2]), "logkey": [logkey, logkey],
+    # depth cut since the online phase: the single-chip arms' Zipf and
+    # logkey passes over their first ZOO_ARM_BATCHES batches (all before)
+    head = lambda d: _Batches(itertools.islice(d.batches(), ZOO_ARM_BATCHES))
+    lk = head(logkey)
+    data = {"zipf": [head(d) for d in zipf_sets[:2]], "logkey": [lk, lk],
             "seq": [seq_ds]}
     sk.reset_launches()
     out = {"retrieval": retrieval_arm(zipf_sets),
@@ -4909,6 +4993,554 @@ def serving(res, ds, axes) -> None:
             raise AssertionError(f"int8 recall@10 {recall} < 0.95")
     finally:
         server.stop()
+
+
+# --------------------------------------------------------------------------- #
+# phase 9c: the online loop
+# --------------------------------------------------------------------------- #
+# Windows of ONLINE_WINDOW records (8 full batches), cut by count; the
+# writer lands shards of ONLINE_SHARD records (a tmp file renamed, as a
+# feed lands them); (a) replays the first ONLINE_REPLAY_WINDOWS windows
+# against one pass; the deadline publisher's freshness budget; (d) streams
+# ONLINE_HOT_WINDOWS windows of the hot pattern (key ONLINE_HOT_KEY + s in
+# slot s, outside the vocab, and one noise key a slot) labelled 1, then as
+# many labelled 0, and the served score of the hot probe must rise by
+# ONLINE_RISE over its score before them, then fall by ONLINE_DROP.  Depth
+# cuts, each keeping its check: the replay over 2 windows and the hot
+# pattern over at least 1 window a label (3 and 2 in this PR's first
+# runs), the programs re-exported only on the hot pattern's deltas and on
+# a last delta after the drain (the others carry rows only, the
+# reference's default)
+ONLINE_WINDOW, ONLINE_SHARD, ONLINE_REPLAY_WINDOWS = 8 * BATCH, 4096, 2
+ONLINE_STALENESS_S, ONLINE_HOT_WINDOWS, ONLINE_HOT_KEY = 8.0, 1, 10**9
+ONLINE_RISE, ONLINE_DROP = 0.1, 0.2
+# the longest wait for a window's rows to be served, and for the drain
+ONLINE_WAIT_S = 120.0
+
+
+class _ShardWriter:
+    """The feed: a daemon thread lands the lines it is given in shard
+    files under ``root``, each written to a ``.tmp`` name and renamed.
+    ``written`` counts the records landed."""
+
+    def __init__(self, root: str):
+        import queue
+        import threading
+
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+        self._q = queue.Queue()
+        self.written = 0
+        self.queued = 0
+        self.first_write = None
+        self._n = 0
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="online-writer")
+        self._thread.start()
+
+    def feed(self, lines: list) -> None:
+        for i in range(0, len(lines), ONLINE_SHARD):
+            shard = lines[i:i + ONLINE_SHARD]
+            self.queued += len(shard)
+            self._q.put(shard)
+
+    def _run(self) -> None:
+        while True:
+            shard = self._q.get()
+            if shard is None:
+                return
+            path = os.path.join(self.root, f"part-{self._n:06d}")
+            self._n += 1
+            with open(path + ".tmp", "w") as f:
+                f.write("\n".join(shard) + "\n")
+            if self.first_write is None:
+                self.first_write = time.perf_counter()
+            os.rename(path + ".tmp", path)
+            self.written += len(shard)
+
+    def close(self) -> None:
+        self._q.put(None)
+        self._thread.join(timeout=60)
+
+
+def _wait(cond, what: str, timeout: float = ONLINE_WAIT_S,
+          tick=None) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"online: {what} within {timeout} s")
+        if tick is not None:
+            tick()
+        time.sleep(0.02)
+
+
+def online_replay(lines: list) -> None:
+    """(a) Under deterministic algorithms the mini-pass replay of the
+    first ONLINE_REPLAY_WINDOWS windows equals one pass over the same
+    records bit for bit: the state dict, the delta and the AUC."""
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.streaming import (
+        IterableSource,
+        MiniPassScheduler,
+        StreamingTrainer,
+    )
+
+    n = ONLINE_REPLAY_WINDOWS * ONLINE_WINDOW
+    d = os.path.join(WORK_DIR, "online-replay")
+    os.makedirs(d)
+    with open(os.path.join(d, "part-000"), "w") as f:
+        f.write("\n".join(lines[:n]) + "\n")
+    torch.use_deterministic_algorithms(True)
+    try:
+        conf, table, trainer = make_world(
+            N_SLOTS, DENSE, BATCH, EMB, HIDDEN, "cuda",
+            key_capacity=KEY_CAPACITY, cache_rows=CACHE_ROWS, seed=5)
+        ds = PadBoxSlotDataset(conf, read_threads=1)
+        ds.set_filelist([os.path.join(d, "part-000")])
+        ds.load_into_memory()
+        t0 = time.perf_counter()
+        table.begin_pass(ds.unique_keys())
+        m = trainer.train_from_dataset(ds, table)
+        table.end_pass()
+        one_s = time.perf_counter() - t0
+        want, want_delta = table.state_dict(), table.pop_delta()
+        table.close()
+        ds.close()
+        conf, table, trainer = make_world(
+            N_SLOTS, DENSE, BATCH, EMB, HIDDEN, "cuda",
+            key_capacity=KEY_CAPACITY, cache_rows=CACHE_ROWS, seed=5)
+        src = IterableSource(lines[:n]).start()
+        sched = MiniPassScheduler(src, conf, window_records=ONLINE_WINDOW,
+                                  window_seconds=0.0).start()
+        t0 = time.perf_counter()
+        summary = StreamingTrainer(trainer, table, sched).run()
+        stream_s = time.perf_counter() - t0
+        got, got_delta = table.state_dict(), table.pop_delta()
+        table.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = (np.array_equal(got["keys"], want["keys"])
+            and np.array_equal(got["values"], want["values"])
+            and np.array_equal(got_delta["keys"], want_delta["keys"])
+            and np.array_equal(got_delta["values"], want_delta["values"])
+            and summary["auc"] == m["auc"]
+            and summary["windows"] == ONLINE_REPLAY_WINDOWS)
+    log(f"online (a): {summary['windows']} windows of {ONLINE_WINDOW} "
+        f"records ({stream_s!r} s) "
+        f"against one pass over the same {n} ({one_s!r} s): state dict of "
+        f"{got['keys'].shape[0]} rows, delta of {got_delta['keys'].shape[0]} "
+        f"and AUC {summary['auc']!r} bit-equal: {same}")
+    if not same:
+        raise AssertionError("online (a): the mini-pass replay differs from "
+                             "one pass")
+
+
+def _hot_lines(rng, label: int, n: int) -> list:
+    from paddlebox_tpu_torch.data.synth import stream_line
+
+    hot = [ONLINE_HOT_KEY + s for s in range(N_SLOTS)]
+    return [stream_line(rng, label, n_sparse_slots=N_SLOTS, dense_dim=DENSE,
+                        hot_keys=hot, vocab_per_slot=VOCAB)[:-1]
+            for _ in range(n)]
+
+
+def _uniform_line(rng) -> str:
+    from paddlebox_tpu_torch.data.synth import stream_line
+
+    return stream_line(rng, int(rng.integers(0, 2)), n_sparse_slots=N_SLOTS,
+                       dense_dim=DENSE, vocab_per_slot=VOCAB)[:-1]
+
+
+def online(files: list, ds, card: str) -> None:
+    """The online loop at the slice's width: (a) online_replay; then the
+    slice pass's records land as shards in a stream directory, a
+    TailingFileSource and the mini-pass scheduler cut windows of 8
+    batches, a StreamingTrainer trains them on the card (HBM cache at its
+    default) and a DeadlinePublishPolicy publishes to a local root, a base
+    in fp32 first, then sparse row deltas, the hot pattern's and a last one
+    after the drain with their re-exported programs; a card
+    ScoringServer's Syncer hot-applies them, its ``applied_seq`` closing
+    the freshness loop.  Checks (b) to (f) as the module docstring says;
+    prints records/s, seconds a window, stream.freshness_seconds, the
+    publishes, the applies split, predict ms after a delta."""
+    import itertools
+    import threading
+
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch import telemetry
+    from paddlebox_tpu_torch.data.feed import BatchBuilder
+    from paddlebox_tpu_torch.data.slot_parser import SlotParser
+    from paddlebox_tpu_torch.inference import (
+        Predictor,
+        ScoringServer,
+        export_model,
+    )
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.serving_sync import Publisher, Syncer
+    from paddlebox_tpu_torch.streaming import (
+        DeadlinePublishPolicy,
+        MiniPassScheduler,
+        StreamingTrainer,
+        TailingFileSource,
+    )
+    from paddlebox_tpu_torch.streaming import freshness
+    from paddlebox_tpu_torch.streaming.minipass import (
+        MiniPassWindow,
+        WindowDataset,
+    )
+
+    lines = []
+    for path in files:
+        with open(path) as f:
+            lines += f.read().splitlines()
+    online_replay(lines)
+
+    rng = np.random.default_rng(31)
+    work = os.path.join(WORK_DIR, "online")
+    conf, table, trainer = make_world(
+        N_SLOTS, DENSE, BATCH, EMB, HIDDEN, "cuda",
+        key_capacity=KEY_CAPACITY, cache_rows=CACHE_ROWS, seed=6)
+    model = trainer.model
+    # a warm pass of 2 batches of uniform records anchors the chain
+    warm = [ln for ln in itertools.islice(lines, 2 * BATCH)]
+    block = SlotParser(conf).parse_lines(warm)
+    w0 = MiniPassWindow(0, block, np.unique(block.keys), len(warm),
+                        time.time(), time.time(), "warm", time.time())
+    table.begin_pass(w0.census)
+    trainer.train_from_dataset(WindowDataset(w0, BatchBuilder(conf)), table)
+    table.end_pass()
+    lines = lines[2 * BATCH:]
+    pub = Publisher(os.path.join(work, "publish"),
+                    staging_dir=os.path.join(work, "staging"))
+    t0 = time.perf_counter()
+    base = pub.publish_base("base", model, None, table, batch_size=BATCH,
+                            key_capacity=KEY_CAPACITY, dense_dim=DENSE,
+                            feed_conf=conf, lineage="warm")
+    log(f"online base: {base.n_rows} rows, {base.n_bytes} bytes in "
+        f"{time.perf_counter() - t0!r} s")
+    published = []  # (records trained at the publish, entry, seconds)
+    delta = pub.publish_delta
+
+    def timed_delta(*a, **kw):
+        t = time.perf_counter()
+        e = delta(*a, **kw)
+        if e is not None:
+            published.append((runner.records_trained, e,
+                              time.perf_counter() - t))
+        return e
+
+    pub.publish_delta = timed_delta
+
+    server = ScoringServer(device="cuda")
+    syncer = Syncer(pub.root, server, "live",
+                    cache_dir=os.path.join(work, "cache"),
+                    poll_interval_s=0.05)
+    applies = []
+    apply_delta = syncer._apply_delta
+
+    def split_apply(entry):
+        apply_delta(entry)
+        applies.append(dict(syncer.last_apply))
+
+    syncer._apply_delta = split_apply
+    syncer.poll_once()
+    syncer.start()
+    port = server.start(port=0)
+    probe = ("1 0 " + " ".join(
+        f"2 {ONLINE_HOT_KEY + s} {s * VOCAB + 7}" for s in range(N_SLOTS))
+        + f" {DENSE} " + " ".join(["0.0"] * DENSE) + "\n").encode()
+
+    def score() -> float:
+        return _post(port, "/score/live", probe)[0]["scores"][0]
+
+    source = TailingFileSource(os.path.join(work, "stream"),
+                               poll_interval_s=0.02,
+                               buffer_records=2 * ONLINE_WINDOW)
+    sched = MiniPassScheduler(source, conf, window_records=ONLINE_WINDOW,
+                              window_seconds=0.0)
+    # windows stay at 8 batches: a publish that eats its share of the
+    # budget counts as a miss, but cannot widen them
+    policy = DeadlinePublishPolicy(pub, ONLINE_STALENESS_S, scheduler=sched,
+                                   max_window_records=ONLINE_WINDOW)
+    runner = StreamingTrainer(trainer, table, sched, policy=policy,
+                              model=model,
+                              served_seq_fn=lambda: syncer.applied_seq)
+    windows, bad_windows, begins = [], [], []
+    train_window = runner._train_window
+
+    def checked_window(window, wd):
+        before = dict(sk.launches)
+        t = time.perf_counter()
+        train_window(window, wd)
+        windows.append(time.perf_counter() - t)
+        begins.append(dict(table.last_begin_breakdown))
+        after = dict(sk.launches)
+        if not all(after[k] > before[k]
+                   for k in ("pull_rows", "scatter_add_rows")):
+            bad_windows.append(window.index)
+
+    runner._train_window = checked_window
+    fresh_vals = []
+    fresh_hist = freshness._FRESHNESS
+    observe = fresh_hist.observe
+
+    def noted(v, **kw):
+        fresh_vals.append(float(v))
+        observe(v, **kw)
+
+    fresh_hist.observe = noted
+    writer = _ShardWriter(os.path.join(work, "stream"))
+    sk.reset_launches()
+    source.start()
+    sched.start()
+    run_out, run_err = {}, []
+
+    def run():
+        try:
+            run_out.update(runner.run())
+        except BaseException as e:  # re-raised below
+            run_err.append(e)
+
+    thread = threading.Thread(target=run, daemon=True, name="online-run")
+    thread.start()
+    filler = iter(lines[5 * ONLINE_WINDOW:])
+
+    def alive():
+        if run_err:
+            raise AssertionError(f"online: the runner died: {run_err[0]!r}")
+
+    hot_windows = {1: ONLINE_HOT_WINDOWS, 0: ONLINE_HOT_WINDOWS}
+
+    def fill(label=None):
+        # deadline publishes happen at window boundaries: one more window
+        # whenever less than one is pending, of the hot pattern with
+        # ``label``, else of the slice records (then uniform stream lines)
+        alive()
+        if writer.queued - runner.records_trained < ONLINE_WINDOW:
+            if label is not None:
+                writer.feed(_hot_lines(rng, label, ONLINE_WINDOW))
+                hot_windows[label] += 1
+                return
+            more = list(itertools.islice(filler, ONLINE_WINDOW))
+            more += [_uniform_line(rng)
+                     for _ in range(ONLINE_WINDOW - len(more))]
+            writer.feed(more)
+
+    def served_through(n_records: int) -> bool:
+        # a delta with programs published once n_records were trained is
+        # live
+        return any(r >= n_records and e.has_programs
+                   and syncer.applied_seq >= e.seq for r, e, _ in published)
+
+    try:
+        # the bulk: the first 5 windows of the slice records
+        writer.feed(lines[:5 * ONLINE_WINDOW])
+        bulk = 5 * ONLINE_WINDOW
+        _wait(lambda: runner.records_trained >= bulk, "the bulk trained",
+              tick=alive)
+        bulk_s = time.perf_counter() - writer.first_write
+        # from here on the deltas carry the re-exported programs, so the
+        # served tower follows the trained one
+        policy.publish_programs = True
+        _wait(lambda: served_through(bulk), "the bulk served", tick=fill)
+        s0 = score()
+        # (d): the hot pattern labelled 1, then 0, streamed until a delta
+        # with programs trained on it is live (as the reference's pin
+        # streams it): the served tower is then the one trained on the
+        # pattern, whose counters no uniform record resembles
+        marks = []
+        for label in (1, 0):
+            writer.feed(_hot_lines(rng, label,
+                                   ONLINE_HOT_WINDOWS * ONLINE_WINDOW))
+            target = writer.queued
+            _wait(lambda: served_through(target),
+                  f"the hot label {label} windows served",
+                  tick=lambda: fill(label))
+            marks.append(score())
+        high, low = marks
+        # the rest of the slice records as rows-only deltas, then the
+        # drain; a last delta then carries the final programs
+        policy.publish_programs = False
+        writer.feed(list(filler))
+        _wait(lambda: writer.written == writer.queued, "the stream landed",
+              tick=alive)
+        runner.stop()  # the source's last sweep reads all; a drain window
+        thread.join(timeout=ONLINE_WAIT_S)
+        if thread.is_alive() or run_err:
+            raise AssertionError(f"online: the runner did not drain: "
+                                 f"{run_err}")
+        loop_launches = dict(sk.launches)
+        timed_delta("programs", table, model)
+        last = pub.entries()[-1].seq
+        _wait(lambda: syncer.applied_seq >= last, "the last delta applied")
+        writer.close()
+        n_rec = run_out["records"]
+        log(f"online stream: {n_rec} records in {run_out['windows']} windows "
+            f"of {sched.window_records}; the first {bulk} at "
+            f"{bulk / bulk_s!r} records/s through the stream (landed to "
+            f"trained); seconds a window (train, boundary and any publish) "
+            f"p50 {float(np.percentile(windows, 50))!r}, p90 "
+            f"{float(np.percentile(windows, 90))!r}; {run_out} [{card}]")
+        log(f"online window boundaries: {sum(b['staged'] for b in begins)} "
+            f"of {len(begins)} begin_pass consumed their stage; median s: "
+            + ", ".join(f"{k} {float(np.median([b[k] for b in begins]))!r}"
+                        for k in ("stage_wait_s", "patch_s", "resolve_s",
+                                  "h2d_s", "cache_fill_s")))
+        log(f"online stream.freshness_seconds (event to served, "
+            f"{len(fresh_vals)} publishes confirmed, budget "
+            f"{ONLINE_STALENESS_S} s): p50 "
+            f"{float(np.percentile(fresh_vals, 50))!r}, p99 "
+            f"{float(np.percentile(fresh_vals, 99))!r}; the histogram's "
+            f"{fresh_hist.summary()} [{card}]")
+        dl = [(e, s) for _, e, s in published]
+        log(f"online publish_delta: {len(dl)} deltas, s "
+            f"{[round(s, 4) for _, s in dl]}, bytes "
+            f"{[e.n_bytes for e, _ in dl]}, rows {[e.n_rows for e, _ in dl]}, "
+            f"with programs {sum(e.has_programs for e, _ in dl)} [{card}]")
+        parts = {k: [a[k] for a in applies if a.get("kind") == "delta"]
+                 for k in ("fetch_s", "merge_s", "upload_s", "swap_s")}
+        log("online Syncer apply s a delta (median, max): " + ", ".join(
+            f"{k} {float(np.median(v))!r} / {max(v)!r}"
+            for k, v in parts.items()) + f" over {len(parts['merge_s'])} "
+            f"deltas [{card}]")
+        log(f"online launches over the live loop: {loop_launches}; windows "
+            f"without pull_rows or scatter_add_rows {bad_windows}")
+        # (f)
+        if bad_windows or len(windows) != run_out["windows"]:
+            raise AssertionError(f"online (f): windows {bad_windows} did not "
+                                 "launch pull_rows and scatter_add_rows")
+        for k in ("pull_rows", "scatter_add_rows", "gather_slots",
+                  "scatter_rows", "sorted_search"):
+            if loop_launches[k] <= 0:
+                raise AssertionError(f"online: {k} never launched")
+        # (d)
+        log(f"online (d): hot probe served score {s0!r} before, {high!r} "
+            f"after {hot_windows[1]} windows labelled 1, {low!r} after "
+            f"{hot_windows[0]} labelled 0 (bounds: rise >= {ONLINE_RISE}, "
+            f"fall >= {ONLINE_DROP})")
+        if not (high - s0 >= ONLINE_RISE and high - low >= ONLINE_DROP):
+            raise AssertionError("online (d): the served score did not move "
+                                 "with the flipped labels")
+
+        # (b): the served rows are the drained table's, bit for bit
+        live = server._models["live"].predictor
+        state = table.state_dict()
+        w = table.conf.row_width
+        rows_equal = (np.array_equal(live._keys, state["keys"])
+                      and np.array_equal(live._values,
+                                         state["values"][:, :w])
+                      and np.array_equal(live._dev[0].cpu().numpy(),
+                                         state["values"][:, :w]))
+        fresh_dir = os.path.join(work, "fresh")
+        export_model(model, table, fresh_dir, batch_size=BATCH,
+                     key_capacity=KEY_CAPACITY, dense_dim=DENSE,
+                     feed_conf=conf)
+        fresh = Predictor.load(fresh_dir, device="cuda")
+        sk.reset_launches()  # (c): serving after the last delta
+        n_batches, worst, exact = 0, 0.0, True
+        for b in ds.batches(drop_last=False):
+            got = live.predict(b)
+            n_batches += 1
+            saved = dict(sk.launches)
+            want = fresh.predict(b)
+            sk.launches.update(saved)
+            np.testing.assert_allclose(got, want, rtol=SERVE_RTOL,
+                                       atol=SERVE_ATOL)
+            worst = max(worst, float(np.abs(got - want).max()))
+            exact = exact and np.array_equal(got, want)
+        serve_launches = dict(sk.launches)
+        log(f"online (b): served snapshot {live.n_features} keys, rows "
+            f"(host and card) bit-equal to the drained table's: "
+            f"{rows_equal}; a pass of {n_batches} batches scored as a "
+            f"Predictor exported from the final table: max abs "
+            f"{worst!r}, bit-equal {exact}")
+        if not rows_equal:
+            raise AssertionError("online (b): served rows differ from the "
+                                 "table's")
+        # (c)
+        saved = dict(sk.launches)
+        b0 = next(iter(ds.batches()))
+        qk = rng.integers(0, 2**64 - 1, size=KEY_CAPACITY, dtype=np.uint64)
+        qk[: b0.n_keys] = b0.keys[: b0.n_keys]
+        q = torch.from_numpy(qk.view(np.int64)).cuda()
+        slots = sk.sorted_search(live._hay, live._n_real, q)
+        want = sk.sorted_search_plain(live._hay.cpu(), live._n_real, q.cpu())
+        err = {"sorted_search": int((slots.cpu() != want).sum())}
+        got_rows = sk.gather_slots(live._dev[0], slots).cpu()
+        plain = sk.gather_slots_plain(live._dev[0].cpu(), want)
+        err["gather_slots"] = int((got_rows.view(torch.int32)
+                                   != plain.view(torch.int32)).sum())
+        sk.launches.update(saved)
+        pm = np.array([_predict_parts(live, b)
+                       for b in itertools.islice(ds.batches(), 2)] * 5)
+        med = [float(x) for x in np.median(pm, axis=0)]
+        log(f"online (c): serving launches after the last delta "
+            f"{serve_launches}; at the haystack after it ({live._hay.shape[0]}"
+            f", {live._n_real} real; {KEY_CAPACITY} queries, "
+            f"{int((want < 0).sum())} unseen) elements that differ from the "
+            f"twins {err}; predict ms after a delta (median of {len(pm)}): "
+            f"prepare + key upload {med[0]!r}, resolve {med[1]!r}, program "
+            f"{med[2]!r}, total {sum(med)!r} [{card}]")
+        if serve_launches["sorted_search"] != n_batches or \
+                serve_launches["gather_slots"] != n_batches or any(
+                    err.values()):
+            raise AssertionError(f"online (c): {serve_launches}, {err}")
+
+        # (e): a corrupted delta takes the full reload; no /score fails
+        syncer.stop()
+        bad = pub.publish_delta("corrupt", table)
+        path = os.path.join(pub.root, bad.dir, "sparse_delta.npz")
+        data = bytearray(open(path, "rb").read())
+        data[len(data) // 2] ^= 0xFF
+        with open(path, "wb") as f:
+            f.write(bytes(data))
+        body = "\n".join(lines[:SERVE_INS]).encode() + b"\n"
+        failures, n_req, stop = [], [0], threading.Event()
+
+        def hammer():
+            while not stop.is_set():
+                try:
+                    out, _ = _post(port, "/score/live", body)
+                    if len(out["scores"]) != SERVE_INS:
+                        failures.append(out)
+                    n_req[0] += 1
+                except Exception as e:  # any failure counts
+                    failures.append(e)
+
+        clients = [threading.Thread(target=hammer, daemon=True)
+                   for _ in range(4)]
+        reloads = telemetry.counter("sync.full_reload_fallback")
+        before = reloads.value()
+        for c in clients:
+            c.start()
+        t0 = time.perf_counter()
+        try:
+            syncer.poll_once()
+        finally:
+            stop.set()
+            for c in clients:
+                c.join(timeout=60)
+        reload_s = time.perf_counter() - t0
+        log(f"online (e): corrupted delta seq {bad.seq}: full reloads "
+            f"{reloads.value() - before}, {reload_s!r} s; served tag "
+            f"{syncer.registry.current_version('live').tag}; {n_req[0]} "
+            f"/score requests of {SERVE_INS} meanwhile, {len(failures)} "
+            f"failed [{card}]")
+        if reloads.value() != before + 1 or failures or not n_req[0]:
+            raise AssertionError(f"online (e): {failures[:3]}")
+    finally:
+        syncer.stop()
+        server.stop()
+        runner.stop()
+        thread.join(timeout=ONLINE_WAIT_S)
+        writer.close()
+        fresh_hist.observe = observe
+        table.close()
 
 
 # --------------------------------------------------------------------------- #
@@ -5535,12 +6167,16 @@ def main() -> int:
     os.makedirs(WORK_DIR)
     try:
         t0 = time.perf_counter()
-        # the host libraries build with g++ beside the nvcc builds
-        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        # the data files are written (writer processes) while the host
+        # libraries build with g++ beside the nvcc builds
+        with concurrent.futures.ThreadPoolExecutor(3) as ex:
+            data = ex.submit(write_data)
             host = [ex.submit(_native.get_lib), ex.submit(_native.get_plan_lib)]
             built = cuda_build.build(sk.KERNELS)
             cuda_s = time.perf_counter() - t0
             host_libs = [h.result() for h in host]
+            files, cached_files, logkey_files, seq_files = data.result()
+            write_s = time.perf_counter() - t0
         log(f"build: {cuda_s!r} s for {sorted(built)}")
         for name in built:
             ptxas = [line for line in cuda_build.build_log[name]["log"].splitlines()
@@ -5554,9 +6190,6 @@ def main() -> int:
                 f"{k}: {v['log']}" for k, v in _native.build_log.items()))
 
         t0 = time.perf_counter()
-        files, cached_files, logkey_files, seq_files = write_data()
-        write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         ds = load(files, N_FILES)
         load_s = time.perf_counter() - t0
         n_census = ds.unique_keys().shape[0]
@@ -5567,10 +6200,12 @@ def main() -> int:
         log(f"data: {ds.get_memory_data_size()} instances, {n_census} census "
             f"keys; Zipf sets {[d.get_memory_data_size() for d in cached_ds]} "
             f"instances, censuses {[c.shape[0] for c in censuses]}; written "
-            f"in {write_s!r} s")
-        py_load_s = python_parse_check(files, ds)
+            f"beside the build in {write_s!r} s")
+        # depth cut since the online phase: the Python parser on the first
+        # file (the whole uncached set before)
+        py_load_s = python_parse_check(files[:1], load(files[:1], 1))
         log(f"load (native parser): {load_s!r} s for the uncached set, "
-            f"{cached_load_s!r} s for the Zipf sets; the uncached set with "
+            f"{cached_load_s!r} s for the Zipf sets; its first file with "
             f"the Python parser {py_load_s!r} s, bit-equal blocks")
 
         def phase(fn, *args):
@@ -5611,6 +6246,7 @@ def main() -> int:
         rows = phase(kernel_times, res, ds, cached,
                      censuses[CACHED_PASSES - 1], hybrid, errs)
         phase(serving, res, ds, axes)
+        phase(online, files, ds, card)
         # last: after its device traces, a torch.profiler window of this
         # process listed no CUDA kernel among its events (kernel_times
         # reads the kernels of each wrapper call from such windows)

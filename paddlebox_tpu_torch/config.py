@@ -140,6 +140,25 @@ class _Flags:
         # "fp32", "int8" or "fp8" (per-row scales, dequantized on the card
         # inside the serving program)
         "embedding_dtype": "fp32",
+        # the remote filesystem (utils/fs.py HadoopFS): the hadoop command,
+        # and the job confs fs.default.name and hadoop.job.ugi
+        "hadoop_bin": "hadoop",
+        "fs_name": "",
+        "fs_ugi": "",
+        # online model delivery (serving_sync/): the publish root a trainer
+        # ships base and delta model units to ("" = no publishing;
+        # launch.py --publish-root sets it for every rank), and the serving
+        # side's donefile poll interval and fetch cache directory
+        "publish_root": "",
+        "sync_interval_s": 10.0,
+        "sync_cache_dir": "",
+        # online training (streaming/): the root a StreamingTrainer tails
+        # ("" = none; launch.py --stream-root), the freshness budget in
+        # seconds that triggers publish_delta, and the mini-pass window
+        # size in records
+        "stream_root": "",
+        "max_staleness_s": 10.0,
+        "stream_window_records": 1024,
     }
 
     def __getattr__(self, name: str):
@@ -490,6 +509,75 @@ class TelemetryConfig:
             raise ValueError(
                 f"metrics_port must be in [0, 65535], got {self.metrics_port}"
             )
+
+
+# --------------------------------------------------------------------------- #
+# Online training (reference: config.py StreamingConfig), the policy of
+# streaming/: how records arrive (the tailed root, the buffer bound), how
+# mini-pass windows are cut (record count and/or wall-clock age), and the
+# freshness budget the deadline publisher holds.
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass
+class StreamingConfig:
+    """Knobs of the streaming plane (source -> mini-pass -> deadline
+    publish).
+
+    max_staleness_s is the freshness budget from end to end: the deadline
+    publisher aims to have every event's effect published (and, with a
+    serving confirmation wired, served) within this many seconds of the
+    event entering the stream; misses are counted
+    (``stream.deadline_misses``).
+    """
+
+    # the tailed root ("" = the caller supplies a source)
+    stream_root: str = ""
+    # freshness budget (s): publish_delta fires on this deadline
+    max_staleness_s: float = 10.0
+    # window size in records (widened under publish backpressure, up to
+    # max_window_records)
+    window_records: int = 1024
+    # also cut a non-empty window once its first record is this old (s);
+    # 0 = by record count only
+    window_seconds: float = 1.0
+    # the bounded source buffer: past it the producer blocks, nothing drops
+    buffer_records: int = 1 << 16
+    # the tail source's poll interval (s)
+    tail_poll_interval_s: float = 0.05
+    # windows cut and censused ahead of training
+    max_pending_windows: int = 2
+    # backpressure: the window's growth factor when a publish lags or
+    # fails, and its cap
+    widen_factor: float = 2.0
+    max_window_records: int = 1 << 20
+    # share of the staleness budget spent accumulating before the
+    # publisher triggers (the rest is headroom for publish and sync)
+    trigger_fraction: float = 0.5
+    # an AutoCheckpointer pass record every N windows (0 = at shutdown only)
+    checkpoint_every_windows: int = 0
+
+    @staticmethod
+    def from_flags() -> "StreamingConfig":
+        return StreamingConfig(
+            stream_root=flags.stream_root,
+            max_staleness_s=flags.max_staleness_s,
+            window_records=flags.stream_window_records,
+        )
+
+    def __post_init__(self):
+        if self.max_staleness_s <= 0:
+            raise ValueError("max_staleness_s must be positive")
+        if self.window_records < 1:
+            raise ValueError("window_records must be >= 1")
+        if self.window_seconds < 0:
+            raise ValueError("window_seconds must be >= 0")
+        if not 0 < self.trigger_fraction <= 1.0:
+            raise ValueError("trigger_fraction must be in (0, 1]")
+        if self.widen_factor < 1.0:
+            raise ValueError("widen_factor must be >= 1")
+        if self.max_window_records < self.window_records:
+            raise ValueError("max_window_records must be >= window_records")
+        if self.max_pending_windows < 1:
+            raise ValueError("max_pending_windows must be >= 1")
 
 
 # --------------------------------------------------------------------------- #

@@ -9,7 +9,7 @@ learns per-key embeddings beats AUC 0.5.
 from __future__ import annotations
 
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -42,6 +42,35 @@ def make_synth_config(
         max_feasigns_per_ins=max_feasigns_per_ins,
         **kw,
     )
+
+
+def stream_line(
+    rng: np.random.Generator,
+    label: int,
+    n_sparse_slots: int = 2,
+    dense_dim: int = 2,
+    hot_keys: Optional[Sequence[int]] = None,
+    vocab_per_slot: int = 40,
+) -> str:
+    """One slot-text record of a synthetic live stream, newline-terminated
+    (the reference's same rng draws give the same line).
+
+    hot_keys: one key a slot present in every record (beside one noise key
+    a slot), the signal whose label a streaming check flips to watch the
+    served score move; None = noise keys only."""
+    parts = [f"1 {label}"]
+    for s in range(n_sparse_slots):
+        noise = int(rng.integers(1, vocab_per_slot)) + s * 1000
+        if hot_keys is not None:
+            parts.append(f"2 {hot_keys[s]} {noise}")
+        else:
+            parts.append(f"2 {noise} {noise + 1}")
+    if dense_dim:
+        parts.append(
+            f"{dense_dim} "
+            + " ".join(f"{v:.3f}" for v in rng.normal(size=dense_dim))
+        )
+    return " ".join(parts) + "\n"
 
 
 def write_synth_files(

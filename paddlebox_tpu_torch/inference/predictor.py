@@ -36,6 +36,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -109,6 +110,11 @@ class Predictor:
 
     # -- the device snapshot ------------------------------------------------ #
     def _upload(self) -> None:
+        """Build the device snapshot, complete on the device when this
+        returns: a predictor built on one thread (a syncer's agent) is
+        installed for the request threads right after, and is never seen
+        half-uploaded.  ``upload_seconds`` records the time it took."""
+        t0 = time.perf_counter()
         dev = self.device
         n = int(self._keys.shape[0])
         c = _next_pow2(max(n, 1))
@@ -135,6 +141,9 @@ class Predictor:
                          rows(self._scales, 1))
         else:
             self._dev = (rows(self._values, int(self.meta["row_width"])),)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        self.upload_seconds = time.perf_counter() - t0
 
     @property
     def n_features(self) -> int:

@@ -10,9 +10,10 @@ system picks, so no rank races another process for a free port, (2) spawns
 N ranks of ``python script ...`` with the PADDLEBOX_TORCH_COORDINATOR_ADDRESS,
 _NUM_PROCESSES, _PROCESS_ID, _STORE_HOSTED, _BACKEND, _DEVICE,
 _LOCAL_DEVICE and _POSITIONS_PER_PROC flags set, which
-``parallel.mesh.initialize_distributed()`` reads, and (3) babysits them:
-per-rank log files, the survivors killed when any rank dies, the first bad
-exit code propagated.
+``parallel.mesh.initialize_distributed()`` reads (and, when given, the
+online loop's _PUBLISH_ROOT, _STREAM_ROOT and _MAX_STALENESS_S), and (3)
+babysits them: per-rank log files, the survivors killed when any rank dies,
+the first bad exit code propagated.
 
 Backends: "nccl" when each rank owns its own card (rank r takes card r);
 "gloo" for CPU ranks and for ranks that share one card (every rank takes
@@ -54,6 +55,9 @@ def rank_env(
     metrics_port: Optional[int] = None,
     trace_dir: Optional[str] = None,
     flight_dir: Optional[str] = None,
+    publish_root: Optional[str] = None,
+    stream_root: Optional[str] = None,
+    max_staleness_s: Optional[float] = None,
 ) -> dict:
     """The environment of one rank (exported for tests and embedders)."""
     env = dict(base_env if base_env is not None else os.environ)
@@ -83,6 +87,15 @@ def rank_env(
     if flight_dir:
         # every rank's flight-recorder dumps land here, named by rank
         env["PADDLEBOX_TORCH_FLIGHT_DIR"] = flight_dir
+    if publish_root:
+        # the training program's Publisher ships model units here
+        env["PADDLEBOX_TORCH_PUBLISH_ROOT"] = publish_root
+    if stream_root:
+        # the root a StreamingTrainer tails (StreamingConfig.from_flags)
+        env["PADDLEBOX_TORCH_STREAM_ROOT"] = stream_root
+    if max_staleness_s is not None:
+        # the freshness budget of the deadline publisher
+        env["PADDLEBOX_TORCH_MAX_STALENESS_S"] = str(max_staleness_s)
     return env
 
 
@@ -113,6 +126,9 @@ def launch(
     trace_dir: Optional[str] = None,
     flight_dir: Optional[str] = None,
     env: Optional[dict] = None,
+    publish_root: Optional[str] = None,
+    stream_root: Optional[str] = None,
+    max_staleness_s: Optional[float] = None,
 ) -> int:
     """Spawn nproc ranks of ``python script_args...``; return the first
     non-zero exit code (0 when every rank succeeds).  Any rank dying kills
@@ -136,7 +152,8 @@ def launch(
             base_env=env, store_hosted=store is not None,
             liveness_deadline_s=liveness_deadline_s,
             metrics_port=metrics_port, trace_dir=trace_dir,
-            flight_dir=flight_dir,
+            flight_dir=flight_dir, publish_root=publish_root,
+            stream_root=stream_root, max_staleness_s=max_staleness_s,
         )
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
@@ -221,9 +238,28 @@ def main(argv: Optional[list] = None) -> int:
                     help="host span traces of every rank go here")
     ap.add_argument("--flight-dir", default=None,
                     help="flight-recorder dumps of every rank go here")
+    ap.add_argument("--publish-root", default=None,
+                    help="online model delivery: the publish root of the "
+                         "ranks' Publisher (PADDLEBOX_TORCH_PUBLISH_ROOT)")
+    ap.add_argument("--stream-root", default=None,
+                    help="online training: the root the ranks' "
+                         "StreamingTrainer tails "
+                         "(PADDLEBOX_TORCH_STREAM_ROOT)")
+    ap.add_argument("--max-staleness-s", type=float, default=None,
+                    help="online training: the freshness budget (s) of the "
+                         "deadline publisher "
+                         "(PADDLEBOX_TORCH_MAX_STALENESS_S)")
+    # the reference's co-run serving fleet: refused (the fleet item)
+    ap.add_argument("--serve-replicas", type=int, default=0,
+                    help=argparse.SUPPRESS)
     ap.add_argument("script", help="the rank program")
     ap.add_argument("script_args", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
+    if args.serve_replicas > 0:
+        ap.error("--serve-replicas (a co-run serving fleet) is not ported "
+                 "yet (ROADMAP.md, Queue A: the fleet, serving_fleet/); "
+                 "run python -m paddlebox_tpu_torch.serve --sync-root "
+                 "beside the job instead")
     return launch(
         [args.script] + args.script_args,
         nproc=args.nproc,
@@ -237,6 +273,9 @@ def main(argv: Optional[list] = None) -> int:
         metrics_port=args.metrics_port,
         trace_dir=args.trace_dir,
         flight_dir=args.flight_dir,
+        publish_root=args.publish_root,
+        stream_root=args.stream_root,
+        max_staleness_s=args.max_staleness_s,
     )
 
 

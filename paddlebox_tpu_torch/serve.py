@@ -5,6 +5,8 @@ paddlebox_tpu/serve.py, its single-server mode).
         [--port 8080] [--host 127.0.0.1] [--cpu] [--max-queue 64] \\
         [--request-deadline-ms 500] [--max-batch 8] [--batch-linger-ms 2] \\
         [--serving-policy NAME:deadline_ms=50,batch_linger_ms=1]
+    python -m paddlebox_tpu_torch.serve --sync-root [NAME=]ROOT [...more] \\
+        [--sync-model live] [--sync-interval 10] [--sync-cache DIR] [--cpu]
 
 Each --artifact is DIR or NAME=DIR (NAME defaults to the directory's
 basename; the first one registered is the default model).  Artifacts carry
@@ -18,9 +20,19 @@ PADDLEBOX_TORCH_SERVE_MAX_QUEUE / _REQUEST_DEADLINE_MS) bounds the queue:
 past the cap, or once the estimated wait exceeds the request deadline, the
 server sheds with 429 + Retry-After.
 
-The reference's delivery plane (--sync-root) and fleet mode (--replicas,
---autoscale) are not ported yet (ROADMAP.md, Queue A item 6b): given
-here, they stop the command with an error instead of serving without them.
+--sync-root attaches the online delivery plane (serving_sync/): one Syncer
+a synced model follows its publish root's donefile and hot-applies sparse
+deltas into the live model between requests (on the card each predict
+then resolves its keys with the sorted_search and gather_slots kernels),
+falling back to a full reload on any verification failure.  A bare ROOT
+serves under --sync-model (default "live"), NAME=ROOT under NAME.  Without
+an --artifact the server starts once every synced model has its first
+version (at most --sync-timeout seconds).  GET /models reports each
+model's lineage (base tag, deltas applied, publish time).
+
+The reference's fleet mode (--replicas, --autoscale) is not ported yet
+(ROADMAP.md, Queue A item 6b: the fleet, serving_fleet/): given here, it
+stops the command with an error instead of serving without it.
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ import argparse
 import os
 
 _NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue A item 6b: the "
-               "delivery plane and the fleet); serve without it")
+               "fleet, serving_fleet/); serve one server without it")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -69,8 +81,25 @@ def _build_parser() -> argparse.ArgumentParser:
                          "[,embedding_dtype=fp32|int8|fp8]"
                          "[,max_staleness_s=..]; overrides the server "
                          "defaults for POST /score/NAME and /retrieve/NAME")
-    # the reference's delivery plane and fleet mode: refused (item 6b)
-    ap.add_argument("--sync-root", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sync-root", action="append", default=[],
+                    metavar="[NAME=]ROOT",
+                    help="publish root to keep a model synced from "
+                         "(repeatable; the serving_sync delivery plane)")
+    ap.add_argument("--sync-model", default="live",
+                    help="model name a bare --sync-root serves under "
+                         "(default: live)")
+    ap.add_argument("--sync-interval", type=float, default=None,
+                    help="donefile poll interval in seconds (default "
+                         "PADDLEBOX_TORCH_SYNC_INTERVAL_S)")
+    ap.add_argument("--sync-cache", default=None,
+                    help="local cache directory of fetched model units (a "
+                         "directory a model under it; default "
+                         "PADDLEBOX_TORCH_SYNC_CACHE_DIR, else a temporary "
+                         "one)")
+    ap.add_argument("--sync-timeout", type=float, default=300.0,
+                    help="longest wait for the first synced model at "
+                         "startup")
+    # the reference's fleet mode: refused (item 6b, the fleet)
     ap.add_argument("--replicas", type=int, default=0,
                     help=argparse.SUPPRESS)
     ap.add_argument("--autoscale", action="store_true",
@@ -107,14 +136,20 @@ def _parse_serving_policy(spec: str):
 def main(argv=None) -> None:
     ap = _build_parser()
     args = ap.parse_args(argv)
-    if args.sync_root:
-        ap.error(f"--sync-root {_NOT_PORTED}")
     if args.replicas and args.replicas > 0:
         ap.error(f"--replicas {args.replicas} (fleet mode) {_NOT_PORTED}")
     if args.autoscale:
         ap.error(f"--autoscale {_NOT_PORTED}")
-    if not args.artifact:
-        ap.error("pass at least one --artifact")
+    if not args.artifact and not args.sync_root:
+        ap.error("pass at least one --artifact or a --sync-root")
+    synced = []
+    for spec in args.sync_root:
+        name, sep, root = spec.partition("=")
+        if not sep:
+            name, root = args.sync_model, spec
+        if name in (n for n, _ in synced):
+            ap.error(f"--sync-root: model name {name!r} given twice")
+        synced.append((name, root))
 
     from paddlebox_tpu_torch import telemetry
     from paddlebox_tpu_torch.inference import ScoringServer
@@ -148,6 +183,26 @@ def main(argv=None) -> None:
             )
         server.register(name, path)
         print(f"registered {name!r} <- {path}")
+    from paddlebox_tpu_torch.serving_sync import Syncer
+
+    syncers = []
+    for name, root in synced:
+        cache = (os.path.join(args.sync_cache, name) if args.sync_cache
+                 else None)
+        syncer = Syncer(root, server, name, cache_dir=cache,
+                        poll_interval_s=args.sync_interval)
+        print(f"syncing {name!r} <- {root}")
+        if not args.artifact:
+            # the HTTP server needs a model: wait for the root's first one
+            if not syncer.wait_fresh(timeout_s=args.sync_timeout):
+                for other in syncers:
+                    other.stop()
+                ap.error(f"no model appeared under {root} within "
+                         f"{args.sync_timeout:.1f}s")
+        else:
+            syncer.poll_once()
+        syncer.start()
+        syncers.append(syncer)
     port = server.start(port=args.port, host=args.host)
     print(f"serving on http://{args.host}:{port}/score "
           f"(models: {', '.join(server.model_names())}; device "
@@ -155,6 +210,10 @@ def main(argv=None) -> None:
     try:
         server.wait()
     except KeyboardInterrupt:
+        pass
+    finally:
+        for syncer in syncers:
+            syncer.stop()
         server.stop()
 
 

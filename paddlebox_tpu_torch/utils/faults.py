@@ -70,8 +70,24 @@ KNOWN_SITES = {
     "store.segment_write", "store.compact", "store.manifest_commit",
     # checkpoints (checkpoint.py): save, load and the incremental delta
     "ckpt.save", "ckpt.load", "ckpt.delta_save",
-    # the filesystem surface of utils/fs.py's LocalFS
-    "fs.ls", "fs.cat",
+    # the filesystem surface of utils/fs.py (LocalFS by operation,
+    # HadoopFS by hadoop verb)
+    "fs.ls", "fs.exists", "fs.mkdir", "fs.upload", "fs.download", "fs.rm",
+    "fs.touch", "fs.cat", "fs.put", "fs.get", "fs.test", "fs.touchz",
+    # model publishing (utils/fs.py publish_checkpoint,
+    # serving_sync/publisher.py): a failed upload or donefile write leaves
+    # nothing visible and the delta tracker intact
+    "publish.mkdir", "publish.upload", "publish.donefile", "publish.delta",
+    # the serving side's sync agent (serving_sync/syncer.py): the donefile
+    # poll (retried), the fetch of an entry (retried) and its apply (a
+    # failure takes the full-reload ladder)
+    "sync.poll", "sync.fetch", "sync.apply",
+    # online training (streaming/): the tail source's poll (a failure is
+    # counted and retried next poll; a hang wedges the feed for the
+    # watchdog's `feed` stage), the window cut (a failure defers the cut:
+    # the records merge into the next window) and the deadline publish (a
+    # failure keeps the rows tracked for the next window)
+    "stream.tail", "stream.cut", "stream.publish_deadline",
     # one input file's read (data/slot_parser.py parse_file), retried by
     # the dataset through utils/retry.py
     "data.read",

@@ -1494,6 +1494,206 @@ def test_collectives_over_a_one_rank_group_on_the_card(cuda, backend):
         mesh_mod.shutdown_distributed()
 
 
+def _publish_chain(tmp_path, device, n_deltas=2):
+    """A small CtrDnn trained on ``device``, published as a base and
+    ``n_deltas`` deltas (one pass each, with programs) to a local root:
+    (root, table, model, conf)."""
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.serving_sync import Publisher
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.train import Trainer
+
+    conf = make_synth_config(4, 3, 32, 16)
+    tconf = SparseTableConfig(embedding_dim=8)
+    table = SparseTable(tconf, seed=5, device=device)
+    model = CtrDnn(4, tconf.row_width, dense_dim=3, hidden=(32, 16), seed=2,
+                   device=device)
+    tr = Trainer(model, tconf, TrainerConfig(auc_buckets=1 << 10),
+                 device=device)
+    root = str(tmp_path / "publish")
+    pub = Publisher(root, staging_dir=str(tmp_path / "stage"))
+    for i in range(n_deltas + 1):
+        files = write_synth_files(str(tmp_path / f"d{i}"), n_files=1,
+                                  ins_per_file=160, n_sparse_slots=4,
+                                  vocab_per_slot=80, dense_dim=3,
+                                  seed=20 + i)
+        ds = PadBoxSlotDataset(conf, read_threads=1)
+        ds.set_filelist(files)
+        ds.load_into_memory()
+        table.begin_pass(ds.unique_keys())
+        tr.train_from_dataset(ds, table)
+        table.end_pass()
+        ds.close()
+        if i == 0:
+            pub.publish_base("p0", model, None, table, batch_size=32,
+                             key_capacity=32 * 16, dense_dim=3,
+                             feed_conf=conf)
+        else:
+            pub.publish_delta(f"p{i}", table, model)
+    return root, table, model, conf
+
+
+def test_syncer_on_a_card_server_applies_base_and_deltas(cuda, tmp_path):
+    """A Syncer on a card ScoringServer applies a base and two deltas: the
+    live Predictor holds the table's rows on the card bit for bit, scores
+    as a fresh export does, and each predict after the deltas launches
+    sorted_search and gather_slots once."""
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import write_synth_files
+    from paddlebox_tpu_torch.inference import (
+        Predictor,
+        ScoringServer,
+        export_model,
+    )
+    from paddlebox_tpu_torch.serving_sync import Syncer
+
+    root, table, model, conf = _publish_chain(tmp_path, "cpu")
+    server = ScoringServer()
+    assert server.device.type == "cuda"
+    sync = Syncer(root, server, "live", cache_dir=str(tmp_path / "cache"))
+    assert sync.poll_once() == 3
+    live = server._models["live"].predictor
+    assert live.device.type == "cuda" and live.upload_seconds > 0
+    assert {"fetch_s", "merge_s", "upload_s", "swap_s"} <= set(
+        sync.last_apply)
+    state = table.state_dict()
+    w = table.conf.row_width
+    np.testing.assert_array_equal(live._keys, state["keys"])
+    np.testing.assert_array_equal(live._dev[0].cpu().numpy(),
+                                  np.asarray(state["values"])[:, :w])
+    art = str(tmp_path / "fresh")
+    export_model(model, table, art, batch_size=32, key_capacity=32 * 16,
+                 dense_dim=3, feed_conf=conf)
+    fresh = Predictor.load(art, device="cpu")
+    files = write_synth_files(str(tmp_path / "q"), n_files=1,
+                              ins_per_file=96, n_sparse_slots=4,
+                              vocab_per_slot=100, dense_dim=3, seed=77)
+    ds = PadBoxSlotDataset(conf, read_threads=1)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    sk.reset_launches()
+    n = 0
+    for batch in ds.batches(drop_last=False):
+        np.testing.assert_allclose(live.predict(batch), fresh.predict(batch),
+                                   rtol=1e-5, atol=1e-6)
+        n += 1
+    torch.cuda.synchronize()
+    assert sk.launches["sorted_search"] == sk.launches["gather_slots"] == n
+    ds.close()
+    table.close()
+
+
+def test_with_delta_resolve_is_bit_exact_against_the_twins(cuda):
+    """A card Predictor's with_delta (replaced and inserted keys, one
+    above 2^63): the new snapshot's resolve of every key, and of unseen
+    ones, is bit-exact against sorted_search's and gather_slots' twins."""
+    from paddlebox_tpu_torch.inference import Predictor
+
+    rng = np.random.default_rng(4)
+    w = 7
+    keys = np.unique(rng.integers(1, 2 ** 64 - 1, 3000, dtype=np.uint64))
+    meta = {"row_width": w, "cvm_offset": 2, "create_threshold": 0.0,
+            "pull_embedx_scale": 1.0, "buckets": []}
+    base = Predictor(meta, keys, rng.normal(size=(keys.shape[0], w))
+                     .astype(np.float32), "", [], device="cuda")
+    dk = np.concatenate([rng.choice(keys, 500, replace=False),
+                         rng.integers(1, 2 ** 64 - 1, 700, dtype=np.uint64),
+                         np.array([2 ** 63 + 5], np.uint64)])
+    dv = rng.normal(size=(dk.shape[0], w)).astype(np.float32)
+    new = base.with_delta(dk, dv)
+    assert new is not base and new.n_features > base.n_features
+    q = np.concatenate([new._keys, rng.integers(1, 2 ** 64 - 1, 400,
+                                                dtype=np.uint64)])
+    q_t = torch.from_numpy(q.view(np.int64)).to(cuda)
+    before = dict(sk.launches)
+    slots = sk.sorted_search(new._hay, new._n_real, q_t)
+    rows = sk.gather_slots(new._dev[0], slots)
+    torch.cuda.synchronize()
+    assert sk.launches["sorted_search"] == before["sorted_search"] + 1
+    want = sk.sorted_search_plain(new._hay.cpu(), new._n_real, q_t.cpu())
+    assert torch.equal(slots.cpu(), want)
+    assert torch.equal(rows.cpu(), sk.gather_slots_plain(new._dev[0].cpu(),
+                                                         want))
+    # the delta's rows are the newest: the last write of each key wins
+    last = {int(k): v for k, v in zip(dk, dv)}
+    got = rows.cpu().numpy()[: new.n_features]
+    for i, k in enumerate(new._keys.tolist()):
+        if k in last:
+            assert np.array_equal(got[i], last[k])
+
+
+def test_streaming_window_trains_on_the_card(cuda, tmp_path):
+    """A StreamingTrainer on the card: every window launches pull_rows and
+    scatter_add_rows, and the windows equal one pass over the same records
+    under deterministic algorithms."""
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.streaming import (
+        IterableSource,
+        MiniPassScheduler,
+        StreamingTrainer,
+    )
+    from paddlebox_tpu_torch.train import Trainer
+
+    conf = make_synth_config(3, 2, 16, 16)
+    files = write_synth_files(str(tmp_path / "d"), n_files=1,
+                              ins_per_file=384, n_sparse_slots=3,
+                              vocab_per_slot=40, dense_dim=2, seed=17)
+    lines = open(files[0]).read().splitlines()
+
+    def world():
+        tconf = SparseTableConfig(embedding_dim=4, hbm_cache_rows=64)
+        return (SparseTable(tconf, seed=3, device=cuda),
+                Trainer(CtrDnn(3, tconf.row_width, dense_dim=2,
+                               hidden=(16, 8), seed=3, device=cuda),
+                        tconf, TrainerConfig(auc_buckets=1 << 12),
+                        device=cuda))
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        table, trainer = world()
+        ds = PadBoxSlotDataset(conf, read_threads=1)
+        ds.set_filelist(files)
+        ds.load_into_memory()
+        table.begin_pass(ds.unique_keys())
+        m = trainer.train_from_dataset(ds, table)
+        table.end_pass()
+        want = table.state_dict()
+        table.close()
+        ds.close()
+        table, trainer = world()
+        src = IterableSource(lines).start()
+        sched = MiniPassScheduler(src, conf, window_records=128,
+                                  window_seconds=0.0).start()
+        runner = StreamingTrainer(trainer, table, sched)
+        counts = []
+        train = runner._train_window
+
+        def counted(window, wd):
+            before = dict(sk.launches)
+            train(window, wd)
+            counts.append({k: sk.launches[k] - before[k]
+                           for k in ("pull_rows", "scatter_add_rows")})
+
+        runner._train_window = counted
+        summary = runner.run()
+        got = table.state_dict()
+        table.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert summary["windows"] == 3
+    assert all(c["pull_rows"] == c["scatter_add_rows"] == 8 for c in counts)
+    assert np.array_equal(got["keys"], want["keys"])
+    assert np.array_equal(got["values"], want["values"])
+    assert summary["auc"] == m["auc"]
+
+
 def test_a_capture_that_cannot_succeed_raises(cuda, tmp_path):
     """A model whose forward reads a value on the host cannot be captured:
     the trainer raises, and no group runs eagerly in its place."""

@@ -17,7 +17,7 @@ both packages export it with its feed schema.  Checked:
   * ``traceparent`` parse and format parity, trace IDs on spans, on the
     flight ring and on the response;
   * ``python -m paddlebox_tpu_torch.serve --cpu`` serves, and refuses the
-    fleet and sync flags.
+    fleet flags and a sync root that delivers no model in time.
 """
 
 import copy
@@ -561,7 +561,15 @@ def test_request_continues_the_callers_trace():
         st, _, hdr = _post(port, b"x\n", headers={"traceparent": tp})
         assert st == 200
         assert hdr["x-pbox-trace-id"] == "4bf92f3577b34da6a3ce929d0e0e4736"
-        req = [r for r in ring.snapshot() if r["name"] == "server.request"]
+        # the span covers the reply's write, so it lands in the ring just
+        # after the client reads the reply: wait for it, at most 5 s
+        deadline = time.monotonic() + 5.0
+        req = []
+        while not req and time.monotonic() < deadline:
+            req = [r for r in ring.snapshot()
+                   if r["name"] == "server.request"]
+            if not req:
+                time.sleep(0.01)
         assert req and req[0]["trace_id"] == hdr["x-pbox-trace-id"]
         assert req[0]["parent_span_id"] != "00f067aa0ba902b7"  # a child
         st, _, hdr2 = _post(port, b"x\n")  # no header: a fresh trace
@@ -609,15 +617,22 @@ def test_serve_cli_on_the_cpu(arts):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--sync-root", "/nonexistent"],
-    ["--replicas", "2"],
-    ["--autoscale"],
+    # a sync root that delivers no model in time, with no artifact to
+    # serve meanwhile
+    ["--sync-root", "/nonexistent", "--sync-timeout", "0.2"],
+    ["--artifact", "ART", "--replicas", "2"],
+    ["--artifact", "ART", "--autoscale"],
 ])
 def test_serve_refuses_the_fleet_and_sync_flags(arts, argv, capsys):
+    argv = [arts["port"] if a == "ART" else a for a in argv]
     with pytest.raises(SystemExit) as ei:
-        serve.main(["--artifact", arts["port"], "--cpu", *argv])
+        serve.main(["--cpu", *argv])
     assert ei.value.code != 0
-    assert "6b" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if "--sync-root" in argv:
+        assert "no model appeared under /nonexistent" in err
+    else:
+        assert "the fleet" in err and "6b" in err
 
 
 def test_serve_defaults_to_the_card():
