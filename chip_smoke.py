@@ -121,7 +121,18 @@ Phases, each fatal on failure:
                step rank 1 freezes: both ranks must exit with the
                DistributedStallError naming rank 1 in stage 'step' within
                twice the deadline; (e) rank 0's log carries the merged
-               fleet view at each pass end; (b) 1 rank x 4 positions on
+               fleet view at each pass end; (f) in arm (a)'s job, each
+               rank loads half of the data half's logkey files through a
+               TcpShuffler on loopback (ports published through the job's
+               store): the union of the two blocks is the input record for
+               record, and each block is bit-equal to an
+               InProcessShuffleGroup worker's of the same mode and seed;
+               exchange bytes and seconds; (g) then the trained table
+               resharded live across the two ranks, POSITIONS -> 2 -> POSITIONS,
+               a pass of RESHARD_BATCHES after each cutover: the pass
+               metrics and the union of the ranks' stores bit-equal to
+               reshard's one-process run; rows moved, KvChannel bytes and
+               last_reshard_s; (b) 1 rank x 4 positions on
                NCCL through the process-group path, started beside (a)
                and training after it, MP_NCCL_PASSES passes bit-equal; (c)
                NCCL across cards where there are 2 (else one line says it
@@ -166,7 +177,7 @@ Phases, each fatal on failure:
                its conv counters equal a host count of the task labels)
                two passes over the first ZOO_ARM_BATCHES batches of the
                first ZOO_LOGKEY_FILES logkey files, on the default table;
-               MMoE and RankCtrDnn on the hybrid world over four passes of
+               MMoE and RankCtrDnn on the hybrid world over three passes of
                ZOO_MC_BATCHES batches; launch counters reset just before these
                arms and read just after (all six kernels must launch);
                every arm card against CPU, and every single-chip arm's
@@ -183,7 +194,7 @@ Phases, each fatal on failure:
                on 4 pipe positions (f32 and bf16) beside CtrDnn; MMoE on 4
                expert positions beside the serial bank; MMoE and the ring
                LongSeqCtrDnn on composed 4 x 2 meshes of the hybrid world
-               over four passes of ZOO_MC_BATCHES batches beside data-only
+               over three passes of ZOO_MC_BATCHES batches beside data-only
                runs (counters bit-equal,
                loss within 5e-3, AUC within 2e-2); launch counters reset
                before these arms and read after (all six kernels must
@@ -220,7 +231,38 @@ Phases, each fatal on failure:
                table behind /retrieve.  Export seconds and bytes, load
                seconds, predict ms by part, requests/s with p50 and p99,
                queries/s.
- 9c. online — the online loop (online) on the slice world with the
+ 9c. fleet  — the serving fleet (fleet_spawn before the scenarios phase,
+               so the replicas start beside it, then fleet): ``python -m
+               paddlebox_tpu_torch.serve --replicas FLEET_REPLICAS`` on
+               the card over the serving phase's fp32 slice artifact, each
+               replica's start time; the router's /score replies to the
+               serving phase's requests of SERVE_INS lines within
+               SERVE_RTOL / SERVE_ATOL of the card Predictor's scores, from
+               both replicas; requests/s, p50 and p99 through the router
+               and straight to a replica at 1 and 8 clients, beside the
+               serving phase's direct server; a replica SIGKILLed while
+               FLEET_CLIENTS clients send: no request fails, the
+               supervisor restarts the victim and the router fails over
+               and readmits it; a SIGTERM stops the fleet and its
+               replicas.  Beside it an in-process supervisor of one
+               replica under deterministic algorithms: the autoscaler's
+               scale_up (during the chaos), replies from both replicas
+               bit-equal to the card Predictor's under deterministic
+               algorithms, one drained scale_down.
+ 9d. scenarios — at the slice's width on the card (scenarios): (a) a
+               MultiScenarioTrainer of a CtrDnn ranker (bench widths) and
+               TwoTower retrieval (parallel_axes' widths) over one default
+               table, 2 passes of SCEN_BATCHES batches a scenario (every
+               step launches pull_rows and scatter_add_rows), and card
+               against CPU over 1 batch a scenario; (b) the day loop's
+               TwoPhaseTrainer (join over half the slots, then update) over
+               2 passes, scan_steps GRAPH_K as a CUDA graph a phase
+               bit-equal to eager steps under deterministic algorithms,
+               card against CPU over 1 batch, and once with mesh= on
+               POSITIONS positions; (c) AucRunner over 2 slot groups on a
+               Zipf set's first file, the update tower and table trained a
+               pass, per-group AUC and delta card against CPU.
+ 9e. online — the online loop (online) on the slice world with the
                default cache: (a) under deterministic algorithms the
                mini-pass replay of the first 2 windows (8 batches each, cut
                by count) equals one pass over the same records bit for bit
@@ -311,8 +353,9 @@ POSITIONS, HOT_CAPACITY, HYBRID_PASSES = 4, 4096, 4
 ZIPF_SETS = max(CACHED_PASSES, HYBRID_PASSES)
 # Depth cut since the serving phase: the hash placement beside the hybrid
 # one (timed, and deterministic for the loss difference) over the first
-# HASH_PASSES Zipf sets (4 and 3 before)
-HASH_PASSES = 2
+# HASH_PASSES Zipf sets (4 and 3 before; 2 before the fleet and scenarios
+# phases)
+HASH_PASSES = 1
 
 # The step policies: scan_steps GRAPH_K (a CUDA graph of 8 steps) on the
 # uncached slice world, against eager steps over GRAPH_PASSES Zipf sets,
@@ -322,13 +365,15 @@ HASH_PASSES = 2
 # one), the compute dtypes and SGD card against CPU over
 # POLICY_CPU_BATCHES; the slot policy over the first SLOT_BATCHES batches
 # of three Zipf sets (2 step groups of the 4 positions a pass).
-GRAPH_K, GRAPH_PASSES, STEP_MS_BATCHES = 8, 2, 24
+# (GRAPH_PASSES 1 since the fleet and scenarios phases, 2 before)
+GRAPH_K, GRAPH_PASSES, STEP_MS_BATCHES = 8, 1, 24
 # Depth cuts since the multiprocess phase: the stage breakdown, the feed
 # turns and graph_steps' eager and graph turns over the first
 # TURN_BATCHES batches of the uncached set (all 98 before it, 49 before
 # the online phase); since the online phase graph_steps' synchronized ms
-# a step over STEP_MS_BATCHES (48 before)
-TURN_BATCHES = 32
+# a step over STEP_MS_BATCHES (48 before); since the fleet and scenarios
+# phases 24 (32 before)
+TURN_BATCHES = 24
 POLICY_BATCHES, POLICY_CPU_BATCHES, SLOT_BATCHES = 16, 2, 8
 # Depth cut since the online phase: the sharded cached path against the
 # CPU over the first CPU_AGREE_BATCHES batches of each Zipf set (2 step
@@ -1012,7 +1057,9 @@ def slice_serial_turn(ds, overlapped: list) -> None:
     saved = dict(sk.launches)
     _, table, trainer = make_world(N_SLOTS, DENSE, BATCH, EMB, HIDDEN, "cuda",
                                    KEY_CAPACITY, overlap=False)
-    serial = run_passes(ds, table, trainer, PASSES)
+    # depth cut since the fleet and scenarios phases: the serial turn over
+    # the first pass (PASSES before)
+    serial = run_passes(ds, table, trainer, 1)
     staged_as_expected(table, serial)
     sk.launches.update(saved)  # not main-path launches
     table.close()
@@ -2098,6 +2145,10 @@ def cpu_agreement(datasets) -> None:
         f"{err!r} (CPU run {secs!r} s)")
 
 
+def _rs_metrics(m: dict) -> list:
+    return [m["loss"], m["auc"], m["count"], m["steps"]]
+
+
 def reshard_check(sharded: dict) -> None:
     """Under deterministic algorithms, the trained deterministic sharded
     cached table of POSITIONS shards reshards live to 2 at the pass
@@ -2125,6 +2176,9 @@ def reshard_check(sharded: dict) -> None:
     saved = dict(sk.launches)
     live, trainer = sharded["table"], sharded["trainer"]
     datasets = sharded["datasets"]
+    # the one-process run of the multiprocess phase's arm (b): per reshard
+    # the live pass's metrics and the table's state after it
+    sharded["reshard_runs"] = runs = []
     tconf = live.conf
     built = sorted(cuda_build.build_log)
 
@@ -2161,6 +2215,8 @@ def reshard_check(sharded: dict) -> None:
                 raise AssertionError(f"live reshard {n_old} -> {n_new} and "
                                      "the rebuilt table trained differently")
             rebuilt.close()
+            runs.append({"moved": moved, "metrics": _rs_metrics(lv["metrics"]),
+                         "state": sa})
             log(f"reshard {n_old} -> {n_new}: {moved} rows moved in "
                 f"{secs!r} s; the next pass on {n_new} positions bit-equal "
                 f"to a table rebuilt from state_dict ({sa['keys'].shape[0]} "
@@ -2182,7 +2238,9 @@ def reshard_check(sharded: dict) -> None:
 # liveness deadline over the first MP_STALL_BATCHES batches of the first
 # set, whose first step rank 1 freezes; arm (b): 1 rank of 4 positions
 # through the process-group path on NCCL, over the first MP_NCCL_PASSES
-MP_RANKS, MP_NCCL_PASSES, MP_DEADLINE_S, MP_STALL_BATCHES = 2, 2, 5.0, 8
+# (depth cut since the fleet and scenarios phases: arm (b) over 1 pass, 2
+# before)
+MP_RANKS, MP_NCCL_PASSES, MP_DEADLINE_S, MP_STALL_BATCHES = 2, 1, 5.0, 8
 # the time limit of one launched job (its ranks' start, build check, data
 # load and passes)
 MP_JOB_TIMEOUT_S = 300.0
@@ -2311,8 +2369,114 @@ def rank_train(out_dir: str, spec: dict) -> None:
             "backend": job.backend, "host_staged": job.host_staged,
             "times": times,
         }, f)
+    if spec.get("shuffle"):
+        rank_shuffle(out_dir, spec["shuffle"], job)
+    if spec.get("reshard"):
+        trainer = rank_reshard(out_dir, table, trainer, datasets, job)
     if spec.get("stall"):
         rank_stall(out_dir, table, trainer, datasets[0])
+
+
+def rank_shuffle(out_dir: str, files: list, job) -> None:
+    """Arm (f) in a rank of arm (a)'s job: this rank's half of ``files``
+    (the data half's logkey set) loads through a TcpShuffler on loopback,
+    by search_id; the ranks publish their listeners' ports through the
+    job's store (a KvChannel gather) first.  Then global_shuffle.  Writes
+    shuffle<r>.bin (the exchanged block) and shuffle<r>.json (bytes and
+    seconds)."""
+    import numpy as np
+
+    from paddlebox_tpu_torch import telemetry
+    from paddlebox_tpu_torch.data.archive import block_to_bytes
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.shuffle import TcpShuffler
+    from paddlebox_tpu_torch.parallel.host_plane import KvChannel
+
+    mine = files[job.rank::job.world]
+    sh = TcpShuffler([("127.0.0.1", 0)] * job.world, job.rank,
+                     mode="search_id", seed=0)
+    sh.start()
+    ports = KvChannel("shuffle-endpoints").allgather(
+        np.array([sh.bound_port()], np.int64))
+    sh.endpoints = [("127.0.0.1", int(p)) for p in ports[:, 0]]
+    ds = PadBoxSlotDataset(data_conf(), read_threads=len(mine))
+    ds.set_filelist(mine)
+    ds.shuffler = sh
+    t0 = time.perf_counter()
+    try:
+        ds.preload_into_memory()
+        ds.wait_preload_done()
+    finally:
+        sh.close()
+    load_s = time.perf_counter() - t0
+    ds.global_shuffle(seed=0)
+    with open(os.path.join(out_dir, f"shuffle{job.rank}.bin"), "wb") as f:
+        f.write(block_to_bytes(ds._block))
+    bh = telemetry.registry.get("shuffle.exchange_bytes")
+    sec = telemetry.registry.get("shuffle.exchange_seconds")
+    w = str(job.rank)
+    with open(os.path.join(out_dir, f"shuffle{job.rank}.json"), "w") as f:
+        json.dump({"load_s": load_s, "n_ins": ds._block.n_ins,
+                   "raw_bytes": bh.summary(worker=w, kind="raw")["sum"],
+                   "wire_bytes": bh.summary(worker=w, kind="encoded")["sum"],
+                   "exchange_s": sec.summary(worker=w)["sum"]}, f)
+    ds.close()
+
+
+def rank_reshard(out_dir: str, table, trainer, datasets: list, job):
+    """Arm (g) in a rank of arm (a)'s job, under deterministic algorithms:
+    reshard_check's schedule across the ranks: the trained table resharded
+    live from POSITIONS to 2 positions (one a rank), the first
+    RESHARD_BATCHES batches of the fourth set trained, then back to
+    POSITIONS over the first set's, each pass on a new trainer continuing
+    the dense state.  Writes reshard<r>.json (per reshard the local rows
+    moved, the seconds, the channel bytes, the metrics) and
+    reshard<r>-<i>.npz (the store after each pass); returns the last
+    trainer."""
+    import copy
+    import itertools
+
+    import numpy as np
+
+    from paddlebox_tpu_torch import telemetry
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.parallel import MultiChipTrainer, make_mesh
+
+    tconf = table.conf
+    out = []
+    for i, (n_new, full) in enumerate(((2, datasets[3]),
+                                       (POSITIONS, datasets[0]))):
+        mesh = make_mesh(n_new, device="cuda")
+        dense = copy.deepcopy(trainer.dense_state())
+        bh = telemetry.registry.get("hostplane.gather_bytes")
+        before = (bh.summary(channel="reshard", kind="encoded")["sum"]
+                  if bh else 0.0)
+        moved = table.reshard(mesh)
+        bh = telemetry.registry.get("hostplane.gather_bytes")
+        sent = bh.summary(channel="reshard", kind="encoded")["sum"] - before
+        model = CtrDnn(N_SLOTS, tconf.row_width, dense_dim=DENSE,
+                       hidden=HIDDEN, seed=0, device="cuda")
+        trainer = MultiChipTrainer(model, tconf, mesh, trainer.conf)
+        trainer.load_dense_state(*dense)
+        batches = list(itertools.islice(full.batches(), RESHARD_BATCHES))
+        groups = []
+        for g in range(0, len(batches), n_new):
+            groups.append(batches[g:g + n_new][
+                job.rank * mesh.n_local:(job.rank + 1) * mesh.n_local])
+        census = np.unique(np.concatenate(
+            [b.keys[: b.n_keys] for g in groups for b in g]))
+        table.begin_pass(census)
+        m = trainer.train_groups(table, iter(groups))
+        table.end_pass()
+        state = table.state_dict()
+        np.savez(os.path.join(out_dir, f"reshard{job.rank}-{i}.npz"),
+                 keys=state["keys"], values=state["values"])
+        out.append({"n_new": n_new, "moved": moved,
+                    "seconds": table.last_reshard_s, "channel_bytes": sent,
+                    "metrics": _rs_metrics(m)})
+    with open(os.path.join(out_dir, f"reshard{job.rank}.json"), "w") as f:
+        json.dump(out, f)
+    return trainer
 
 
 def rank_stall(out_dir: str, table, trainer, ds) -> None:
@@ -2481,12 +2645,13 @@ def _report_train_job(label: str, ranks: list, ref: dict, card: str,
                 f"{st['count']}" for s, st in rep["stages"].items()))
 
 
-def multiprocess(sharded: dict, files: list) -> None:
+def multiprocess(sharded: dict, files: list, logkey_files: list) -> None:
     """The multi-process plane on the card (module docstring, phase
     multiprocess): arm (a) gloo 2 x 2 on one card and, in the same job,
-    arm (d) liveness; arm (e) the fleet view of arm (a); arm (b) NCCL at
-    world 1; arm (c) NCCL across cards (needs 2 cards).  Every job's ranks
-    are this script's rank program."""
+    arm (f) the TCP shuffle of ``logkey_files``, arm (g) the live reshard
+    across the ranks and arm (d) liveness; arm (e) the fleet view of arm
+    (a); arm (b) NCCL at world 1; arm (c) NCCL across cards (needs 2
+    cards).  Every job's ranks are this script's rank program."""
     import torch
 
     from paddlebox_tpu_torch.ops import sparse_kernels as sk
@@ -2503,7 +2668,8 @@ def multiprocess(sharded: dict, files: list) -> None:
     # then (d) in the same job: rank 1 freezes its first step
     try:
         rc, out, secs, logs, t_wall = _run_job(
-            "gloo", {"passes": files, "stall": True}, MP_RANKS, "gloo")
+            "gloo", {"passes": files, "stall": True, "reshard": True,
+                     "shuffle": logkey_files}, MP_RANKS, "gloo")
     finally:
         open(go_file, "w").close()
     if rc != 7:
@@ -2542,14 +2708,17 @@ def multiprocess(sharded: dict, files: list) -> None:
         f"{[g['t_abort'] - g['t_start'] for g in got]} s after their pass "
         f"began (deadline {MP_DEADLINE_S} s)")
     # (e) the fleet view: rank 0 printed the merged view at every pass end
+    # (arm (a)'s passes and arm (g)'s two)
     views = [ln for ln in logs[0].splitlines()
              if ln.startswith("[fleet pass step=")]
-    if len(views) != len(files) or not all(
+    if len(views) != len(files) + 2 or not all(
             f"world={MP_RANKS}" in v for v in views):
         raise AssertionError(f"arm (e): rank 0 logged {len(views)} fleet "
-                             f"views for {len(files)} passes")
+                             f"views for {len(files) + 2} passes")
     log(f"multiprocess arm (e): rank 0's fleet view at each pass end, the "
         f"last: {views[-1][:600]}")
+    mp_shuffle_check(out, logkey_files, card)
+    mp_reshard_check(out, sharded["reshard_runs"], card)
     # (b) NCCL at world 1: the process-group path, one rank of 4 positions
     b_thread.join(MP_JOB_TIMEOUT_S)
     if not b_box:
@@ -2579,6 +2748,109 @@ def multiprocess(sharded: dict, files: list) -> None:
     else:
         log(f"multiprocess arm (c): not run: NCCL across cards needs 2 cards "
             f"and this machine has {n_cards}; unverified")
+
+
+def mp_shuffle_check(out: str, files: list, card: str) -> None:
+    """Arm (f): the two ranks' shuffled blocks hold every input record once
+    (by ins_id), each where route_ids sends it, and each rank's block is
+    bit-equal, record for record, to what an InProcessShuffleGroup of the
+    same mode and seed gives that worker (the TCP block puts a worker's own
+    part first, the group's in sender order: compared in ins_id order)."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.data.archive import block_from_bytes
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.shuffle import InProcessShuffleGroup, route_ids
+
+    got = [block_from_bytes(open(os.path.join(out, f"shuffle{r}.bin"),
+                                 "rb").read()) for r in range(MP_RANKS)]
+    stats = [json.load(open(os.path.join(out, f"shuffle{r}.json")))
+             for r in range(MP_RANKS)]
+    group = InProcessShuffleGroup(MP_RANKS, mode="search_id", seed=0)
+    dss = []
+    for w in range(MP_RANKS):
+        d = PadBoxSlotDataset(data_conf(), read_threads=2)
+        d.set_filelist(files[w::MP_RANKS])
+        d.shuffler = group.shuffler(w)
+        d.preload_into_memory()
+        dss.append(d)
+    for d in dss:
+        d.wait_preload_done()
+    whole = load_logkey(files)
+    dest = dict(zip(whole.ins_ids, route_ids(whole, MP_RANKS).tolist()))
+    seen = []
+    for w, (g, d) in enumerate(zip(got, dss)):
+        want = d._block
+        og, ow = np.argsort(g.ins_ids), np.argsort(want.ins_ids)
+        if not _block_meta_equal(g.select(og), want.select(ow)):
+            raise AssertionError(f"multiprocess arm (f): rank {w}'s TCP "
+                                 "block differs from the in-process group's")
+        if any(dest[i] != w for i in g.ins_ids):
+            raise AssertionError(f"multiprocess arm (f): rank {w} holds "
+                                 "records routed elsewhere")
+        seen += g.ins_ids
+        d.close()
+    if sorted(seen) != sorted(whole.ins_ids):
+        raise AssertionError("multiprocess arm (f): the shuffle lost or "
+                             "duplicated records")
+    log(f"multiprocess arm (f): {len(files)} logkey files, half a rank, "
+        f"through TcpShufflers on loopback by search_id: blocks of "
+        f"{[s['n_ins'] for s in stats]} records, bit-equal to the "
+        f"in-process group's, their union the input; exchange bytes raw "
+        f"{[s['raw_bytes'] for s in stats]} / on the wire "
+        f"{[s['wire_bytes'] for s in stats]}, exchange s "
+        f"{[s['exchange_s'] for s in stats]}, load with the exchange s "
+        f"{[s['load_s'] for s in stats]} [{card}]")
+
+
+def load_logkey(files):
+    """The data half's records of ``files`` in one block (its load)."""
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+
+    d = PadBoxSlotDataset(data_conf(), read_threads=len(files))
+    d.set_filelist(files)
+    d.load_into_memory()
+    block = d._block
+    d.close()
+    return block
+
+
+def mp_reshard_check(out: str, runs: list, card: str) -> None:
+    """Arm (g): at each of reshard_check's two reshards across the ranks,
+    both ranks' pass metrics equal the one-process live reshard's, the
+    union of their stores is its store bit for bit, and their rows moved
+    add up to its."""
+    import numpy as np
+
+    reps = [json.load(open(os.path.join(out, f"reshard{r}.json")))
+            for r in range(MP_RANKS)]
+    for i, want in enumerate(runs):
+        for r, rep in enumerate(reps):
+            if rep[i]["metrics"] != want["metrics"]:
+                raise AssertionError(
+                    f"multiprocess arm (g) reshard {i}: rank {r}'s pass "
+                    f"{rep[i]['metrics']} vs one process {want['metrics']}")
+        if sum(rep[i]["moved"] for rep in reps) != want["moved"]:
+            raise AssertionError(f"multiprocess arm (g) reshard {i}: rows "
+                                 "moved differ from one process's")
+        zs = [np.load(os.path.join(out, f"reshard{r}-{i}.npz"))
+              for r in range(MP_RANKS)]
+        keys = np.concatenate([z["keys"] for z in zs])
+        vals = np.concatenate([z["values"] for z in zs])
+        order = np.argsort(keys)
+        if (np.unique(keys).shape[0] != keys.shape[0]
+                or not np.array_equal(keys[order], want["state"]["keys"])
+                or not np.array_equal(vals[order], want["state"]["values"])):
+            raise AssertionError(f"multiprocess arm (g) reshard {i}: the "
+                                 "union of the ranks' stores differs")
+        log(f"multiprocess arm (g) reshard {POSITIONS if i else 2} <- "
+            f"{2 if i else POSITIONS} positions across {MP_RANKS} ranks: "
+            f"rows moved {[rep[i]['moved'] for rep in reps]} (one process "
+            f"{want['moved']}), KvChannel bytes sent "
+            f"{[rep[i]['channel_bytes'] for rep in reps]}, last_reshard_s "
+            f"{[rep[i]['seconds'] for rep in reps]}; the next pass's metrics "
+            f"and the union of the stores ({keys.shape[0]} rows) bit-equal "
+            f"to one process [{card}]")
 
 
 def dense_sync_agreement() -> None:
@@ -2646,8 +2918,9 @@ def dense_sync_agreement() -> None:
 
 def dense_sync_full(datasets) -> None:
     """The three dense-sync modes at the hybrid world's full width with
-    the per-shard caches on (sync_weight_step 4), two passes each over the
-    first two Zipf sets, one after another for an in-call comparison of
+    the per-shard caches on (sync_weight_step 4), one pass each over the
+    first Zipf set (two before the fleet and scenarios phases), one after
+    another for an in-call comparison of
     samples/s: finite losses; "kstep"'s position copies and their Adam
     states equal after its last sync, with every copy's step count equal
     to the steps taken; "async"'s gradients all applied after the
@@ -3756,6 +4029,11 @@ ZOO_LOGKEY_FILES = 2
 # before: 32 Zipf, 25 logkey)
 ZOO_GRAPH_BATCHES, ZOO_CPU_BATCHES, ZOO_MC_BATCHES = 2 * GRAPH_K, 1, 8
 ZOO_ARM_BATCHES = 16
+# Depth cut since the fleet and scenarios phases: the zoo's and the axes'
+# multi-chip and composed arms over MC_ARM_PASSES passes (HYBRID_PASSES
+# before); the hot block realizes at the third begin_pass, so the last pass
+# still routes hot occurrences
+MC_ARM_PASSES = 3
 # the card against the CPU trains the dense side with SGD at this rate:
 # Adam divides each gradient by its own magnitude, so a gradient that
 # cancels to near zero (DeepFM's 400-wide layers) moves its parameter by
@@ -4019,7 +4297,7 @@ def zoo_multichip(sources: dict, composed: bool = False,
                   label: str = "zoo") -> dict:
     """Each entry of ``sources`` (name -> (dataset, batches)) on the
     hybrid world (zoo_mc_world; ``composed``: on its composed mesh),
-    HYBRID_PASSES passes over the first batches of its set, the streams
+    MC_ARM_PASSES passes over the first batches of its set, the streams
     continued: the hot block realizes at the third begin_pass and routes
     through hot_cold_select.  Returns name -> (per pass, table state)."""
     import itertools
@@ -4029,7 +4307,7 @@ def zoo_multichip(sources: dict, composed: bool = False,
         t0 = time.perf_counter()
         data = _Batches(itertools.islice(src.batches(), n))
         table, trainer = zoo_mc_world(name, "cuda", composed=composed)
-        per_pass = drive_hybrid([data] * HYBRID_PASSES, table, trainer)
+        per_pass = drive_hybrid([data] * MC_ARM_PASSES, table, trainer)
         out[name] = (per_pass, table.state_dict())
         table.close()
         for p, r in enumerate(per_pass):
@@ -4789,7 +5067,7 @@ def _rate_line(label: str, n: int, lat: list, wall: float) -> str:
             f"{float(np.percentile(lat, 99)) * 1e3!r} ms over {n}")
 
 
-def serving(res, ds, axes) -> None:
+def serving(res, ds, axes) -> dict:
     """The serving plane at the slice's width: the slice pass's trained
     uncached table (1 570 824 keys) and tower exported in fp32, int8 and
     fp8 with a second bucket SERVE_BUCKET; the launch counters reset, every
@@ -4937,6 +5215,9 @@ def serving(res, ds, axes) -> None:
     server.register("ctr", dirs["fp32"])
     want = [server.score_lines(body) for body in bodies]
     port = server.start(port=0)
+    # the fleet phase's inputs: the fp32 artifact, these requests and this
+    # direct server's rates
+    fleet_in = {"art": dirs["fp32"], "bodies": bodies, "rates": {}}
     try:
         _load_test(port, bodies[:8], 1)  # warm-up
         for clients in (1, SERVE_CLIENTS):
@@ -4944,9 +5225,10 @@ def serving(res, ds, axes) -> None:
             for o, w in zip(out, want):
                 np.testing.assert_allclose(o["scores"], w, rtol=SERVE_RTOL,
                                            atol=SERVE_ATOL)
-            log(_rate_line(f"serve /score, {clients} client(s), "
-                           f"{SERVE_INS} instances a request", len(bodies),
-                           lat, wall) + "; equal to predict")
+            fleet_in["rates"][clients] = _rate_line(
+                f"serve /score, {clients} client(s), {SERVE_INS} instances "
+                "a request", len(bodies), lat, wall)
+            log(fleet_in["rates"][clients] + "; equal to predict")
     finally:
         server.stop()
 
@@ -4993,6 +5275,697 @@ def serving(res, ds, axes) -> None:
             raise AssertionError(f"int8 recall@10 {recall} < 0.95")
     finally:
         server.stop()
+    return fleet_in
+
+
+# --------------------------------------------------------------------------- #
+# phase 8d: the serving fleet
+# --------------------------------------------------------------------------- #
+# FLEET_REPLICAS replicas of ``python -m paddlebox_tpu_torch.serve`` on the
+# card behind the router; the chaos run's clients; the waits; the timed
+# requests (the first of the serving phase's)
+FLEET_REPLICAS, FLEET_CLIENTS, FLEET_WAIT_S = 2, 8, 180.0
+FLEET_REQUESTS = 120
+
+
+def _healthz(addr: str) -> bool:
+    import http.client
+
+    host, _, port = addr.rpartition(":")
+    try:
+        conn = http.client.HTTPConnection(host, int(port), timeout=2)
+        try:
+            conn.request("GET", "/healthz")
+            return conn.getresponse().status == 200
+        finally:
+            conn.close()
+    except OSError:
+        return False
+
+
+def _get_json(port: int, path: str) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", path)
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def _watch_up(targets) -> tuple:
+    """({name: seconds from its t0 to its first /healthz 200}, the thread
+    that fills it): ``targets`` is a dict {name: (address, t0)}, or a
+    callable that returns one (it may block until the addresses are
+    known).  The thread polls while the caller does other work, and ends
+    once every target is up or after FLEET_WAIT_S."""
+    import threading
+
+    out: dict = {}
+
+    def run():
+        end = time.monotonic() + FLEET_WAIT_S
+        todo = targets() if callable(targets) else targets
+        while len(out) < len(todo) and time.monotonic() < end:
+            for name, (addr, t0) in todo.items():
+                if name not in out and _healthz(addr):
+                    out[name] = time.monotonic() - t0
+            time.sleep(0.05)
+
+    th = threading.Thread(target=run, daemon=True, name="fleet-up")
+    th.start()
+    return out, th
+
+
+def _up(watch: tuple, n: int, what: str, tails) -> dict:
+    out, th = watch
+    th.join(FLEET_WAIT_S + 10)
+    if len(out) < n:
+        raise AssertionError(f"fleet: {what}: only {out} up after "
+                             f"{FLEET_WAIT_S} s\n{tails()}")
+    return out
+
+
+def _failovers(port: int) -> float:
+    """The router's fleet.failovers count, from its /metrics."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", "/metrics")
+        text = conn.getresponse().read().decode()
+    finally:
+        conn.close()
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.split("{")[0].split(" ")[0].endswith(
+                   "fleet_failovers_total"))
+
+
+def _children(pid: int) -> set:
+    """The live (not zombie) child processes of ``pid``, from /proc."""
+    out = set()
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, IndexError):
+            continue
+        if int(ppid) == pid and state != "Z":
+            out.add(int(d))
+    return out
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+# a replica of the in-process fleet: the serve module run as ``python -m``
+# runs it (runpy), under deterministic algorithms, so its scores are
+# bit-equal to a Predictor's in this process under them (the pooling's
+# index_add otherwise adds in a varying order)
+_DET_SERVE = ("import runpy, sys, torch; "
+              "torch.use_deterministic_algorithms(True); "
+              "sys.argv[0] = 'paddlebox_tpu_torch.serve'; "
+              "runpy.run_module('paddlebox_tpu_torch.serve', "
+              "run_name='__main__', alter_sys=True)")
+
+
+def fleet_spawn(fleet_in: dict) -> dict:
+    """Start the fleet phase's processes, so the replicas start (import,
+    CUDA, artifact load) while the scenarios phase runs:
+
+      * the fleet itself, ``python -m paddlebox_tpu_torch.serve --artifact
+        ctr=<the serving phase's fp32 slice artifact> --replicas
+        FLEET_REPLICAS --router-port 0``: a process whose supervisor starts
+        the replicas on the card behind its router; a thread reads its
+        output for the router's line;
+      * an in-process ReplicaSupervisor of one replica under deterministic
+        algorithms behind a FleetRouter, for the autoscaler's steps and
+        the bit-equality with a Predictor.
+
+    The handles go to _FLEETS, which main stops whatever happens."""
+    import re
+    import threading
+
+    from paddlebox_tpu_torch import serve
+    from paddlebox_tpu_torch.serving_fleet import FleetRouter, ReplicaSupervisor
+
+    logs = os.path.join(WORK_DIR, "fleet-logs")
+    det_logs = os.path.join(WORK_DIR, "fleet-det-logs")
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddlebox_tpu_torch.serve", "--artifact",
+         f"ctr={fleet_in['art']}", "--replicas", str(FLEET_REPLICAS),
+         "--router-port", "0", "--log-dir", logs],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    _FLEETS.append(proc)
+    lines: list = []
+    found: dict = {}
+    ready = threading.Event()
+    pat = re.compile(r"fleet router on http://[^ ]*:(\d+)/score "
+                     r"\(\d+ replicas: ([^),]+(?:, [^),]+)*)")
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            m = pat.search(line)
+            if m and not ready.is_set():
+                found["port"] = int(m.group(1))
+                found["addrs"] = [a for a in m.group(2).split(", ")
+                                  if a != "autoscaling"]
+                ready.set()
+        ready.set()  # the fleet exited: the waiters see no port
+
+    threading.Thread(target=read, daemon=True, name="fleet-out").start()
+
+    def targets():
+        ready.wait(FLEET_WAIT_S)
+        return {i: (a, t0) for i, a in enumerate(found.get("addrs", []))}
+
+    args = serve._build_parser().parse_args(
+        ["--artifact", f"ctr={fleet_in['art']}", "--replicas", "1",
+         "--log-dir", det_logs])
+    sup = ReplicaSupervisor(
+        1, lambda rid, p: [sys.executable, "-c", _DET_SERVE,
+                           *serve._replica_argv(args, rid, p)[3:]],
+        log_dir=det_logs)
+    sup.start()
+    router = FleetRouter(sup.endpoints())
+    _FLEETS.append((router, sup))
+    return {"proc": proc, "lines": lines, "found": found, "ready": ready,
+            "logs": logs, "det_logs": det_logs, "up": _watch_up(targets),
+            "sup": sup, "router": router, "det_port": router.start(port=0),
+            "det_up": _watch_up({0: (f"{sup.host}:{sup.replicas[0].port}",
+                                     sup.replicas[0].started_at)})}
+
+
+# the fleets main must stop: serve processes and (router, supervisor) pairs
+_FLEETS: list = []
+
+
+def _await_serving(n: int, what: str, view) -> None:
+    """Until ``view()`` (a router's fleet view, or its /healthz) counts n
+    serving replicas."""
+    end = time.monotonic() + FLEET_WAIT_S
+    while view()["n_serving"] != n:
+        if time.monotonic() > end:
+            raise AssertionError(f"fleet: {what}: {view()}")
+        time.sleep(0.1)
+
+
+def _fleet_clients(port: int, bodies: list) -> tuple:
+    """FLEET_CLIENTS threads posting ``bodies`` to /score until stopped:
+    (stop event, threads, failures, [requests that succeeded])."""
+    import threading
+
+    stop, bad, n_ok = threading.Event(), [], [0]
+
+    def client(c):
+        i = c
+        while not stop.is_set():
+            try:
+                data, _ = _post(port, "/score", bodies[i % len(bodies)])
+                if len(data["scores"]) != SERVE_INS:
+                    bad.append("short reply")
+                n_ok[0] += 1
+            except Exception as e:  # counted: none may fail
+                bad.append(repr(e)[:200])
+            i += FLEET_CLIENTS
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(FLEET_CLIENTS)]
+    for t in threads:
+        t.start()
+    return stop, threads, bad, n_ok
+
+
+def fleet(fleet_in: dict, started: dict, card: str) -> None:
+    """The serving fleet on the card, started by fleet_spawn before the
+    scenarios phase.
+
+    The fleet, ``python -m paddlebox_tpu_torch.serve --replicas``: each
+    replica's start (the fleet's spawn to the replica's first /healthz
+    200, beside the scenarios phase); the router's /score replies to the
+    serving phase's requests of SERVE_INS lines, from both replicas,
+    within SERVE_RTOL / SERVE_ATOL of the card Predictor's scores (the
+    replicas run as a user runs them, without deterministic algorithms);
+    requests/s, p50 and p99 through the router and straight to one
+    replica at 1 and SERVE_CLIENTS clients (the router's hop), beside the
+    serving phase's direct server; FLEET_CLIENTS clients send while a
+    replica (a child of the fleet process) is SIGKILLed: no request
+    fails, the supervisor restarts it and the router fails over and
+    readmits it; then a SIGTERM stops the fleet and no replica outlives
+    it.
+
+    The in-process fleet (deterministic replicas), meanwhile: the
+    autoscaler's scale_up starts a second replica while the chaos runs;
+    the replies from both are bit-equal to the card Predictor's under
+    deterministic algorithms; then one drained scale_down."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from paddlebox_tpu_torch.inference import ScoringServer
+    from paddlebox_tpu_torch.serving_fleet import (
+        AutoscalerConfig,
+        FleetAutoscaler,
+    )
+
+    bodies = fleet_in["bodies"]
+    proc, sup, router = started["proc"], started["sup"], started["router"]
+    det_port = started["det_port"]
+    t_ph, marks = time.monotonic(), []
+
+    def mark(label):
+        marks.append(f"{label} {time.monotonic() - t_ph:.2f}")
+
+    one = ScoringServer()
+    one.register("ctr", fleet_in["art"])
+    want = [one.score_lines(b) for b in bodies[:FLEET_REQUESTS]]
+    torch.use_deterministic_algorithms(True)
+    try:
+        det_want = [one.score_lines(b) for b in bodies[:16]]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    mark("predictor")
+
+    def tails() -> str:
+        out = ["--- serve --replicas output ---\n"
+               + "".join(started["lines"])[-2000:]]
+        for d in (started["logs"], started["det_logs"]):
+            if os.path.isdir(d):
+                out += [f"--- {f} ---\n" + open(os.path.join(d, f),
+                        errors="replace").read()[-2000:]
+                        for f in sorted(os.listdir(d))]
+        return "\n".join(out)
+
+    def close(got, ref, what):
+        for o, w in zip(got, ref):
+            np.testing.assert_allclose(o["scores"], w, rtol=SERVE_RTOL,
+                                       atol=SERVE_ATOL, err_msg=what)
+
+    def replies(port, n, ref, exact):
+        """n requests one at a time: (their replicas, each equal to ref)."""
+        import http.client
+
+        served = set()
+        for body, w in zip(bodies[:n], ref):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("POST", "/score", body=body)
+            r = conn.getresponse()
+            data = json.loads(r.read())
+            served.add(r.getheader("X-PBox-Replica"))
+            conn.close()
+            if r.status != 200:
+                raise AssertionError(f"fleet: {r.status} {data}")
+            if exact and data["scores"] != w:
+                raise AssertionError("fleet: a routed reply differs from "
+                                     "the card Predictor's scores")
+            if not exact:
+                close([data], [w], "fleet: a routed reply")
+        return served
+
+    try:
+        try:
+            if not started["ready"].wait(FLEET_WAIT_S) or \
+                    "port" not in started["found"]:
+                raise AssertionError("fleet: no router line")
+            port, addrs = started["found"]["port"], started["found"]["addrs"]
+            up = _up(started["up"], FLEET_REPLICAS, "the start", tails)
+            _await_serving(FLEET_REPLICAS, "the start",
+                           lambda: _get_json(port, "/healthz"))
+            _up(started["det_up"], 1, "the in-process replica", tails)
+        except (AssertionError, OSError) as e:
+            raise AssertionError(f"{e}\n{tails()}")
+        starts = [up[i] for i in range(FLEET_REPLICAS)]
+        mark("up")
+        log(f"fleet: python -m paddlebox_tpu_torch.serve --replicas "
+            f"{FLEET_REPLICAS} on the card, router on {port}, replicas "
+            f"{addrs}, each up (the fleet's spawn to the replica's first "
+            f"/healthz 200: the fleet's import, the replica's import, CUDA "
+            f"start, artifact load; beside the scenarios phase) in {starts} "
+            f"s [{card}]")
+        served = replies(port, 16, want, exact=False)
+        if len(served) != FLEET_REPLICAS:
+            raise AssertionError(f"fleet: replies came from {served}")
+        log(f"fleet: 16 requests of {SERVE_INS} lines through the router "
+            f"within rtol {SERVE_RTOL} / atol {SERVE_ATOL} of the card "
+            f"Predictor's scores, from replicas {sorted(served)}")
+        p0 = int(addrs[0].rpartition(":")[2])
+        for p in (port, p0):
+            _load_test(p, bodies[:8], 1)  # warm-up
+        timed = bodies[:FLEET_REQUESTS]
+        for clients in (1, SERVE_CLIENTS):
+            for label, p in (("through the router", port),
+                             ("straight to replica 0", p0)):
+                out, lat, wall = _load_test(p, timed, clients)
+                close(out, want, f"fleet /score {label}")
+                log(_rate_line(f"fleet /score {label}, {clients} "
+                               f"client(s), {SERVE_INS} instances a request",
+                               len(timed), lat, wall) + f" [{card}]")
+            log(f"fleet: the serving phase's direct server (no fleet): "
+                f"{fleet_in['rates'][clients]}")
+        mark("rates")
+        # chaos: SIGKILL a replica of the fleet under FLEET_CLIENTS clients
+        # while the in-process autoscaler adds a replica
+        pids = _children(proc.pid)
+        if len(pids) != FLEET_REPLICAS:
+            raise AssertionError(f"fleet: replica processes {pids}")
+        scaler = FleetAutoscaler(sup, router, AutoscalerConfig(
+            min_replicas=1, max_replicas=2, drain_timeout_s=30.0))
+        f0 = _failovers(port)
+        stop, threads, bad, n_ok = _fleet_clients(port, bodies)
+        try:
+            time.sleep(0.5)
+            t_kill = time.monotonic()
+            victim = min(pids)
+            os.kill(victim, signal.SIGKILL)
+            addr = scaler.scale_up()
+            new = sup.replicas[-1]
+            det_up = _watch_up({1: (addr, new.started_at)})
+            end = time.monotonic() + FLEET_WAIT_S
+            while True:
+                now = _children(proc.pid)
+                if len(now) == FLEET_REPLICAS and victim not in now and \
+                        all(_healthz(a) for a in addrs) and _get_json(
+                            port, "/healthz")["n_serving"] == FLEET_REPLICAS:
+                    break
+                if time.monotonic() > end or proc.poll() is not None:
+                    raise AssertionError(f"fleet: replica {victim} not "
+                                         f"restarted\n{tails()}")
+                time.sleep(0.05)
+            back_s = time.monotonic() - t_kill
+            new_s = _up(det_up, 1, "the scale-up", tails)[1]
+            time.sleep(0.5)  # traffic over the whole fleet again
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(60)
+        if bad or n_ok[0] == 0:
+            raise AssertionError(f"fleet chaos: {len(bad)} failed requests "
+                                 f"of {n_ok[0] + len(bad)}: {bad[:3]}")
+        log(f"fleet chaos: replica pid {victim} SIGKILLed under "
+            f"{FLEET_CLIENTS} clients: {n_ok[0]} requests, 0 failed, "
+            f"{_failovers(port) - f0} failovers; the fleet of "
+            f"{FLEET_REPLICAS} serving again {back_s!r} s after the kill "
+            f"[{card}]")
+        mark("chaos")
+        pids = _children(proc.pid)
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(30)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"fleet: SIGTERM did not stop the fleet\n"
+                                 f"{tails()}")
+        end = time.monotonic() + 20
+        while any(_pid_alive(p) for p in pids) and time.monotonic() < end:
+            time.sleep(0.05)
+        if rc != 0 or any(_pid_alive(p) for p in pids):
+            raise AssertionError(f"fleet: after SIGTERM rc {rc}, replicas "
+                                 f"alive {[p for p in pids if _pid_alive(p)]}")
+        mark("sigterm")
+        log(f"fleet: SIGTERM stopped the fleet (rc 0) and its replicas "
+            f"{sorted(pids)}")
+        # the in-process fleet: deterministic replies, then a scale-down
+        def det_view():
+            router.probe_once()
+            return router.fleet_view()
+
+        _await_serving(2, "the scale-up", det_view)
+        served = replies(det_port, 16, det_want, exact=True)
+        if len(served) != 2:
+            raise AssertionError(f"fleet: replies came from {served}")
+        log(f"fleet: autoscaler scale_up started replica {addr} (its spawn "
+            f"to its first /healthz 200 in {new_s!r} s, beside the chaos); "
+            f"16 requests through the in-process router bit-equal to the "
+            f"card Predictor's scores under deterministic algorithms, from "
+            f"replicas {sorted(served)} [{card}]")
+        t0 = time.perf_counter()
+        victim_id = scaler.scale_down()
+        drain_s = time.perf_counter() - t0
+        _await_serving(1, "the scale-down", det_view)
+        if not sup.replicas[victim_id].retired or \
+                sup.replicas[victim_id].alive():
+            raise AssertionError("fleet: the scaled-down replica lives on")
+        if replies(det_port, 2, det_want, exact=True) != {
+                sup.endpoints()[0]}:
+            raise AssertionError("fleet: a reply after the scale-down came "
+                                 "from elsewhere")
+        log(f"fleet: scale_down drained and retired replica {victim_id} in "
+            f"{drain_s!r} s; 1 serving, replies still bit-equal")
+        mark("scale_down")
+    finally:
+        _stop_fleets()
+    if any(r.alive() for r in sup.replicas):
+        raise AssertionError("fleet: a replica outlived the supervisor")
+    mark("stopped")
+    log(f"fleet: seconds into the phase at the end of each step: "
+        f"{', '.join(marks)} [{card}]")
+
+
+def _stop_fleets() -> None:
+    while _FLEETS:
+        f = _FLEETS.pop()
+        if isinstance(f, subprocess.Popen):
+            if f.poll() is None:
+                f.terminate()  # the fleet stops its replicas
+                try:
+                    f.wait(30)
+                except subprocess.TimeoutExpired:
+                    f.kill()
+                    f.wait()
+        else:
+            router, sup = f
+            router.stop()
+            sup.stop()
+
+
+# --------------------------------------------------------------------------- #
+# phase 8e: scenarios and runners
+# --------------------------------------------------------------------------- #
+# the multi-scenario and two-phase passes over the first SCEN_BATCHES
+# batches of a Zipf set a scenario (two step groups of GRAPH_K); the AUC
+# runner over the first file of a Zipf set (8 batches) and these groups
+SCEN_BATCHES = 2 * GRAPH_K
+AUC_GROUPS = {"g_slot0": ["slot0"],
+              "g_first_half": [f"slot{i}" for i in range(N_SLOTS // 2)]}
+
+
+def _scenario_world(device, sgd=False):
+    """The MultiScenarioTrainer of the phase: a CtrDnn ranker at the bench
+    widths and TwoTower retrieval at parallel_axes' over one slice-width
+    table (the default cached table)."""
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.scenarios import MultiScenarioTrainer, ScenarioSpec
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+
+    tconf = SparseTableConfig(embedding_dim=EMB)
+    trkw = dict(dense_optimizer="sgd", dense_lr=ZOO_CPU_SGD_LR) if sgd else {}
+    specs = [ScenarioSpec("ranker", zoo_model("ctr", tconf.row_width, device),
+                          trainer_conf=TrainerConfig(**trkw)),
+             ScenarioSpec("retrieval",
+                          zoo_model("retrieval", tconf.row_width, device),
+                          kind="retrieval", trainer_conf=TrainerConfig(**trkw))]
+    return (SparseTable(tconf, seed=0, device=device),
+            MultiScenarioTrainer(tconf, specs, device=device))
+
+
+def _two_phase_world(device, mesh=False, sgd=False, **trkw):
+    """The day loop's TwoPhaseTrainer: join over the first half of the
+    slots, then update over all, two bench-width CtrDnn towers over one
+    table (``mesh``: POSITIONS positions of the card, the sharded table)."""
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.parallel import ShardedSparseTable, make_mesh
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.train import PhaseSpec, TwoPhaseTrainer
+
+    tconf = SparseTableConfig(embedding_dim=EMB)
+    if sgd:
+        trkw = dict(trkw, dense_optimizer="sgd", dense_lr=ZOO_CPU_SGD_LR)
+    phases = [PhaseSpec("join", CtrDnn(N_SLOTS, tconf.row_width,
+                                       dense_dim=DENSE, hidden=HIDDEN, seed=0,
+                                       device=device),
+                        slots=tuple(range(N_SLOTS // 2))),
+              PhaseSpec("update", CtrDnn(N_SLOTS, tconf.row_width,
+                                         dense_dim=DENSE, hidden=HIDDEN,
+                                         seed=1, device=device))]
+    if mesh:
+        m = make_mesh(POSITIONS, device=device)
+        return (ShardedSparseTable(tconf, m, seed=0),
+                TwoPhaseTrainer(phases, tconf, TrainerConfig(**trkw), mesh=m))
+    return (SparseTable(tconf, seed=0, device=device),
+            TwoPhaseTrainer(phases, tconf, TrainerConfig(**trkw),
+                            device=device))
+
+
+def _phase_passes(tp, table, sets) -> list:
+    out = []
+    for data in sets:
+        table.begin_pass(data.unique_keys())
+        out.append(tp.train_pass(data, table))
+        table.end_pass()
+    return out
+
+
+def _scen_agree(label, a, b, g2sum_rtol=None) -> str:
+    """Per scenario or phase, agree()'s bounds on the shared table and that
+    scenario's tower (``g2sum_rtol`` as agree's)."""
+    (ma, sa, ta), (mb, sb, tb) = a, b
+    return "; ".join(agree(f"{label} {n}", (ma[n], sa, ta[n].model),
+                           (mb[n], sb, tb[n].model), g2sum_rtol=g2sum_rtol)
+                     for n in ma)
+
+
+def scenarios(zipf_sets, cached_files, card: str) -> None:
+    """The multi-scenario trainer, the two-phase trainer and the AUC runner
+    at the slice's width on the card (module docstring, phase scenarios)."""
+    import itertools
+
+    import torch
+
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.train.auc_runner import AucRunner
+
+    def head(d, n, skip=0):
+        return _Batches(itertools.islice(d.batches(), skip, skip + n))
+
+    # (a) two scenarios over one table, 2 passes: the ranker on the first
+    # SCEN_BATCHES batches of a Zipf set, retrieval on the next
+    sets = [{"ranker": head(d, SCEN_BATCHES),
+             "retrieval": head(d, SCEN_BATCHES, SCEN_BATCHES)}
+            for d in zipf_sets[:2]]
+    table, mst = _scenario_world("cuda")
+    before = dict(sk.launches)
+    t0 = time.perf_counter()
+    per_pass = [mst.train_pass(s, table) for s in sets]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: sk.launches[k] - before[k] for k in sk.launches}
+    steps = sum(m["steps"] for r in per_pass for m in r.values())
+    if not (launches["pull_rows"] == launches["scatter_add_rows"] == steps
+            == 2 * 2 * SCEN_BATCHES):
+        raise AssertionError(f"scenarios: {steps} steps, launches {launches}")
+    for r in per_pass:
+        for n, m in r.items():
+            if not (math.isfinite(m["loss"]) and 0.0 < m["auc"] < 1.0):
+                raise AssertionError(f"scenarios {n}: {m}")
+    table.close()
+    log(f"scenarios: ranker (CtrDnn {HIDDEN}) and retrieval (TwoTower) "
+        f"interleaved over one table, 2 passes of {SCEN_BATCHES} batches "
+        f"each, {secs!r} s, {2 * 2 * SCEN_BATCHES * BATCH / secs!r} "
+        f"samples/s; per pass " + "; ".join(
+            ", ".join(f"{n} loss {m['loss']!r} auc {m['auc']!r}"
+                      for n, m in r.items()) for r in per_pass)
+        + f"; launches {launches} [{card}]")
+    saved = dict(sk.launches)
+    one = {"ranker": head(zipf_sets[0], 1),
+           "retrieval": head(zipf_sets[0], 1, 1)}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        table, mst = _scenario_world(device, sgd=True)
+        m = mst.train_pass(one, table)
+        runs[device] = (m, table.state_dict(), mst.trainers)
+        table.close()
+    # the retrieval scenario's pushes share the table's g2sum column:
+    # parallel_axes' retrieval bound on it
+    log("scenarios card vs CPU (1 batch a scenario), max abs diff: "
+        + _scen_agree("scenarios", runs["cuda"], runs["cpu"],
+                      g2sum_rtol=RETRIEVAL_G2SUM_RTOL))
+
+    # (b) the day loop's two phases, 2 passes; scan_steps GRAPH_K (a CUDA
+    # graph a phase) bit-equal to eager steps under deterministic algorithms
+    sets = [head(d, SCEN_BATCHES) for d in zipf_sets[:2]]
+    det = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for k in (1, GRAPH_K):
+            table, tp = _two_phase_world("cuda", scan_steps=k)
+            t0 = time.perf_counter()
+            out = _phase_passes(tp, table, sets)
+            torch.cuda.synchronize()
+            det[k] = (out, table.state_dict(), time.perf_counter() - t0,
+                      {n: tr.graph_captures for n, tr in tp.trainers.items()})
+            tp.close()
+            table.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (eo, es, esec, _), (go, gs, gsec, caps) = det[1], det[GRAPH_K]
+    keys = ("loss", "auc", "count")
+    _sync_equal("two-phase graph against eager steps", gs, es,
+                [r[n][k] for r in go for n in r for k in keys],
+                [r[n][k] for r in eo for n in r for k in keys])
+    if caps != {"join": 2, "update": 2}:
+        raise AssertionError(f"two-phase graph captures {caps}")
+    log(f"two-phase (join slots 0-{N_SLOTS // 2 - 1}, then update): 2 passes "
+        f"of {SCEN_BATCHES} batches, eager {esec!r} s, scan_steps {GRAPH_K} "
+        f"{gsec!r} s (captures a phase {caps}), bit-equal under "
+        f"deterministic algorithms; per pass " + "; ".join(
+            ", ".join(f"{n} loss {m['loss']!r} auc {m['auc']!r}"
+                      for n, m in r.items()) for r in eo) + f" [{card}]")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        table, tp = _two_phase_world(device, sgd=True)
+        (m,) = _phase_passes(tp, table, [head(zipf_sets[0], 1)])
+        runs[device] = (m, table.state_dict(), tp.trainers)
+        table.close()
+    log("two-phase card vs CPU (1 batch), max abs diff: "
+        + _scen_agree("two-phase", runs["cuda"], runs["cpu"]))
+    table, tp = _two_phase_world("cuda", mesh=True)
+    before = dict(sk.launches)
+    (m,) = _phase_passes(tp, table, [head(zipf_sets[0], SCEN_BATCHES)])
+    launches = {k: sk.launches[k] - before[k] for k in sk.launches}
+    tp.close()
+    table.close()
+    for n, r in m.items():
+        if not (math.isfinite(r["loss"]) and r["count"] == SCEN_BATCHES * BATCH):
+            raise AssertionError(f"two-phase on the mesh, {n}: {r}")
+    if launches["pull_rows"] <= 0 or launches["scatter_add_rows"] <= 0:
+        raise AssertionError(f"two-phase on the mesh: launches {launches}")
+    log(f"two-phase with mesh= ({POSITIONS} positions of the card): "
+        + ", ".join(f"{n} loss {r['loss']!r} auc {r['auc']!r}"
+                    for n, r in m.items()) + f"; launches {launches}")
+    sk.launches.update(saved)
+
+    # (c) the AUC runner: the trained update tower and table, on the card
+    # and (their copies) on the CPU, over the first file of a Zipf set
+    ds = load(cached_files[0][:1], 1)
+    table, tp = _two_phase_world("cuda")
+    _phase_passes(tp, table, [ds])
+    tr = tp.trainers["update"]
+    cpu_table, cpu_tp = _two_phase_world("cpu")
+    cpu_table.load_state_dict(table.state_dict())
+    cpu_tr = cpu_tp.trainers["update"]
+    cpu_tr.model.load_state_dict({k: v.cpu() for k, v in
+                                  tr.model.state_dict().items()})
+    out = {}
+    for dev, t, tb in (("cuda", tr, table), ("cpu", cpu_tr, cpu_table)):
+        t0 = time.perf_counter()
+        out[dev] = AucRunner(t, tb, seed=3).run(ds, AUC_GROUPS)
+        out[dev]["seconds"] = time.perf_counter() - t0
+        tb.close()
+    ds.close()
+    g, c = out["cuda"], out["cpu"]
+    for name in ("baseline", *AUC_GROUPS):
+        if abs(g[name]["auc"] - c[name]["auc"]) > 1e-3 or (
+                name != "baseline"
+                and abs(g[name]["delta"] - c[name]["delta"]) > 2e-3):
+            raise AssertionError(f"auc runner {name}: card {g[name]} vs CPU "
+                                 f"{c[name]}")
+    log(f"auc runner over {g['baseline']['count']} instances: baseline auc "
+        f"{g['baseline']['auc']!r}; " + ", ".join(
+            f"{n} auc {g[n]['auc']!r} delta {g[n]['delta']!r} (CPU "
+            f"{c[n]['delta']!r})" for n in AUC_GROUPS)
+        + f"; card {g['seconds']!r} s, CPU {c['seconds']!r} s [{card}]")
 
 
 # --------------------------------------------------------------------------- #
@@ -5012,6 +5985,11 @@ def serving(res, ds, axes) -> None:
 # a last delta after the drain (the others carry rows only, the
 # reference's default)
 ONLINE_WINDOW, ONLINE_SHARD, ONLINE_REPLAY_WINDOWS = 8 * BATCH, 4096, 2
+# Depth cut since the fleet and scenarios phases: after the hot pattern
+# the stream carries ONLINE_TAIL_WINDOWS more windows of the slice records
+# as rows-only deltas before the drain (the rest of the slice records
+# before)
+ONLINE_TAIL_WINDOWS = 2
 ONLINE_STALENESS_S, ONLINE_HOT_WINDOWS, ONLINE_HOT_KEY = 8.0, 1, 10**9
 ONLINE_RISE, ONLINE_DROP = 0.1, 0.2
 # the longest wait for a window's rows to be served, and for the drain
@@ -5366,7 +6344,8 @@ def online(files: list, ds, card: str) -> None:
         # the rest of the slice records as rows-only deltas, then the
         # drain; a last delta then carries the final programs
         policy.publish_programs = False
-        writer.feed(list(filler))
+        writer.feed(list(itertools.islice(
+            filler, ONLINE_TAIL_WINDOWS * ONLINE_WINDOW)))
         _wait(lambda: writer.written == writer.queued, "the stream landed",
               tick=alive)
         runner.stop()  # the source's last sweep reads all; a drain window
@@ -6234,9 +7213,11 @@ def main() -> int:
         phase(small_hybrid_agreement)
         sharded = phase(sharded_cached_path, hybrid)
         phase(reshard_check, sharded)
-        phase(multiprocess, sharded, cached_files[:HYBRID_PASSES])
+        phase(multiprocess, sharded, cached_files[:HYBRID_PASSES],
+              logkey_files[:DH_FILES])
         phase(dense_sync_agreement)
-        phase(dense_sync_full, cached_ds[:2])
+        # depth cut since the fleet and scenarios phases: one Zipf set (2)
+        phase(dense_sync_full, cached_ds[:1])
         phase(graph_steps, ds, cached_ds[:GRAPH_PASSES])
         phase(step_policies, ds)
         phase(slot_policy, hybrid)
@@ -6245,7 +7226,10 @@ def main() -> int:
         axes = phase(parallel_axes, cached_ds, logkey_files, seq_files)
         rows = phase(kernel_times, res, ds, cached,
                      censuses[CACHED_PASSES - 1], hybrid, errs)
-        phase(serving, res, ds, axes)
+        fleet_in = phase(serving, res, ds, axes)
+        started = phase(fleet_spawn, fleet_in)
+        phase(scenarios, cached_ds, cached_files, card)
+        phase(fleet, fleet_in, started, card)
         phase(online, files, ds, card)
         # last: after its device traces, a torch.profiler window of this
         # process listed no CUDA kernel among its events (kernel_times
@@ -6255,6 +7239,7 @@ def main() -> int:
         for d in cached_ds:
             d.close()
     finally:
+        _stop_fleets()
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(json.dumps({"kernels": rows}))
     print(card)

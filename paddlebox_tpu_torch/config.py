@@ -159,6 +159,26 @@ class _Flags:
         "stream_root": "",
         "max_staleness_s": 10.0,
         "stream_window_records": 1024,
+        # the TcpShuffler's wait for its peers' blocks, when neither the
+        # caller nor an active LivenessConfig bounds it (data/shuffle.py)
+        "shuffle_timeout_s": 120.0,
+        # the AUC runner's slot-importance mode (train/auc_runner.py;
+        # reference: FLAGS_padbox_auc_runner_mode)
+        "auc_runner_mode": False,
+        # the serving fleet (serving_fleet/): serve_replicas > 0 puts
+        # `python -m paddlebox_tpu_torch.serve` in fleet mode (a
+        # ReplicaSupervisor spawns that many single servers behind a
+        # FleetRouter on router_port), and the router's health probe
+        # cadence per replica
+        "serve_replicas": 0,
+        "router_port": 8180,
+        "fleet_probe_interval_s": 1.0,
+        # the FleetAutoscaler: its decision cadence, the cooldown after any
+        # scale action, and the fleet size it never leaves
+        "autoscale_interval_s": 2.0,
+        "autoscale_cooldown_s": 30.0,
+        "autoscale_min_replicas": 1,
+        "autoscale_max_replicas": 8,
     }
 
     def __getattr__(self, name: str):
@@ -439,9 +459,8 @@ class LivenessConfig:
     no stage progress for this long is declared stalled.
     heartbeat_interval_s / poll_interval_s: the heartbeat publisher's and
     the detector's cadence.  hostplane_timeout_s: the KvChannel wait bound
-    while this config's watchdog is active.  shuffle_timeout_s: read by
-    the shuffle transport of ROADMAP item 8b, kept for the reference's
-    surface.  rollback_on_abort: on a stall abort the single-chip trainer
+    while this config's watchdog is active.  shuffle_timeout_s: the
+    TcpShuffler's wait for its peers (data/shuffle.py).  rollback_on_abort: on a stall abort the single-chip trainer
     restores its checkpointer's last pass (PassRolledBack).
     hard_exit_grace_s: multi-process only, a process that has not unwound
     this long after an abort exits with code 124 (<= 0 disables)."""

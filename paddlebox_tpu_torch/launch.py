@@ -13,7 +13,11 @@ _LOCAL_DEVICE and _POSITIONS_PER_PROC flags set, which
 ``parallel.mesh.initialize_distributed()`` reads (and, when given, the
 online loop's _PUBLISH_ROOT, _STREAM_ROOT and _MAX_STALENESS_S), and (3)
 babysits them: per-rank log files, the survivors killed when any rank dies,
-the first bad exit code propagated.
+the first bad exit code propagated.  ``--serve-replicas N`` co-runs a
+serving fleet beside the job: ``python -m paddlebox_tpu_torch.serve
+--replicas N --cpu`` syncing from ``--publish-root`` behind its router on
+``--serve-router-port`` (CPU replicas: serving never contends for the
+training cards); its exit is logged and never stops the job.
 
 Backends: "nccl" when each rank owns its own card (rank r takes card r);
 "gloo" for CPU ranks and for ranks that share one card (every rank takes
@@ -99,6 +103,21 @@ def rank_env(
     return env
 
 
+def serve_fleet_argv(publish_root: str, replicas: int,
+                     router_port: int) -> list:
+    """Command line of the serving fleet a training launch co-runs: N
+    CPU-pinned replica servers syncing from the job's publish root behind
+    a health-checked router (serving_fleet/), so one launch runs the whole
+    train -> publish -> serve loop."""
+    return [
+        sys.executable, "-m", "paddlebox_tpu_torch.serve",
+        "--sync-root", publish_root,
+        "--replicas", str(replicas),
+        "--router-port", str(router_port),
+        "--cpu",  # serving must never contend for the training cards
+    ]
+
+
 def _serve_store(nproc: int, timeout_s: float):
     """The job's TCPStore, served by this process on a port the operating
     system picks: (store, "127.0.0.1:<port>")."""
@@ -129,6 +148,8 @@ def launch(
     publish_root: Optional[str] = None,
     stream_root: Optional[str] = None,
     max_staleness_s: Optional[float] = None,
+    serve_replicas: int = 0,
+    serve_router_port: Optional[int] = None,
 ) -> int:
     """Spawn nproc ranks of ``python script_args...``; return the first
     non-zero exit code (0 when every rank succeeds).  Any rank dying kills
@@ -138,7 +159,14 @@ def launch(
     process serves one on a port the system picks).  job_timeout_s: the
     launcher's last-resort bound: past it every live rank is terminated
     and the result is 124.  env: the ranks' base environment (default this
-    process's)."""
+    process's).  serve_replicas: co-run a serving fleet of that many CPU
+    replicas syncing from ``publish_root`` (router on serve_router_port,
+    default PADDLEBOX_TORCH_ROUTER_PORT); auxiliary: its death is logged
+    and the job trains on, and it is stopped when the job ends."""
+    if serve_replicas > 0 and not publish_root:
+        raise ValueError(
+            "--serve-replicas needs --publish-root: the fleet syncs its "
+            "models from the job's publish root")
     store = None
     if coordinator is None:
         store, coordinator = _serve_store(
@@ -146,6 +174,22 @@ def launch(
     procs: list = []
     logs = []
     start_t = time.monotonic()
+    serve_proc: Optional[subprocess.Popen] = None
+    if serve_replicas > 0:
+        from paddlebox_tpu_torch.config import flags
+
+        argv = serve_fleet_argv(
+            publish_root, serve_replicas,
+            serve_router_port if serve_router_port is not None
+            else flags.router_port)
+        out = None
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            out = open(os.path.join(log_dir, "serve-fleet.log"), "wb")
+            logs.append(out)
+        serve_proc = subprocess.Popen(
+            argv, env=env, stdout=out,
+            stderr=subprocess.STDOUT if out is not None else None)
     for rank in range(nproc):
         renv = rank_env(
             rank, nproc, coordinator, positions_per_proc, device, backend,
@@ -175,6 +219,12 @@ def launch(
                 rc = 124
                 for r in live:
                     procs[r].send_signal(signal.SIGTERM)
+            if serve_proc is not None and serve_proc.poll() is not None:
+                # serving is auxiliary: its death never stops the job
+                print(f"WARNING: the co-run serving fleet exited rc="
+                      f"{serve_proc.returncode}; training continues",
+                      file=sys.stderr)
+                serve_proc = None
             for r in sorted(live):
                 code = procs[r].poll()
                 if code is None:
@@ -192,6 +242,13 @@ def launch(
             if p.poll() is None:
                 p.send_signal(signal.SIGTERM)
     finally:
+        if serve_proc is not None and serve_proc.poll() is None:
+            serve_proc.terminate()  # the fleet stops its replicas
+            try:
+                serve_proc.wait(timeout=15.0)
+            except subprocess.TimeoutExpired:
+                serve_proc.kill()
+                serve_proc.wait()
         deadline = time.monotonic() + 10.0
         for p in procs:
             if p.poll() is None:
@@ -249,17 +306,19 @@ def main(argv: Optional[list] = None) -> int:
                     help="online training: the freshness budget (s) of the "
                          "deadline publisher "
                          "(PADDLEBOX_TORCH_MAX_STALENESS_S)")
-    # the reference's co-run serving fleet: refused (the fleet item)
     ap.add_argument("--serve-replicas", type=int, default=0,
-                    help=argparse.SUPPRESS)
+                    help="co-run a serving fleet: this many CPU replica "
+                         "servers syncing from --publish-root behind a "
+                         "health-checked router (serving_fleet/)")
+    ap.add_argument("--serve-router-port", type=int, default=None,
+                    help="port of the co-run fleet's router (default "
+                         "PADDLEBOX_TORCH_ROUTER_PORT)")
     ap.add_argument("script", help="the rank program")
     ap.add_argument("script_args", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
-    if args.serve_replicas > 0:
-        ap.error("--serve-replicas (a co-run serving fleet) is not ported "
-                 "yet (ROADMAP.md, Queue A: the fleet, serving_fleet/); "
-                 "run python -m paddlebox_tpu_torch.serve --sync-root "
-                 "beside the job instead")
+    if args.serve_replicas > 0 and not args.publish_root:
+        ap.error("--serve-replicas needs --publish-root: the fleet syncs "
+                 "its models from the job's publish root")
     return launch(
         [args.script] + args.script_args,
         nproc=args.nproc,
@@ -276,6 +335,8 @@ def main(argv: Optional[list] = None) -> int:
         publish_root=args.publish_root,
         stream_root=args.stream_root,
         max_staleness_s=args.max_staleness_s,
+        serve_replicas=args.serve_replicas,
+        serve_router_port=args.serve_router_port,
     )
 
 

@@ -366,12 +366,16 @@ class KvChannel:
     def _delete(self, seq: int) -> None:
         self._kv.delete(self._key(seq, self._rank))
 
-    def close(self) -> None:
+    def close(self, keep_last: bool = False) -> None:
         """Delete this process's remaining keys (the last two sequences).
         Channels are per pass and names never repeat, so without this a
         long job leaks P keys a pass into the store.  Safe once every peer
         finished the channel's last gather; the trainer calls it after the
-        pass's last collective, which proves exactly that."""
-        for s in (self._seq - 1, self._seq - 2):
+        pass's last collective, which proves exactly that.  keep_last
+        keeps the last sequence's key, for a caller that cannot know every
+        peer has read it (a peer that posted sequence s + 1 had read s);
+        it stays in the store, a few bytes."""
+        for s in (self._seq - 2,) if keep_last else (self._seq - 1,
+                                                      self._seq - 2):
             if s >= 0:
                 self._delete(s)

@@ -54,7 +54,8 @@ class Job:
     """The process's multi-process job: its rank and world, the TCPStore
     (the planning plane's KV, parallel/host_plane.py), the process group's
     backend, this rank's device and the data positions each process holds
-    (a data mesh that gives another count raises; 0 = any).  ``host_staged``: gloo carries card tensors
+    (a data mesh that gives a process more raises; 0 = any).
+    ``host_staged``: gloo carries card tensors
     through pinned host copies (parallel/collectives.py)."""
 
     rank: int
@@ -255,10 +256,13 @@ def _job_layout(device, positions: int, n_inner: int = 1) -> tuple:
     if total % j.world:
         raise ValueError(f"{total} positions do not split over {j.world} "
                          "processes")
-    if j.positions_per_proc and positions // j.world != j.positions_per_proc:
+    # fewer positions than the job gives a process is a mesh over a subset
+    # (a live reshard's smaller mesh), as a reference mesh may take a
+    # subset of its process's devices; more is refused
+    if j.positions_per_proc and positions // j.world > j.positions_per_proc:
         raise ValueError(
             f"{positions} data positions give each of {j.world} processes "
-            f"{positions // j.world}, the job asked for "
+            f"{positions // j.world}, the job asked for at most "
             f"{j.positions_per_proc} (PADDLEBOX_TORCH_POSITIONS_PER_PROC)")
     per = total // j.world
     for row in range(positions):

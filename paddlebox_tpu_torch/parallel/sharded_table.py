@@ -89,8 +89,9 @@ local shards only: the reference's ``_assemble_cached_multihost`` (each
 shard's hit fill as a single-device op, then a global array) is
 ``_cached_sync_resolve`` + ``_cache_hit_fill`` over the local shards here,
 since a process's stacked arrays are its own.  prepare_pass does not stage
-there (the census exchange is a lockstep gather on the main thread), and
-a live reshard across processes is ROADMAP item 8b (it raises).
+there (the census exchange is a lockstep gather on the main thread).  A
+live reshard across processes moves the rows that change owner process
+over a ``reshard-<k>`` KvChannel, every process together (``reshard``).
 """
 
 from __future__ import annotations
@@ -141,6 +142,11 @@ _RESHARD_HEAD = "<4sIII"
 # lockstep census-channel naming: every process builds its sharded tables
 # in the same order, so the counter agrees across the job
 _CENSUS_CHANNEL_SEQ = [0]
+# lockstep reshard-channel naming: every process reshards together
+_RESHARD_CHANNEL_SEQ = [0]
+# a process's word on the reshard channel when its own side failed: the
+# peers raise at once instead of committing (or waiting out the channel)
+_RESHARD_ABORT = b"PBRX"
 
 
 def _encode_migration(keys: np.ndarray, rows: np.ndarray) -> bytes:
@@ -603,17 +609,26 @@ class ShardedSparseTable(SparseTable):
     # -- live reshard ------------------------------------------------------- #
     def reshard(self, new_mesh: Mesh) -> int:
         """Grow or shrink the shard count at a pass boundary.  Returns the
-        number of rows whose owner shard changed.
+        number of this process's rows whose owner shard changed.
 
         The cut point is the checkpoint barrier: ``flush`` lands the hot
         block and the dirty cache rows and waits out the merges, so the
         host store is truth for every key before anything moves; a staged
         next pass is dropped (it was laid out for the old split).  Two
         phases, each a fault site: ``_reshard_migrate`` frames the
-        owner-changed rows hottest first and checks their round trip
-        without changing anything, ``_reshard_cutover`` commits.  A
-        failure in either restores the old shard map (``_reshard_abort``)
-        and re-raises.
+        owner-changed rows hottest first without changing anything,
+        ``_reshard_cutover`` commits.  A failure in either restores the old
+        shard map (``_reshard_abort``) and re-raises.
+
+        In a job every process calls it together, with a mesh of the same
+        process layout (shards in contiguous runs a process).  The frames
+        of the rows that leave a process's shards cross on a dedicated
+        ``reshard-<k>`` KvChannel; each process keeps what comes to it,
+        and the cutover commits only once every process has passed its
+        cutover fault site.  A process whose own side fails posts that on
+        the channel, so every process raises and restores its old map
+        together; a process that dies outright leaves the others to the
+        channel's timeout, as the reference's channel does.
 
         Rows move verbatim, a new key's init depends on the key alone, and
         every shard orders its rows by the sorted global census, so
@@ -621,30 +636,40 @@ class ShardedSparseTable(SparseTable):
         the new shard count from a checkpoint."""
         if self._in_pass:
             raise RuntimeError("reshard between passes, never inside one")
-        if self.mesh.n_proc > 1 or new_mesh.n_proc > 1:
-            raise NotImplementedError(
-                "a live reshard across processes (the migration over a "
-                "KvChannel) is ROADMAP item 8b, not ported yet: checkpoint, "
-                "then restore into tables built on the new mesh")
         if new_mesh.n < 1:
             raise ValueError("the new mesh has no shard positions")
         if new_mesh.device != self.device:
             raise ValueError(
                 f"the new mesh is on {new_mesh.device}, the table on "
                 f"{self.device}: every shard lives on the table's device")
+        layout = lambda m: (m.distributed, m.n_proc, m.proc_index)
+        if layout(new_mesh) != layout(self.mesh):
+            raise ValueError(
+                f"the new mesh's process layout {layout(new_mesh)} is not "
+                f"the table's {layout(self.mesh)} (distributed, processes, "
+                "this process): a reshard keeps the job's processes")
         self.flush()
         self._discard_stage()
         if new_mesh.n == self.n_shards:
             return 0
         old = self._reshard_snapshot()
+        ch = None
+        if self.multiprocess:
+            from paddlebox_tpu_torch.parallel.host_plane import KvChannel
+
+            _RESHARD_CHANNEL_SEQ[0] += 1
+            ch = KvChannel(f"reshard-{_RESHARD_CHANNEL_SEQ[0]}")
         t0 = time.perf_counter()
         try:
             with telemetry.span("reshard.migrate", old_shards=self.n_shards,
                                 new_shards=new_mesh.n):
-                moved = self._reshard_migrate(new_mesh)
+                if ch is None:
+                    staged, moved = None, self._reshard_migrate(new_mesh)
+                else:
+                    staged, moved = self._reshard_migrate_job(new_mesh, ch)
             with telemetry.span("reshard.cutover", old_shards=self.n_shards,
                                 new_shards=new_mesh.n):
-                self._reshard_cutover(new_mesh)
+                self._reshard_cutover(new_mesh, staged, ch)
         except Exception:
             self._reshard_abort(old)
             telemetry.counter(
@@ -652,6 +677,11 @@ class ShardedSparseTable(SparseTable):
                 "reshards rolled back to the old shard map",
             ).inc()
             raise
+        finally:
+            if ch is not None:
+                # a fault may end the reshard before a peer read the last
+                # sequence: its key stays
+                ch.close(keep_last=True)
         telemetry.counter(
             "reshard.migrated_rows",
             "rows whose owner shard changed across reshards",
@@ -664,51 +694,147 @@ class ShardedSparseTable(SparseTable):
 
     def _reshard_snapshot(self) -> dict:
         """References to everything the cutover replaces: the migration
-        changes nothing and the cutover swaps these fields only after its
-        fault site, so on every abort they are still the old state."""
+        changes nothing and the cutover swaps these fields only after every
+        process passed its fault site, so on every abort they are still the
+        old state."""
         return {
             "mesh": self.mesh, "n_shards": self.n_shards,
             "caches": self._shard_cache_list,
             "cache_tried": self._cache_tried, "census": self._census,
+            "census_channel": self._census_channel,
             "last_serve_n": self._last_serve_n,
             "carry_freq": self._carry_freq, "hot_keys": self._hot_keys,
             "hot_values": self.hot_values, "hot_g2sum": self.hot_g2sum,
             "hot_dirty": self._hot_dirty,
         }
 
+    @staticmethod
+    def _vote(ch, step: str, local) -> list:
+        """One gather on the reshard channel: this process's payload, or
+        its error when ``local`` raised.  Raises this process's own error,
+        or a RuntimeError naming every process that posted one; else
+        returns the payloads in rank order."""
+        try:
+            payload = local()
+        except Exception as e:
+            ch.gather_bytes(_RESHARD_ABORT + f"{step}: {e!r}".encode())
+            raise
+        got = ch.gather_bytes(payload)
+        failed = {r: p[len(_RESHARD_ABORT):].decode(errors="replace")
+                  for r, p in enumerate(got) if p.startswith(_RESHARD_ABORT)}
+        if failed:
+            raise RuntimeError(
+                f"reshard aborted: process(es) {sorted(failed)} failed "
+                f"their side ({'; '.join(failed.values())})")
+        return got
+
+    def _hottest_first(self, keys: np.ndarray, rows: np.ndarray) -> tuple:
+        """(keys, rows) ordered hottest first by the planner's evidence
+        (ties in key order)."""
+        planner = None if self._census is None else self._census.planner
+        if planner is not None and keys.shape[0]:
+            order = np.argsort(-planner.frequencies(keys), kind="stable")
+            keys, rows = keys[order], rows[order]
+        return keys, rows
+
     def _reshard_migrate(self, new_mesh: Mesh) -> int:
-        """Frame the owner-changed rows for the new shard map, hottest
-        first by the planner's evidence (ties in key order), and check
-        that the frame decodes to them bit for bit, or abort: the
-        reference's loopback discipline, which holds the wire format to
-        what a second owner would receive.  Changes nothing: in one
-        process ownership never leaves the one host store, so no row
-        merges or drops.  Returns the number of rows moved."""
+        """One process: frame the owner-changed rows and check that the
+        frame decodes to them bit for bit, or abort: the reference's
+        loopback discipline, which holds the wire format to what a second
+        owner would receive.  Changes nothing: in one process ownership
+        never leaves the one host store, so no row merges or drops.
+        Returns the number of rows moved."""
         faults.inject("reshard.migrate")
         keys, rows = self._store.materialize()
-        moved_mask = (keys % np.uint64(self.n_shards)
-                      != keys % np.uint64(new_mesh.n))
-        mk, mrows = keys[moved_mask], rows[moved_mask]
-        planner = None if self._census is None else self._census.planner
-        if planner is not None and mk.shape[0]:
-            order = np.argsort(-planner.frequencies(mk), kind="stable")
-            mk, mrows = mk[order], mrows[order]
+        moved = keys % np.uint64(self.n_shards) != keys % np.uint64(new_mesh.n)
+        mk, mrows = self._hottest_first(keys[moved], rows[moved])
         dk, drows = _decode_migration(_encode_migration(mk, mrows))
         if not (np.array_equal(dk, mk) and np.array_equal(drows, mrows)):
             raise RuntimeError(
                 "reshard migration payload failed the loopback round-trip "
                 "verify")
-        return int(moved_mask.sum())
+        return int(mk.shape[0])
 
-    def _reshard_cutover(self, new_mesh: Mesh) -> None:
+    def _reshard_migrate_job(self, new_mesh: Mesh, ch) -> tuple:
+        """A job: each process frames only the rows that leave it
+        (shards split in contiguous runs a process under either count),
+        the frames cross on the channel ``ch``, and each keeps what comes
+        to it.  Changes nothing.  Returns (staged, rows moved): what comes
+        to this process (to merge) and what leaves it (to drop), committed
+        by the cutover.  A row can change process while keeping its shard
+        id (key % 4 == 1 is shard 1 at 4 and at 2 shards, on process 0 and
+        then 1 of two), so what leaves is decided by process over every
+        row, where the reference decides it over the rows whose shard id
+        changed and keeps such rows behind; rows moved still counts shard
+        changes, the reference's figure."""
+        pid = self.mesh.proc_index
+        box: dict = {}
+
+        def local() -> bytes:
+            faults.inject("reshard.migrate")
+            keys, rows = self._store.materialize()
+            old_s = keys % np.uint64(self.n_shards)
+            new_s = keys % np.uint64(new_mesh.n)
+            out = ((old_s.astype(np.int64) // self.n_local == pid)
+                   & (new_s.astype(np.int64) // new_mesh.n_local != pid))
+            box["moved"] = int((old_s != new_s).sum())
+            ok, orows = self._hottest_first(keys[out], rows[out])
+            box["drop"] = ok
+            return _encode_migration(ok, orows)
+
+        payloads = self._vote(ch, "migrate", local)
+        in_keys, in_rows = [], []
+        for p, buf in enumerate(payloads):
+            if p == pid:
+                continue
+            k, v = _decode_migration(buf)
+            mine = ((k % np.uint64(new_mesh.n)).astype(np.int64)
+                    // new_mesh.n_local) == pid
+            if mine.any():
+                in_keys.append(k[mine])
+                in_rows.append(v[mine])
+        staged = {
+            "drop_keys": box["drop"],
+            "in_keys": (np.concatenate(in_keys) if in_keys
+                        else np.empty(0, np.uint64)),
+            "in_rows": (np.concatenate(in_rows) if in_rows
+                        else np.empty((0, self.conf.row_width + 1),
+                                      np.float32)),
+        }
+        return staged, box["moved"]
+
+    def _reshard_cutover(self, new_mesh: Mesh, staged: Optional[dict] = None,
+                         ch=None) -> None:
         """Commit the new shard map.  The fault site fires before any
-        change, so a failed cutover leaves the old map whole.  The flush
-        at the cut point drained the caches and the hot block, so dropping
-        both loses nothing; the planner's evidence seeds the rebuilt
-        census exchange."""
-        faults.inject("reshard.cutover")
+        change, and in a job every process must pass it (a second gather
+        on the channel) before any commits, so a failed cutover leaves the
+        old map whole everywhere.  A job's ownership commit merges the rows
+        that came to this process (sorted: the wire is hottest first, the
+        store takes sorted unique keys) and drops the rows that left.  The
+        flush at the cut point drained the caches and the hot block, so
+        dropping both loses nothing; the planner's evidence seeds the
+        rebuilt census exchange."""
+        if ch is None:
+            faults.inject("reshard.cutover")
+        else:
+            def local() -> bytes:
+                faults.inject("reshard.cutover")
+                return b"ok"
+
+            self._vote(ch, "cutover", local)
+        if staged is not None:
+            if staged["in_keys"].shape[0]:
+                order = np.argsort(staged["in_keys"], kind="stable")
+                self._store.update(staged["in_keys"][order],
+                                   staged["in_rows"][order])
+            if staged["drop_keys"].shape[0]:
+                keys, rows = self._store.materialize()
+                keep = ~np.isin(keys, staged["drop_keys"])
+                self._store.clear()
+                self._store.load_bulk(keys[keep], rows[keep])
         if self._census is not None and self._census.planner is not None:
             self._carry_freq = self._census.planner.evidence()
+        census_ch, self._census_channel = self._census_channel, None
         self._census = None
         self.mesh = new_mesh
         self.n_shards = new_mesh.n
@@ -720,6 +846,10 @@ class ShardedSparseTable(SparseTable):
         self._shard_keys = None
         self._last_serve_n = 0
         self._drop_hot_residency()
+        # the old census channel closes last: everything above is
+        # infallible, so an abort never restores a closed channel
+        if census_ch is not None:
+            census_ch.close()
 
     def _reshard_abort(self, old: dict) -> None:
         """Restore the old shard map from the snapshot's references."""
@@ -728,6 +858,7 @@ class ShardedSparseTable(SparseTable):
         self._shard_cache_list = old["caches"]
         self._cache_tried = old["cache_tried"]
         self._census = old["census"]
+        self._census_channel = old["census_channel"]
         self._last_serve_n = old["last_serve_n"]
         self._carry_freq = old["carry_freq"]
         self._hot_keys = old["hot_keys"]

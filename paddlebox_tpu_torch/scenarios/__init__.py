@@ -1,7 +1,15 @@
 """Scenario trainers over the shared sparse table (reference:
-paddlebox_tpu/scenarios/): the retrieval trainer.  The multi-scenario
-trainer (``scenarios/multi.py``) is a later slice (ROADMAP.md, item 6)."""
+paddlebox_tpu/scenarios/): the retrieval trainer, and the multi-scenario
+trainer that interleaves N heterogeneous towers over ONE table."""
 
+from paddlebox_tpu_torch.scenarios.multi import (
+    MultiScenarioTrainer,
+    ScenarioSpec,
+)
 from paddlebox_tpu_torch.scenarios.retrieval import RetrievalTrainer
 
-__all__ = ["RetrievalTrainer"]
+__all__ = [
+    "MultiScenarioTrainer",
+    "RetrievalTrainer",
+    "ScenarioSpec",
+]

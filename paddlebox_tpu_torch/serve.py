@@ -1,5 +1,5 @@
 """One-command scoring server over self-contained artifacts (reference:
-paddlebox_tpu/serve.py, its single-server mode).
+paddlebox_tpu/serve.py).
 
     python -m paddlebox_tpu_torch.serve --artifact [NAME=]DIR [...more] \\
         [--port 8080] [--host 127.0.0.1] [--cpu] [--max-queue 64] \\
@@ -7,6 +7,8 @@ paddlebox_tpu/serve.py, its single-server mode).
         [--serving-policy NAME:deadline_ms=50,batch_linger_ms=1]
     python -m paddlebox_tpu_torch.serve --sync-root [NAME=]ROOT [...more] \\
         [--sync-model live] [--sync-interval 10] [--sync-cache DIR] [--cpu]
+    python -m paddlebox_tpu_torch.serve --artifact [NAME=]DIR --replicas 3 \\
+        [--router-port 8180] [--autoscale] [--log-dir DIR] [--cpu]
 
 Each --artifact is DIR or NAME=DIR (NAME defaults to the directory's
 basename; the first one registered is the default model).  Artifacts carry
@@ -30,21 +32,32 @@ an --artifact the server starts once every synced model has its first
 version (at most --sync-timeout seconds).  GET /models reports each
 model's lineage (base tag, deltas applied, publish time).
 
-The reference's fleet mode (--replicas, --autoscale) is not ported yet
-(ROADMAP.md, Queue A item 6b: the fleet, serving_fleet/): given here, it
-stops the command with an error instead of serving without it.
+--replicas N switches to fleet mode (serving_fleet/): a ReplicaSupervisor
+spawns N single-server replica processes of this same command (each with
+its own Syncer under --sync-root, its own admission queue always; on the
+card unless --cpu is given) and a FleetRouter front door on --router-port
+spreads the traffic over them with health-checked membership, per-request
+failover and crash restarts, so a killed replica is never client-visible.
+Router endpoints: POST /score[/NAME] and /retrieve[/NAME], GET /healthz
+(the fleet summary), GET /fleet (each replica's state and freshness), GET
+/metrics.  --autoscale adds the FleetAutoscaler: replicas spawn under
+sustained pressure and drain-retire when idle, within
+PADDLEBOX_TORCH_AUTOSCALE_MIN_REPLICAS / _MAX_REPLICAS (--replicas is the
+floor).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
-
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue A item 6b: the "
-               "fleet, serving_fleet/); serve one server without it")
+import signal
+import sys
 
 
 def _build_parser() -> argparse.ArgumentParser:
+    from paddlebox_tpu_torch.config import flags
+
     ap = argparse.ArgumentParser(
         prog="python -m paddlebox_tpu_torch.serve", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
@@ -99,11 +112,21 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sync-timeout", type=float, default=300.0,
                     help="longest wait for the first synced model at "
                          "startup")
-    # the reference's fleet mode: refused (item 6b, the fleet)
-    ap.add_argument("--replicas", type=int, default=0,
-                    help=argparse.SUPPRESS)
+    # -- fleet mode (serving_fleet/) -------------------------------------- #
+    ap.add_argument("--replicas", type=int, default=flags.serve_replicas,
+                    help="fleet mode: spawn this many replica server "
+                         "processes behind a health-checked router "
+                         "(PADDLEBOX_TORCH_SERVE_REPLICAS; 0 = one server)")
+    ap.add_argument("--router-port", type=int, default=flags.router_port,
+                    help="port of the fleet router's front door "
+                         "(PADDLEBOX_TORCH_ROUTER_PORT; fleet mode only)")
+    ap.add_argument("--log-dir", default=None,
+                    help="fleet mode: one log file a replica here")
     ap.add_argument("--autoscale", action="store_true",
-                    help=argparse.SUPPRESS)
+                    help="fleet mode: run the FleetAutoscaler, which grows "
+                         "and drain-retires replicas from the fleet's own "
+                         "telemetry within PADDLEBOX_TORCH_AUTOSCALE_MIN_"
+                         "REPLICAS / _MAX_REPLICAS")
     return ap
 
 
@@ -133,15 +156,107 @@ def _parse_serving_policy(spec: str):
     return ScenarioServingConfig(name=name, **kw)
 
 
+def _replica_argv(args, replica_id: int, port: int) -> list:
+    """The single-server command line of one fleet replica: this module
+    without the fleet flags, on its assigned port.  ``--replicas 0`` is
+    explicit because the flag's default follows
+    PADDLEBOX_TORCH_SERVE_REPLICAS and the children inherit the parent's
+    environment: without it every replica would enter fleet mode again."""
+    argv = [sys.executable, "-m", "paddlebox_tpu_torch.serve",
+            "--replicas", "0", "--port", str(port), "--host", args.host]
+    for spec in args.artifact:
+        argv += ["--artifact", spec]
+    if args.cpu:
+        argv += ["--cpu"]
+    for spec in args.sync_root:
+        argv += ["--sync-root", spec]
+    if args.sync_root:
+        argv += ["--sync-model", args.sync_model,
+                 "--sync-timeout", str(args.sync_timeout)]
+        if args.sync_interval is not None:
+            argv += ["--sync-interval", str(args.sync_interval)]
+        if args.sync_cache:
+            # one Syncer a replica: the fetch caches must not collide
+            argv += ["--sync-cache", f"{args.sync_cache}-r{replica_id}"]
+    if args.max_queue is not None:
+        argv += ["--max-queue", str(args.max_queue)]
+    if args.request_deadline_ms is not None:
+        argv += ["--request-deadline-ms", str(args.request_deadline_ms)]
+    if args.max_batch is not None:
+        argv += ["--max-batch", str(args.max_batch)]
+    if args.batch_linger_ms is not None:
+        argv += ["--batch-linger-ms", str(args.batch_linger_ms)]
+    for spec in args.serving_policy:
+        argv += ["--serving-policy", spec]
+    return argv
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
+def _main_fleet(args) -> None:
+    """Fleet mode: the supervisor's replicas behind the router (and the
+    autoscaler under --autoscale) until interrupted.  This process needs
+    no device: the router is host I/O, the replicas load the models."""
+    from paddlebox_tpu_torch import telemetry
+    from paddlebox_tpu_torch.serving_fleet import (
+        AutoscalerConfig,
+        FleetAutoscaler,
+        FleetRouter,
+        ReplicaSupervisor,
+    )
+
+    # SIGTERM (the launcher's teardown) stops the fleet like ^C: the
+    # replicas go down with the router instead of outliving it.  The
+    # flight dump's handler chains to this one
+    signal.signal(signal.SIGTERM, _interrupt)
+    # the router's flight dumps read as "router"; SIGTERM dumps the ring
+    telemetry.set_process_name("router")
+    telemetry.install_signal_dump()
+    supervisor = ReplicaSupervisor(
+        args.replicas, lambda rid, port: _replica_argv(args, rid, port),
+        host=args.host if args.host != "0.0.0.0" else "127.0.0.1",
+        log_dir=args.log_dir,
+    )
+    supervisor.start()
+    router = autoscaler = None
+    try:
+        router = FleetRouter(supervisor.endpoints())
+        port = router.start(port=args.router_port, host=args.host)
+        if args.autoscale:
+            conf = AutoscalerConfig.from_flags()
+            # --replicas is the floor: autoscaling only ever adds capacity
+            # beyond what was asked for
+            conf = dataclasses.replace(
+                conf, min_replicas=max(conf.min_replicas, args.replicas),
+                max_replicas=max(conf.max_replicas, args.replicas),
+            )
+            autoscaler = FleetAutoscaler(supervisor, router, conf)
+            autoscaler.start()
+        print(f"fleet router on http://{args.host}:{port}/score "
+              f"({args.replicas} replicas: "
+              f"{', '.join(supervisor.endpoints())}"
+              f"{', autoscaling' if autoscaler else ''})", flush=True)
+        router.wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if autoscaler is not None:
+            autoscaler.stop()
+        if router is not None:
+            router.stop()
+        supervisor.stop()
+
+
 def main(argv=None) -> None:
     ap = _build_parser()
     args = ap.parse_args(argv)
-    if args.replicas and args.replicas > 0:
-        ap.error(f"--replicas {args.replicas} (fleet mode) {_NOT_PORTED}")
-    if args.autoscale:
-        ap.error(f"--autoscale {_NOT_PORTED}")
     if not args.artifact and not args.sync_root:
         ap.error("pass at least one --artifact or a --sync-root")
+    if args.replicas and args.replicas > 0:
+        _main_fleet(args)
+        return
     synced = []
     for spec in args.sync_root:
         name, sep, root = spec.partition("=")

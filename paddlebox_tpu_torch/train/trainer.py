@@ -592,6 +592,12 @@ class Trainer:
         # event record's index
         self._pass_idx = 0
 
+    def close(self) -> None:
+        """API parity with MultiChipTrainer.close(): the single-chip
+        trainer holds no background thread (train_from_dataset closes its
+        pass's prefetcher itself), so this is a no-op; TwoPhaseTrainer.close
+        calls it on either path."""
+
     @property
     def _check_nan(self) -> bool:
         """Per-step finiteness check: the flag, or any policy that acts on

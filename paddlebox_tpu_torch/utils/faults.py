@@ -101,6 +101,15 @@ KNOWN_SITES = {
     # "watchdog.heartbeat" one heartbeat publish (a hang there freezes the
     # publisher: the dead-process signature peers must catch)
     "train.step", "hostplane.allgather", "watchdog.heartbeat",
+    # the TCP shuffle (data/shuffle.py): one exchange round (raise or
+    # hang) and one connect to a peer (retried)
+    "shuffle.exchange", "shuffle.connect",
+    # the serving fleet (serving_fleet/): the router's replica probe, one
+    # forward (the request fails over), a supervisor respawn (retried with
+    # a deeper backoff), a scale-up spawn (nothing joins) and the
+    # drain-retire wait (abandoned, the retirement proceeds)
+    "fleet.probe", "fleet.route", "fleet.restart", "fleet.scale",
+    "fleet.drain",
     # one /retrieve query of the scoring server (inference/server.py): a
     # fired hit answers 500, the server survives
     "retrieve.query",

@@ -13,6 +13,17 @@ the CPU over gloo.  It imports the port only.
     collectives <out_dir> <seed>
         the four data-axis collectives on this rank's slices of seeded
         global tensors, written to rank<r>.npz.
+    reshard <out_dir> <spec.json>
+        train's world over spec["passes"], pass p on spec["schedule"][p]
+        positions: the table reshards live across the ranks whenever the
+        count changes, and a new trainer on the new mesh continues the
+        dense state.  spec["fault"] = [rank, site] arms that fault site
+        once on that rank at the first reshard: the reshard must raise on
+        every rank with the old map whole, then a retry commits.
+        spec["device"] ("cpu" by default; "cuda": the ranks share the
+        card) and spec["deterministic"] (deterministic algorithms).
+        Writes rank<r>.json (per pass the metrics and rows moved, the
+        fault's record) and rank<r>.npz (its store and dense state).
 """
 
 import itertools
@@ -112,6 +123,99 @@ def train(out_dir, spec):
         json.dump({"passes": passes, "n_local": mesh.n_local}, f)
 
 
+def _tower_model(spec, tconf):
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.weights import params_from_jax
+
+    model = CtrDnn(S, tconf.row_width, dense_dim=DENSE, hidden=(32, 16),
+                   device=spec.get("device", "cpu"))
+    tower = np.load(spec["tower"])
+    model.load_state_dict(params_from_jax(
+        [{"w": tower[f"w{i}"], "b": tower[f"b{i}"]}
+         for i in range(len(tower.files) // 2)]))
+    return model
+
+
+def reshard(out_dir, spec):
+    import time
+
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.parallel import (
+        MultiChipTrainer,
+        ShardedSparseTable,
+        make_mesh,
+    )
+    from paddlebox_tpu_torch.utils import faults
+
+    job = initialize_distributed()
+    rank = job.rank
+    device = spec.get("device", "cpu")
+    if spec.get("deterministic"):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    tconf = SparseTableConfig(embedding_dim=8, placement_update_interval=1)
+    schedule = spec["schedule"]
+    mesh = make_mesh(schedule[0], device=device)
+    trainer = MultiChipTrainer(_tower_model(spec, tconf), tconf, mesh,
+                               TrainerConfig(auc_buckets=1 << 10))
+    table = ShardedSparseTable(tconf, mesh, seed=5)
+    passes, fault, auc = [], None, None
+    for files, n in zip(spec["passes"], schedule):
+        moved = 0
+        if n != table.n_shards:
+            new_mesh = make_mesh(n, device=device)
+            if spec.get("fault") and fault is None:
+                frank, site = spec["fault"]
+                table.flush()  # the reshard's own cut point
+                before = table._store.materialize()
+                old_mesh = table.mesh
+                if rank == frank:
+                    faults.install(faults.FaultPlan({site: "first:1"}))
+                t0 = time.monotonic()
+                try:
+                    table.reshard(new_mesh)
+                except Exception as e:
+                    err = f"{type(e).__name__}: {e}"
+                else:
+                    err = None
+                faults.clear()
+                after = table._store.materialize()
+                fault = {
+                    "error": err, "seconds": time.monotonic() - t0,
+                    "old_map": table.mesh is old_mesh
+                    and table.n_shards == old_mesh.n,
+                    "store_whole": bool(
+                        np.array_equal(before[0], after[0])
+                        and np.array_equal(before[1], after[1])),
+                }
+            moved = table.reshard(new_mesh)
+            dense = trainer.dense_state()
+            trainer = MultiChipTrainer(_tower_model(spec, tconf), tconf,
+                                       new_mesh,
+                                       TrainerConfig(auc_buckets=1 << 10))
+            trainer.load_dense_state(*dense)
+            auc = None  # the metric streams are stacked by position
+        ds = _load(files)
+        groups = local_groups(ds, table.n_shards, rank, table.n_local)
+        census = np.unique(np.concatenate(
+            [b.keys[: b.n_keys] for g in groups for b in g]))
+        table.begin_pass(census)
+        m = trainer.train_groups(table, iter(groups), auc_state=auc)
+        auc = trainer.last_metric_state
+        table.end_pass()
+        ds.close()
+        passes.append({k: m[k] for k in ("loss", "auc", "count", "steps")}
+                      | {"moved": moved, "n_local": table.n_local})
+    state = table.state_dict()
+    table.close()
+    dense = {k: v.cpu().numpy()
+             for k, v in trainer.dense_state()[0].items()}
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), keys=state["keys"],
+             values=state["values"], **{f"dense/{k}": v
+                                        for k, v in dense.items()})
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"passes": passes, "fault": fault}, f)
+
+
 def collectives_case(out_dir, seed):
     from paddlebox_tpu_torch.parallel import collectives
 
@@ -140,6 +244,9 @@ def main():
     if mode == "train":
         with open(sys.argv[3]) as f:
             train(out_dir, json.load(f))
+    elif mode == "reshard":
+        with open(sys.argv[3]) as f:
+            reshard(out_dir, json.load(f))
     elif mode == "collectives":
         collectives_case(out_dir, int(sys.argv[3]))
     else:

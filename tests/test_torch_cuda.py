@@ -1694,6 +1694,236 @@ def test_streaming_window_trains_on_the_card(cuda, tmp_path):
     assert summary["auc"] == m["auc"]
 
 
+def test_fleet_of_two_replicas_on_the_card(cuda, tmp_path):
+    """``serve --replicas 2`` without --cpu: both replicas serve on the card
+    behind the router, whose /score answers the CPU server's scores; a
+    SIGTERM to the fleet takes the replicas down with it."""
+    import http.client
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    from paddlebox_tpu_torch.inference import ScoringServer, export_model
+
+    ds, table, model, conf = _serving_world(tmp_path, "cpu")
+    art = str(tmp_path / "art")
+    export_model(model, table, art, batch_size=32, key_capacity=32 * 16,
+                 dense_dim=3, feed_conf=conf)
+    table.close()
+    ds.close()
+    body = b"".join(f"1 0 2 {k} {k + 61} 1 {k + 120} 1 {k + 180} 1 "
+                    f"{k + 240} 3 0.1 0.2 0.3\n".encode()
+                    for k in range(1, 40))
+    cpu = ScoringServer(device="cpu")
+    cpu.register("m", art)
+    want = cpu.score_lines(body)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddlebox_tpu_torch.serve", "--artifact",
+         f"m={art}", "--replicas", "2", "--router-port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo))
+    try:
+        port, seen = None, []
+        t0 = time.time()
+        while port is None and time.time() - t0 < 240:
+            line = proc.stdout.readline()
+            if not line:
+                assert proc.poll() is None, "".join(seen)
+                continue
+            seen.append(line)
+            if "fleet router on http://" in line:
+                port = int(line.split(":")[2].split("/")[0])
+        assert port, "".join(seen)
+
+        def get(path):
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            c.request("GET", path)
+            out = json.loads(c.getresponse().read())
+            c.close()
+            return out
+
+        t0 = time.time()
+        while get("/healthz").get("n_serving", 0) < 2:
+            assert time.time() - t0 < 240, get("/fleet")
+            time.sleep(0.5)
+        for _ in range(4):
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            c.request("POST", "/score", body=body)
+            r = c.getresponse()
+            assert r.status == 200
+            np.testing.assert_allclose(json.loads(r.read())["scores"], want,
+                                       rtol=1e-5, atol=1e-6)
+            c.close()
+        addrs = [r["addr"] for r in get("/fleet")["replicas"]]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=60)
+    for a in addrs:
+        host, _, p = a.rpartition(":")
+        with pytest.raises(OSError):
+            c = http.client.HTTPConnection(host, int(p), timeout=5)
+            c.request("GET", "/healthz")
+
+
+def test_multi_scenario_pass_on_the_card_matches_cpu(cuda, tmp_path):
+    """A ranker and a two-tower scenario over one table, one interleaved
+    pass on the card (the kernels launched once a step) and on the CPU from
+    the same seeds: the zoo's card-against-CPU bounds."""
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.models import CtrDnn, TwoTower
+    from paddlebox_tpu_torch.scenarios import MultiScenarioTrainer, ScenarioSpec
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+
+    files = write_synth_files(str(tmp_path / "d"), n_files=1,
+                              ins_per_file=256, n_sparse_slots=4,
+                              vocab_per_slot=50, dense_dim=3, seed=21)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tconf = SparseTableConfig(embedding_dim=8)
+        specs = [
+            ScenarioSpec("rank", CtrDnn(4, tconf.row_width, dense_dim=3,
+                                        hidden=(32, 16), seed=1,
+                                        device=device),
+                         trainer_conf=TrainerConfig(auc_buckets=1 << 10)),
+            ScenarioSpec("retr", TwoTower(4, tconf.row_width, item_slots=(3,),
+                                          dense_dim=3, hidden=(16,),
+                                          temperature=1.0, seed=2,
+                                          device=device),
+                         kind="retrieval",
+                         trainer_conf=TrainerConfig(auc_buckets=1 << 10)),
+        ]
+        mst = MultiScenarioTrainer(tconf, specs, device=device)
+        table = SparseTable(tconf, seed=0, device=device)
+        dss = {}
+        for n in ("rank", "retr"):
+            dss[n] = PadBoxSlotDataset(make_synth_config(4, 3, 32, 16),
+                                       read_threads=1)
+            dss[n].set_filelist(files)
+            dss[n].load_into_memory()
+        sk.reset_launches()
+        m = mst.train_pass(dss, table)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            steps = sum(r["steps"] for r in m.values())
+            assert sk.launches["pull_rows"] == sk.launches[
+                "scatter_add_rows"] == steps > 0
+        runs[device] = (m, table.state_dict())
+        table.close()
+        for d in dss.values():
+            d.close()
+    (mg, sg), (mc, sc) = runs["cuda"], runs["cpu"]
+    for n in ("rank", "retr"):
+        assert mg[n]["steps"] == mc[n]["steps"]
+        assert mg[n]["loss"] == pytest.approx(mc[n]["loss"], rel=1e-4)
+        assert abs(mg[n]["auc"] - mc[n]["auc"]) <= 1e-3
+    np.testing.assert_array_equal(sg["keys"], sc["keys"])
+    np.testing.assert_allclose(sg["values"], sc["values"], rtol=0, atol=1e-4)
+
+
+def test_reshard_across_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card reshard live 4 -> 2 -> 4 between
+    passes (tests/_torch_mp_child.py ``reshard``): under deterministic
+    algorithms every pass's metrics, both ranks' dense state and the union
+    of their stores equal one process running the same schedule on the
+    card."""
+    import json
+    import os
+
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.data.synth import make_synth_config, write_synth_files
+    from paddlebox_tpu_torch.launch import launch
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.parallel import (
+        MultiChipTrainer,
+        ShardedSparseTable,
+        make_mesh,
+    )
+
+    schedule = (4, 2, 4)
+    passes = [write_synth_files(str(tmp_path / f"p{p}"), n_files=2,
+                                ins_per_file=64, n_sparse_slots=3,
+                                vocab_per_slot=200, dense_dim=2, seed=40 + p)
+              for p in range(3)]
+    tconf = SparseTableConfig(embedding_dim=8, placement_update_interval=1)
+    seed_model = CtrDnn(3, tconf.row_width, dense_dim=2, hidden=(32, 16),
+                        seed=4, device="cpu")
+    state = {k: v.numpy() for k, v in seed_model.state_dict().items()}
+    tower = {}
+    for i in range(len(state) // 2):
+        tower[f"w{i}"] = state[f"tower.{i}.weight"].T
+        tower[f"b{i}"] = state[f"tower.{i}.bias"]
+    np.savez(tmp_path / "tower.npz", **tower)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_mesh(4, device=cuda)
+        table = ShardedSparseTable(tconf, mesh, seed=5)
+
+        def trainer(m):
+            model = CtrDnn(3, tconf.row_width, dense_dim=2, hidden=(32, 16),
+                           device=cuda)
+            model.load_state_dict(seed_model.state_dict())
+            return MultiChipTrainer(model, tconf, m,
+                                    TrainerConfig(auc_buckets=1 << 10))
+
+        tr, one, auc = trainer(mesh), [], None
+        for files, n in zip(passes, schedule):
+            if n != table.n_shards:
+                mesh = make_mesh(n, device=cuda)
+                table.reshard(mesh)
+                dense = tr.dense_state()
+                tr = trainer(mesh)
+                tr.load_dense_state(*dense)
+                auc = None
+            ds = PadBoxSlotDataset(make_synth_config(3, 2, 8, 16),
+                                   read_threads=1)
+            ds.set_filelist(files)
+            ds.load_into_memory()
+            table.begin_pass(ds.unique_keys())
+            m = tr.train_from_dataset(ds, table, auc_state=auc)
+            auc = tr.last_metric_state
+            table.end_pass()
+            ds.close()
+            one.append((m["loss"], m["auc"], m["count"], m["steps"]))
+        want = table.state_dict()
+        table.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = tmp_path / "out"
+    out.mkdir()
+    (tmp_path / "spec.json").write_text(json.dumps({
+        "passes": passes, "schedule": list(schedule), "device": "cuda",
+        "deterministic": True, "tower": str(tmp_path / "tower.npz")}))
+    child = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_torch_mp_child.py")
+    rc = launch([child, "reshard", str(out), str(tmp_path / "spec.json")],
+                nproc=2, positions_per_proc=2, device="cuda",
+                backend="gloo", log_dir=str(tmp_path / "logs"),
+                job_timeout_s=600.0,
+                env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    logs = tmp_path / "logs"
+    assert rc == 0, "\n".join((logs / f).read_text()[-3000:]
+                              for f in sorted(os.listdir(logs)))
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in (0, 1)]
+    for r in ranks:
+        got = [(p["loss"], p["auc"], p["count"], p["steps"])
+               for p in r["passes"]]
+        assert got == one
+    zs = [np.load(out / f"rank{r}.npz") for r in (0, 1)]
+    keys = np.concatenate([z["keys"] for z in zs])
+    vals = np.concatenate([z["values"] for z in zs])
+    order = np.argsort(keys)
+    np.testing.assert_array_equal(keys[order], want["keys"])
+    np.testing.assert_array_equal(vals[order], want["values"])
+
+
 def test_a_capture_that_cannot_succeed_raises(cuda, tmp_path):
     """A model whose forward reads a value on the host cannot be captured:
     the trainer raises, and no group runs eagerly in its place."""

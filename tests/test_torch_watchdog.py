@@ -428,6 +428,23 @@ def test_kvchannel_completes_when_peers_answer(kv):
     assert kv.get("pbox_hp/plan-8/0/0") is None  # close deletes its keys
 
 
+def test_kvchannel_close_can_keep_the_last_key(kv):
+    """close(keep_last=True) deletes all but the last sequence's key (a
+    peer may still be reading it); close() then deletes that one too."""
+    ch = _channel(kv, "plan-k", timeout_s=5.0)
+    for s in range(3):
+        for r in (1, 2):
+            kv.set(f"pbox_hp/plan-k/{s}/{r}",
+                   _peer_payload(np.asarray([r], np.int64)))
+        ch.allgather(np.asarray([0], dtype=np.int64))
+    assert kv.get("pbox_hp/plan-k/0/0") is None  # the gathers' GC window
+    ch.close(keep_last=True)
+    assert kv.get("pbox_hp/plan-k/1/0") is None
+    assert kv.get("pbox_hp/plan-k/2/0") is not None
+    ch.close()
+    assert kv.get("pbox_hp/plan-k/2/0") is None
+
+
 def test_kvchannel_gather_bytes_varlen(kv):
     ch = _channel(kv, "plan-b", timeout_s=5.0)
     kv.set("pbox_hp/plan-b/0/1",
