@@ -58,6 +58,23 @@ Phases, each fatal on failure:
      prefetch — at a small size under deterministic algorithms, a cached
                single-chip run and a 4-position hybrid run with the prefetch
                thread must be bit-equal to the same runs fed serially.
+     criteo  — the Criteo CTR-DNN recipe (BASELINE.json's first
+               configuration) at its published widths: 26 hashed
+               categorical slots, 13 log1p counts, embedding_dim 8, tower
+               512-256-128, batch 2048 (up to 53 248 keys a batch), the
+               default HBM cache.  A synthetic Criteo TSV of CRITEO_LINES
+               lines (vocab CRITEO_VOCAB a column) is written and converted
+               with convert_criteo_files in a process of its own beside the
+               build; the shards load with criteo_feed_config through the
+               native parser.  CRITEO_PASSES passes on the card, the launch
+               counters reset just before and read just after (every kernel
+               of the cached path must launch), then the same passes on the
+               CPU from the same seeds, the dense side under SGD: losses
+               within 1e-4 relative, AUC within 1e-3, equal keys and every
+               table row within 1e-4 (small_agreement's bounds), the
+               feature count equal to the census.  Write, convert and load
+               seconds, begin_pass / end_pass seconds and samples/s a pass,
+               the launches, beside the card's name and power limit.
   4. cached  — the same model with the reference's default HBM cache (65 536
                rows) over CACHED_PASSES passes, each over its own Zipf(1.3)
                file set, counters reset just before and read just after;
@@ -384,6 +401,14 @@ CPU_AGREE_BATCHES = 2 * POSITIONS
 # their Zipf set (of 32)
 RESHARD_BATCHES = 16
 
+# The Criteo phase: the recipe of examples/train_criteo_torch.py (and
+# BASELINE.json's first configuration) on a synthetic Criteo TSV of
+# CRITEO_LINES lines, CRITEO_VOCAB tokens a categorical column (about 1.2
+# million census keys): 32 steps of 2048 a pass, CRITEO_PASSES passes (the
+# second the cache's warm boundary); the dense side under SGD at
+# ZOO_CPU_SGD_LR for the card against the CPU.
+CRITEO_LINES, CRITEO_VOCAB, CRITEO_PASSES, CRITEO_SEED = 65_536, 100_000, 2, 17
+
 # H100 SXM device memory rate and float32 rate outside the tensor cores
 # (NVIDIA data sheet): the bytes and operations bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -486,6 +511,34 @@ def write_data() -> tuple:
     logkey_end = N_FILES + CACHED_FILES * ZIPF_SETS + DH_FILES
     return (paths[:N_FILES], per_pass, paths[logkey_end - DH_FILES:logkey_end],
             paths[logkey_end:])
+
+
+def _criteo_part(out_dir: str) -> tuple:
+    """The Criteo TSV written and converted (a process of its own):
+    (shards, write seconds, convert seconds)."""
+    from paddlebox_tpu_torch.data.criteo import (
+        convert_criteo_files,
+        write_criteo_format_sample,
+    )
+
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    tsv = write_criteo_format_sample(
+        os.path.join(out_dir, "sample.tsv"), n_lines=CRITEO_LINES,
+        seed=CRITEO_SEED, vocab_per_cat=CRITEO_VOCAB)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards = convert_criteo_files([tsv], os.path.join(out_dir, "slots"),
+                                  batch_size=BATCH)
+    return shards, write_s, time.perf_counter() - t0
+
+
+def write_criteo() -> tuple:
+    """_criteo_part in a spawned process (no CUDA context to inherit)."""
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as ex:
+        return ex.submit(_criteo_part,
+                         os.path.join(WORK_DIR, "criteo")).result()
 
 
 def based4(t):
@@ -1110,6 +1163,111 @@ def small_agreement() -> None:
         raise AssertionError(f"card/CPU table rows differ by {err}")
     log(f"small pass card vs CPU: losses {[m['loss'] for m in mg]} vs "
         f"{[m['loss'] for m in mc]}, table max abs diff {err!r}")
+
+
+def criteo(crit: tuple, card: str) -> None:
+    """The Criteo CTR-DNN recipe at its published widths on the card and
+    on the CPU (see the module docstring): CRITEO_PASSES passes each,
+    counters reset just before the card's and read just after; held card
+    against CPU at small_agreement's bounds."""
+    import numpy as np
+
+    from paddlebox_tpu_torch.config import SparseTableConfig, TrainerConfig
+    from paddlebox_tpu_torch.data.criteo import (
+        CRITEO_N_CAT,
+        CRITEO_N_DENSE,
+        criteo_feed_config,
+    )
+    from paddlebox_tpu_torch.data.dataset import PadBoxSlotDataset
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.ops import sparse_kernels as sk
+    from paddlebox_tpu_torch.sparse.table import SparseTable
+    from paddlebox_tpu_torch.train import Trainer
+
+    shards, write_s, convert_s = crit
+    conf = criteo_feed_config(BATCH)
+    t0 = time.perf_counter()
+    ds = PadBoxSlotDataset(conf, read_threads=4)
+    ds.set_filelist(shards)
+    ds.load_into_memory()
+    load_s = time.perf_counter() - t0
+    if ds.parser._native is None:
+        raise AssertionError("the Criteo shards loaded without the native "
+                             "parser")
+    census = ds.unique_keys()
+    n = ds.get_memory_data_size()
+    steps = -(-n // BATCH)
+    if conf.batch_key_capacity != BATCH * CRITEO_N_CAT or steps != 32:
+        raise AssertionError(f"Criteo feed: {conf.batch_key_capacity} keys "
+                             f"a batch, {steps} steps a pass")
+    log(f"criteo data: {n} lines in {len(shards)} shard(s), {census.shape[0]} "
+        f"census keys; written in {write_s!r} s and converted in "
+        f"{convert_s!r} s (a process beside the build), loaded in {load_s!r} "
+        f"s (native parser)")
+    saved = dict(sk.launches)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tconf = SparseTableConfig(embedding_dim=EMB)
+        if tconf.hbm_cache_rows != CACHE_ROWS:
+            raise AssertionError(f"default cache {tconf.hbm_cache_rows} rows")
+        table = SparseTable(tconf, seed=0, device=device)
+        model = CtrDnn(CRITEO_N_CAT, tconf.row_width, dense_dim=CRITEO_N_DENSE,
+                       hidden=HIDDEN, seed=0, device=device)
+        trainer = Trainer(model, tconf, TrainerConfig(
+            auc_buckets=1 << 16, dense_optimizer="sgd",
+            dense_lr=ZOO_CPU_SGD_LR), device=device)
+        fed = prefetched_feeds()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        per_pass = run_passes(ds, table, trainer, CRITEO_PASSES)
+        secs = time.perf_counter() - t0
+        launches = dict(sk.launches)
+        check_prefetched(trainer, fed, sum(m["steps"] for m in per_pass))
+        staged_as_expected(table, per_pass)
+        if table.missing_key_count or table.n_features != census.shape[0]:
+            raise AssertionError(
+                f"criteo on {device}: the table holds {table.n_features} of "
+                f"{census.shape[0]} census keys, {table.missing_key_count} "
+                "missing")
+        state = table.state_dict()
+        table.close()
+        if not np.isfinite(state["values"]).all():
+            raise AssertionError(f"criteo on {device}: non-finite rows")
+        for p, m in enumerate(per_pass):
+            if not (math.isfinite(m["loss"]) and 0.0 < m["auc"] < 1.0
+                    and m["count"] == n and m["steps"] == steps):
+                raise AssertionError(f"criteo on {device} pass {p}: {m}")
+            log(f"criteo {device} pass {p}: loss {m['loss']!r} auc "
+                f"{m['auc']!r} steps {m['steps']}; begin_pass "
+                f"{m['begin_s']!r} s, end_pass {m['end_s']!r} s, "
+                f"{m['samples'] / m['duration_s']!r} samples/s; begin_pass "
+                f"breakdown (staged {m['breakdown']['staged']}): "
+                f"{fmt_breakdown(m['breakdown'])}")
+        log(f"criteo {device}: {CRITEO_PASSES} passes in {secs!r} s"
+            + (f"; launches {launches}" if device == "cuda" else ""))
+        runs[device] = (per_pass, state, launches)
+    sk.launches.update(saved)  # a path of its own, not the main path's
+    ds.close()
+    (pg, sg, launches), (pc, sc, _) = runs["cuda"], runs["cpu"]
+    for name in ("pull_rows", "scatter_add_rows", "gather_slots",
+                 "scatter_rows", "sorted_search"):
+        if launches[name] <= 0:
+            raise AssertionError(f"criteo: kernel {name} never launched")
+    for p, (a, b) in enumerate(zip(pg, pc)):
+        if not (math.isclose(a["loss"], b["loss"], rel_tol=1e-4)
+                and abs(a["auc"] - b["auc"]) <= 1e-3):
+            raise AssertionError(
+                f"criteo card/CPU pass {p}: loss {a['loss']} vs {b['loss']}, "
+                f"auc {a['auc']} vs {b['auc']}")
+    if not np.array_equal(sg["keys"], sc["keys"]):
+        raise AssertionError("criteo card/CPU tables hold different keys")
+    err = float(np.abs(sg["values"] - sc["values"]).max())
+    if err > 1e-4:
+        raise AssertionError(f"criteo card/CPU table rows differ by {err}")
+    log(f"criteo card vs CPU: losses {[m['loss'] for m in pg]} vs "
+        f"{[m['loss'] for m in pc]}, AUC {[m['auc'] for m in pg]} vs "
+        f"{[m['auc'] for m in pc]}, {sg['keys'].shape[0]} keys equal, table "
+        f"max abs diff {err!r}; {card}")
 
 
 def load(files, read_threads: int):
@@ -4985,11 +5143,12 @@ def parallel_axes(zipf_sets, logkey_files, seq_files) -> dict:
 # --------------------------------------------------------------------------- #
 # the export's second shape bucket: one /score request of SERVE_INS
 # instances (16 slots of up to 3 keys: at most 3 072 keys); the load test's
-# requests, clients and queries
+# requests (depth cut since the criteo phase: 120, 240 before), clients and
+# queries
 SERVE_INS = 64
 SERVE_BUCKET = (SERVE_INS, 4096)
 SERVE_DTYPES = ("fp32", "int8", "fp8")
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCHES = 8, 240, 2
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCHES = 8, 120, 2
 RETRIEVE_QUERIES, RETRIEVE_REQUESTS, RETRIEVE_K = 16, 200, 10
 # scores of one instance through two float32 towers that sum in another
 # order (the card's index_add, the CPU's): the reference tests' bound
@@ -5283,9 +5442,10 @@ def serving(res, ds, axes) -> dict:
 # --------------------------------------------------------------------------- #
 # FLEET_REPLICAS replicas of ``python -m paddlebox_tpu_torch.serve`` on the
 # card behind the router; the chaos run's clients; the waits; the timed
-# requests (the first of the serving phase's)
+# requests (the first of the serving phase's; depth cut since the criteo
+# phase: 64, 120 before)
 FLEET_REPLICAS, FLEET_CLIENTS, FLEET_WAIT_S = 2, 8, 180.0
-FLEET_REQUESTS = 120
+FLEET_REQUESTS = 64
 
 
 def _healthz(addr: str) -> bool:
@@ -7148,13 +7308,15 @@ def main() -> int:
         t0 = time.perf_counter()
         # the data files are written (writer processes) while the host
         # libraries build with g++ beside the nvcc builds
-        with concurrent.futures.ThreadPoolExecutor(3) as ex:
+        with concurrent.futures.ThreadPoolExecutor(4) as ex:
             data = ex.submit(write_data)
+            crit_f = ex.submit(write_criteo)
             host = [ex.submit(_native.get_lib), ex.submit(_native.get_plan_lib)]
             built = cuda_build.build(sk.KERNELS)
             cuda_s = time.perf_counter() - t0
             host_libs = [h.result() for h in host]
             files, cached_files, logkey_files, seq_files = data.result()
+            crit = crit_f.result()
             write_s = time.perf_counter() - t0
         log(f"build: {cuda_s!r} s for {sorted(built)}")
         for name in built:
@@ -7205,6 +7367,7 @@ def main() -> int:
         phase(feed_turns, ds, res["table"], res["trainer"])
         phase(small_agreement)
         phase(prefetch_agreement)
+        phase(criteo, crit, card)
         cached = phase(cached_path, cached_ds[:CACHED_PASSES])
         phase(lifecycle_check, censuses[:CACHED_PASSES])
         phase(persistence_check, cached_ds[:CACHED_PASSES])

@@ -81,7 +81,7 @@ def main():
     pub.publish_base("pass0", model, None, table, lineage="pass0",
                      batch_size=B, key_capacity=kcap, dense_dim=DENSE,
                      feed_conf=conf)
-    print(f"pass 0: auc={m['auc']:.4f} -> published base "
+    print(f"pass 0: loss={m['loss']:.4f} auc={m['auc']:.4f} -> published base "
           f"({table.n_features} features)")
 
     # -- serving side: the live server and its sync agent -------------------- #
@@ -117,7 +117,8 @@ def main():
         split = ", ".join(f"{k} {v:.4f}s" for k, v in syncer.last_apply.items()
                           if k.endswith("_s"))
         print(
-            f"pass {i}: auc={m['auc']:.4f} -> delta {entry.n_rows} rows, "
+            f"pass {i}: loss={m['loss']:.4f} auc={m['auc']:.4f} -> delta "
+            f"{entry.n_rows} rows, "
             f"{entry.n_bytes} bytes (applied {applied}: {split}); live = "
             f"base {info['base_tag']} + {info['deltas_applied']} deltas; "
             f"score = {score():.6f}"

@@ -52,7 +52,7 @@ def build_artifact(work: str, device: str) -> str:
     table.begin_pass(ds.unique_keys())
     metrics = trainer.train_from_dataset(ds, table)
     table.end_pass()
-    print(f"trained: auc={metrics['auc']:.4f}")
+    print(f"trained: loss={metrics['loss']:.4f} auc={metrics['auc']:.4f}")
     art = os.path.join(work, "artifact")
     export_model(
         model, table, art,

@@ -166,6 +166,9 @@ def main():
     server.stop()
     hist = telemetry.registry.get("stream.freshness_seconds")
     print("\nstream summary:", json.dumps(summary, indent=2))
+    last = runner.last_metrics or {}
+    print(f"last window: loss={last.get('loss', float('nan')):.4f} "
+          f"auc={last.get('auc', float('nan')):.4f}")
     if hist is not None:
         print("stream.freshness_seconds:", hist.summary())
     print(f"final served score: {final:.4f}")

@@ -254,6 +254,9 @@ class DataFeedConfig:
     # total key capacity of one batch; None -> batch_size * max_feasigns_per_ins
     batch_key_capacity: Optional[int] = None
 
+    def used_slots(self) -> list[SlotConfig]:
+        return [s for s in self.slots if s.is_used]
+
     def sparse_slots(self) -> list[SlotConfig]:
         """Used uint64 slots, in file order."""
         return [

@@ -54,6 +54,13 @@ class RecordBlock:
     def n_keys(self) -> int:
         return int(self.keys.shape[0])
 
+    def slot_slice(self, ins: int, slot: int) -> np.ndarray:
+        """The keys of sparse slot ``slot`` of instance ``ins``."""
+        s = self.n_sparse_slots
+        lo = self.key_offsets[ins * s + slot]
+        hi = self.key_offsets[ins * s + slot + 1]
+        return self.keys[lo:hi]
+
     @staticmethod
     def concat(blocks: Sequence["RecordBlock"]) -> "RecordBlock":
         """Merge blocks into one, rebasing the CSR offsets."""

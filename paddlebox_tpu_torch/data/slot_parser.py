@@ -69,7 +69,7 @@ class SlotParser:
                 )
             else:
                 self._walk.append(("skip", -1, -1))
-        self._dense_width = col
+        self.dense_width = col
         self.n_task_labels = len(task_cols)
         self.n_sparse = len(self.sparse_slots)
         self._native = None
@@ -101,7 +101,7 @@ class SlotParser:
 
             try:
                 self._native = NativeParser(
-                    self._walk, self.n_sparse, self._dense_width,
+                    self._walk, self.n_sparse, self.dense_width,
                     self.n_task_labels, self.conf.parse_ins_id,
                     self.conf.parse_logkey,
                 )
@@ -192,7 +192,7 @@ class SlotParser:
             keys=np.asarray(keys, dtype=np.uint64),
             key_offsets=np.asarray(offsets, dtype=np.int64),
             dense=np.asarray(dense_rows, dtype=np.float32).reshape(
-                n_ins, self._dense_width
+                n_ins, self.dense_width
             ),
             labels=np.asarray(labels, dtype=np.float32),
             ins_ids=ins_ids,
@@ -216,7 +216,7 @@ class SlotParser:
             ranks.append(int(rk))
             cmatches.append(int(cm))
             p += 1
-        drow = [0.0] * self._dense_width
+        drow = [0.0] * self.dense_width
         trow = [0.0] * self.n_task_labels
         label = 0.0
         per_slot_counts = []

@@ -276,11 +276,22 @@ def _job_layout(device, positions: int, n_inner: int = 1) -> tuple:
     return j.device, True, j.world, j.rank
 
 
-def make_mesh(n: int, device="cuda", axis_name: str = DATA_AXIS) -> Mesh:
+def make_mesh(n: Optional[int] = None, device="cuda",
+              axis_name: str = DATA_AXIS) -> Mesh:
     """n positions of one axis on one device (``device="cpu"`` for the
     CPU); a model axis by name, e.g. ``make_mesh(4, axis_name="seq")``.
     Inside a job a data axis of n positions spans the job's processes on
-    each rank's device; a model axis stays in-process."""
+    each rank's device; a model axis stays in-process.
+
+    With no n, the reference's "every device of the job": one position
+    alone; in a job, ``positions_per_proc`` (``--positions-per-proc``,
+    else 1) a process, over every process for the data axis and this
+    process's own for a model axis."""
+    if n is None:
+        j = job()
+        n = 1 if j is None else max(1, j.positions_per_proc)
+        if j is not None and axis_name == DATA_AXIS:
+            n *= j.world
     if n < 1:
         raise ValueError(f"need at least one shard position, got {n}")
     if axis_name != DATA_AXIS:

@@ -124,6 +124,11 @@ class PlacementPlanner:
         self._plan = PlacementPlan(_EMPTY_U64.copy(), 0)
         self._passes_since_update = 0
 
+    @property
+    def tracked(self) -> int:
+        """Keys the frequency tracker holds."""
+        return int(self._keys.shape[0])
+
     def plan(self) -> PlacementPlan:
         """The current plan (stable across calls until update_plan)."""
         return self._plan

@@ -13,6 +13,10 @@ the CPU over gloo.  It imports the port only.
     collectives <out_dir> <seed>
         the four data-axis collectives on this rank's slices of seeded
         global tensors, written to rank<r>.npz.
+    mesh <out_dir>
+        ``make_mesh()`` with no count, on the data axis and on a model
+        axis: positions, process layout and this rank's positions,
+        written to rank<r>.json.
     reshard <out_dir> <spec.json>
         train's world over spec["passes"], pass p on spec["schedule"][p]
         positions: the table reshards live across the ranks whenever the
@@ -239,6 +243,19 @@ def collectives_case(out_dir, seed):
              **{k: v.numpy() for k, v in out.items()})
 
 
+def mesh_case(out_dir):
+    from paddlebox_tpu_torch.parallel import make_mesh
+
+    job = initialize_distributed()
+    out = {}
+    for axis in ("data", "seq"):
+        m = make_mesh(device="cpu", axis_name=axis)
+        out[axis] = {"n": m.n, "distributed": m.distributed,
+                     "n_proc": m.n_proc, "local": list(m.local_positions)}
+    with open(os.path.join(out_dir, f"rank{job.rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
 def main():
     mode, out_dir = sys.argv[1], sys.argv[2]
     if mode == "train":
@@ -249,6 +266,8 @@ def main():
             reshard(out_dir, json.load(f))
     elif mode == "collectives":
         collectives_case(out_dir, int(sys.argv[3]))
+    elif mode == "mesh":
+        mesh_case(out_dir)
     else:
         raise SystemExit(f"unknown mode {mode!r}")
 

@@ -1924,6 +1924,53 @@ def test_reshard_across_two_gloo_ranks_on_the_card(cuda, tmp_path):
     np.testing.assert_array_equal(vals[order], want["values"])
 
 
+EXAMPLES_ON_THE_CARD = {
+    "train_criteo": ["train_criteo_torch.py", "--lines", "4096", "--passes",
+                     "2"],
+    "train_ctr_dnn": ["train_ctr_dnn_torch.py", "--days", "2", "--passes",
+                      "2", "--ins-per-pass", "2048"],
+    "train_ctr_dnn_multichip": ["train_ctr_dnn_torch.py", "--multichip",
+                                "--days", "1", "--passes", "2",
+                                "--ins-per-pass", "2048"],
+    "train_longseq": ["train_longseq_torch.py", "--passes", "2",
+                      "--seq-mesh", "4", "--impl", "ulysses"],
+    "bench_store": ["bench_store_torch.py", "--max-exp", "6", "--table-pass"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLES_ON_THE_CARD))
+def test_example_runs_on_the_card(cuda, tmp_path, name):
+    """The new examples as a user runs them, on the card (no ``--cpu``)
+    at small flags: rc 0, finite losses and AUCs (bench_store: its
+    table pass's seconds) and the card named as the device."""
+    import math
+    import os
+    import re
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script, *args = EXAMPLES_ON_THE_CARD[name]
+    proc = subprocess.run(
+        [sys.executable, os.path.join(repo, "examples", script), *args],
+        cwd=str(tmp_path), capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, TMPDIR=str(tmp_path), PYTHONPATH=repo))
+    out = proc.stdout
+    assert proc.returncode == 0, out[-3000:] + proc.stderr[-3000:]
+    if name == "bench_store":
+        patterns = [r"on cuda: begin_pass\([\d,]+\)=([\d.]+)s "
+                    r"end_pass=([\d.]+)s flush=([\d.]+)s"]
+    else:
+        assert re.search(r"device cuda|positions on cuda", out), out[-3000:]
+        patterns = [r"\bloss=([^\s,;]+)", r"\bauc=([^\s,;]+)"]
+    for pat in patterns:
+        found = re.findall(pat, out)
+        assert found, (pat, out[-3000:])
+        for m in found:
+            for text in (m if isinstance(m, tuple) else (m,)):
+                assert math.isfinite(float(text)), (pat, text)
+
+
 def test_a_capture_that_cannot_succeed_raises(cuda, tmp_path):
     """A model whose forward reads a value on the host cannot be captured:
     the trainer raises, and no group runs eagerly in its place."""
